@@ -1,0 +1,214 @@
+"""Configuration, policy ids and the initial state of the replay engine.
+
+`TorchSimConfig` has the fields and defaults of the JAX package's
+``JaxSimConfig`` apart from ``use_kernels`` and ``kernels_interpret``: on the
+port the device of the tensors decides whether a kernel or its plain
+version runs. Values that a later slice of the port brings (the timing
+model, GC scheduling, the legacy engine, grouped dispatch, the stateful
+schemes) raise `NotImplementedError` naming their ROADMAP item.
+
+The state is a dict of tensors with the JAX state's keys, minus the
+``sch_<name>_*`` slices of the stateful schemes, and a leading volume axis
+V (one volume is V = 1). Each key keeps the JAX dtype and initial value.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from .placement.schemes import (  # noqa: F401  (SCHEME_NAMES: part of the id tables)
+    SCHEME_CLASSES,
+    SCHEME_IDS,
+    SCHEME_NAMES,
+    require_elementwise,
+    scheme_id,
+)
+
+BIG = 2 ** 30
+SELECTOR_IDS = {"greedy": 0, "cost_benefit": 1}
+SELECTOR_NAMES = tuple(SELECTOR_IDS)
+GCSCHED_IDS = {"greedy": 0, "rate_limited": 1, "idle_window": 2}
+GCSCHED_NAMES = tuple(GCSCHED_IDS)
+
+POLICY_DTYPES = {
+    "p_scheme": torch.int32,
+    "p_selector": torch.int32,
+    "p_gp": torch.float32,
+    "p_ncw": torch.int32,
+    "p_classes": torch.int32,
+    "p_gcsched": torch.int32,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TorchSimConfig:
+    n_lbas: int
+    segment_size: int = 128
+    gp_threshold: float = 0.15
+    selector: str = "cost_benefit"          # or "greedy"
+    scheme: str = "sepbit"
+    nc_window: int = 16
+    max_gc_per_step: int = 64
+    n_segments: int | None = None           # S_max; default sized from capacity
+    class_slots: int | None = None          # pad the class axis (mixed fleets)
+    sfs_resample: int = 4096
+    gc_engine: str = "tick"
+    scheme_group: tuple[str, ...] | None = None
+    timing: bool = False
+    write_cost: float = 1.0
+    gc_block_cost: float = 1.0
+    gc_sched: str = "greedy"
+    gc_rate: int = 4
+    gc_watermark: int | None = None
+    idle_density: float = 0.5
+    density_window: int = 16
+    lat_buckets: int = 64
+
+    def __post_init__(self):
+        if self.selector not in SELECTOR_IDS:
+            raise ValueError(f"unknown selector {self.selector!r}; choices: {SELECTOR_NAMES}")
+        if self.gc_sched not in GCSCHED_IDS:
+            raise ValueError(f"unknown gc_sched {self.gc_sched!r}; choices: {GCSCHED_NAMES}")
+        if self.gc_engine not in ("tick", "legacy"):
+            raise ValueError(f"unknown gc_engine {self.gc_engine!r}; choices: tick, legacy")
+        require_elementwise([scheme_id(self.scheme)])
+        if self.timing:
+            raise NotImplementedError(
+                "timing=True is not ported yet; see ROADMAP.md Queue 1 item 6")
+        if self.gc_sched != "greedy":
+            raise NotImplementedError(
+                f"gc_sched={self.gc_sched!r} is not ported yet; see ROADMAP.md Queue 1 item 6")
+        if self.gc_engine == "legacy":
+            raise NotImplementedError(
+                "gc_engine='legacy' is not ported yet; see ROADMAP.md Queue 1 item 7")
+        if self.scheme_group is not None:
+            raise NotImplementedError(
+                "scheme_group is not ported yet; see ROADMAP.md Queue 1 item 5")
+
+    @property
+    def n_classes(self) -> int:
+        return SCHEME_CLASSES[scheme_id(self.scheme)]
+
+    @property
+    def n_class_slots(self) -> int:
+        """Width of the class axis; slots >= a volume's own class count are
+        masked to no-ops."""
+        return self.class_slots if self.class_slots is not None else self.n_classes
+
+    @property
+    def s_max(self) -> int:
+        if self.n_segments is not None:
+            return self.n_segments
+        cap_segments = int(math.ceil(self.n_lbas / (1.0 - self.gp_threshold)
+                                     / self.segment_size))
+        return 2 * cap_segments + 4 * self.n_class_slots + 8
+
+    @property
+    def watermark_rows(self) -> int:
+        if self.gc_watermark is not None:
+            return self.gc_watermark
+        return 2 * self.n_class_slots + 2
+
+    @property
+    def pad_row(self) -> int:
+        """Index of the sacrificial overflow segment row (see init_state)."""
+        return self.s_max
+
+    @property
+    def n_rows(self) -> int:
+        return self.s_max + 1
+
+
+def default_policy(cfg: TorchSimConfig) -> dict:
+    """Per-volume policy values equivalent to the knobs in ``cfg``."""
+    return {
+        "p_scheme": SCHEME_IDS[cfg.scheme],
+        "p_selector": SELECTOR_IDS[cfg.selector],
+        "p_gp": cfg.gp_threshold,
+        "p_ncw": cfg.nc_window,
+        "p_classes": cfg.n_classes,
+        "p_gcsched": GCSCHED_IDS[cfg.gc_sched],
+    }
+
+
+def _policy_tensors(cfg: TorchSimConfig, policy: dict | None, device) -> dict:
+    """``policy`` (scalars or (V,) arrays per key; None = ``cfg``'s knobs) as
+    (V,) tensors of the state's dtypes, checked against what this slice runs."""
+    if policy is None:
+        policy = default_policy(cfg)
+    out = {}
+    for key, dtype in POLICY_DTYPES.items():
+        x = torch.as_tensor(policy[key])
+        out[key] = x.to(device=device, dtype=dtype).reshape(-1)
+    sizes = {x.numel() for x in out.values()}
+    if len(sizes) != 1:
+        raise ValueError(f"policy arrays differ in length: {sorted(sizes)}")
+    require_elementwise(torch.unique(out["p_scheme"]).tolist())
+    if bool((out["p_gcsched"] != GCSCHED_IDS["greedy"]).any()):
+        raise NotImplementedError(
+            "GC scheduling policies other than greedy are not ported yet; "
+            "see ROADMAP.md Queue 1 item 6")
+    if bool((out["p_classes"] > cfg.n_class_slots).any()):
+        raise ValueError(f"a policy uses more classes than cfg.n_class_slots "
+                         f"= {cfg.n_class_slots}; set class_slots")
+    return out
+
+
+def state_spec(cfg: TorchSimConfig) -> dict:
+    """Per-volume shape and dtype of every state key (no allocation)."""
+    R, s, C, n = cfg.n_rows, cfg.segment_size, cfg.n_class_slots, cfg.n_lbas
+    i32, f32 = torch.int32, torch.float32
+    spec = {
+        "seg_lba": ((R, s), i32), "seg_utime": ((R, s), i32), "seg_valid": ((R, s), torch.bool),
+        "seg_n": ((R,), i32), "seg_nvalid": ((R,), i32), "seg_cls": ((R,), i32),
+        "seg_state": ((R,), i32),     # 0 free, 1 open, 2 sealed, 3 reserved
+        "seg_ctime": ((R,), i32), "seg_stime": ((R,), i32),
+        "open_sid": ((C,), i32),
+        "loc_seg": ((n,), i32), "loc_off": ((n,), i32), "last_uw": ((n,), i32),
+    }
+    for key in ("t", "total_occ", "total_valid", "user_writes", "gc_writes", "reclaimed",
+                "overflow"):
+        spec[key] = ((), i32)
+    spec.update({"ell": ((), f32), "ell_tot": ((), f32), "nc": ((), i32),
+                 "class_user": ((C,), i32), "class_gc": ((C,), i32)})
+    # the latency model's keys exist with timing off too (one key set);
+    # only lat_dens, the write-density EWMA, changes while timing is off
+    for key in ("lat_now", "lat_busy", "lat_debt", "lat_charged", "lat_dens", "lat_sum",
+                "lat_max"):
+        spec[key] = ((), f32)
+    spec["lat_hist"] = ((cfg.lat_buckets,), i32)
+    spec.update({key: ((), dtype) for key, dtype in POLICY_DTYPES.items()})
+    return spec
+
+
+_FILL = {"loc_seg": -1, "last_uw": -BIG, "ell": math.inf}
+
+
+def init_state(cfg: TorchSimConfig, policy: dict | None = None, device="cuda") -> dict:
+    """Initial state of V volumes, V being the length of the policy arrays.
+
+    Segment arrays carry one extra sacrificial row (``cfg.pad_row``, state 3
+    = reserved): when the free pool is exhausted, allocations land there
+    instead of on a live row, and each such allocation is counted in
+    ``overflow``. The first ``p_classes`` segments start open, one per live
+    class; padded class slots leave their row in the free pool."""
+    pol = _policy_tensors(cfg, policy, device)
+    V = pol["p_scheme"].numel()
+    state = {}
+    for key, (shape, dtype) in state_spec(cfg).items():
+        if key in pol:
+            state[key] = pol[key]
+        else:
+            state[key] = torch.full((V,) + shape, _FILL.get(key, 0), dtype=dtype,
+                                    device=device)
+    C = cfg.n_class_slots
+    slot = torch.arange(C, dtype=torch.int32, device=device)
+    live = slot[None, :] < pol["p_classes"][:, None]
+    state["open_sid"][:] = slot
+    state["seg_state"][:, :C] = live.to(torch.int32)
+    state["seg_cls"][:, :C] = torch.where(live, slot, 0)
+    state["seg_state"][:, cfg.pad_row] = 3
+    return state

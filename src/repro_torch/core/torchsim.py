@@ -1,0 +1,506 @@
+"""The replay engine: user writes, GP-triggered GC and SepBIT's ℓ estimate.
+
+The counterpart of the JAX package's tick engine (``jaxsim``), written in
+eager PyTorch over a leading volume axis V; one volume is V = 1. Every state
+transition is the JAX engine's, in the same order, so final states match it
+bit for bit:
+
+- `_user_write` invalidates the predecessor, classifies the block (the
+  classify kernel with is_gc = 0), appends it to the class's open segment
+  and seals a full segment;
+- `fleet_gc_tick` runs GC ticks while any volume's garbage proportion
+  exceeds its threshold: the victims come from the segsel kernel
+  (`segment_select_batch`; `segment_select` for one volume), the classes of
+  the victims' live blocks from the classify kernel, and `_gc_once` moves
+  them with one segmented scatter over (class, rank) keys. Volumes that do
+  not trigger are left exactly as they were.
+
+The engine updates its state in place (JAX's arrays are immutable; here a
+fleet's segment arrays run to hundreds of MB) on a private copy made by
+`own_state`. Each tensor of that copy has one spare element past its end:
+a scatter aims every entry that JAX would drop (``mode="drop"``) at that
+element, so a masked write changes nothing and costs no host sync.
+
+The GC loop asks the host whether any volume still needs GC before each
+tick iteration: one host sync per iteration, plus the one per step that
+finds none. `ReplayStats` counts steps and iterations.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..convert import state_to_numpy
+from ..kernels.classify import classify
+from ..kernels.segsel import segment_select, segment_select_batch
+from .config import (
+    GCSCHED_NAMES,
+    SCHEME_NAMES,
+    SELECTOR_NAMES,
+    TorchSimConfig,
+    default_policy,
+    init_state,
+)
+from .placement.schemes import require_elementwise
+
+
+@dataclasses.dataclass
+class ReplayStats:
+    """Host-side counts of one replay: lockstep steps, steps whose GC loop ran
+    at least once, and GC tick iterations (host syncs = steps + iterations,
+    less the steps that hit ``max_gc_per_step``)."""
+
+    steps: int = 0
+    gc_ticks: int = 0
+    tick_iterations: int = 0
+
+
+def own_state(state: dict) -> dict:
+    """A copy of ``state`` that the engine may update in place: each tensor
+    contiguous, with one spare element past its end (see `_put`)."""
+    out = {}
+    for key, x in state.items():
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        out[key] = buf[:-1].view(x.shape)
+        out[key].copy_(x)
+    return out
+
+
+class Consts:
+    """Device constants of one replay over V volumes, made once: rebuilding
+    index bases every step would cost launches, and a tensor made from a
+    host value would cost a host-to-device copy each time."""
+
+    def __init__(self, cfg: TorchSimConfig, V: int, device):
+        R, s, C, n = cfg.n_rows, cfg.segment_size, cfg.n_class_slots, cfg.n_lbas
+        i32 = {"dtype": torch.int32, "device": device}
+        vol = torch.arange(V, device=device)
+        self.device = device
+        self.row0 = vol * R             # each volume's first flat row of a (V, R) array
+        self.lba0 = vol * n             # ... of a (V, n_lbas) array
+        self.cls0 = vol * C             # ... of a (V, C) array
+        self.cls_ids = torch.arange(C, **i32)
+        self.slots = torch.arange(s, device=device)
+        self.rank1 = torch.ones((V, 1), **i32)          # free-row ranks for one row
+        self.rankC = torch.arange(1, C + 1, **i32).expand(V, C).contiguous()
+        self.zeros_v1 = torch.zeros((V, 1), **i32)
+        self.zeros_vs = torch.zeros((V, s), **i32)
+        self.ones_vs = torch.ones((V, s), **i32)
+        self.ones_v = torch.ones(V, **i32)
+        self.true = torch.ones((), dtype=torch.bool, device=device)
+        self.false = torch.zeros((), dtype=torch.bool, device=device)
+        self.i32 = {c: torch.full((), c, **i32) for c in (-1, 0, 1, 2, 3)}
+        self.zero_f = torch.zeros((), dtype=torch.float32, device=device)
+        self._spare: dict[int, torch.Tensor] = {}
+
+    def kept(self, x, flat, keep):
+        """``flat`` where ``keep``, else the index of ``x``'s spare element."""
+        n = x.numel()
+        if n not in self._spare:
+            self._spare[n] = torch.full((), n, dtype=torch.int64, device=self.device)
+        return torch.where(keep, flat, self._spare[n])
+
+
+def _put(x, idx, values):
+    """``x.view(-1)[idx] = values``, where ``idx`` may name the spare element
+    past the end of ``x`` (see `own_state`, `Consts.kept`): entries aimed
+    there leave ``x`` as it was — JAX's ``mode="drop"``. Among the other
+    entries, a repeated index keeps one of its values, as in JAX."""
+    x.as_strided((x.numel() + 1,), (1,)).index_put_((idx,), values)
+
+
+def _add(x, flat, values):
+    """``x.view(-1)[flat] += values``, repeated indices accumulating."""
+    x.view(-1).scatter_add_(0, flat.reshape(-1), values.reshape(-1))
+
+
+def _gp(st):
+    """Garbage proportion per volume."""
+    occ = torch.clamp(st["total_occ"], min=1).to(torch.float32)
+    return 1.0 - st["total_valid"].to(torch.float32) / occ
+
+
+def _alloc_free_ids(cfg: TorchSimConfig, seg_state, ranks):
+    """(V, count) int64 indices of each volume's first ``count`` free rows in
+    ascending order (``ranks`` holds 1..count per volume). Past the end of
+    the free pool the fill is ``cfg.pad_row``, the sacrificial row that is
+    never free. A rank over a cumulative count keeps the shape static
+    (``torch.nonzero`` would sync)."""
+    cum = torch.cumsum(seg_state == 0, dim=1, dtype=torch.int32)
+    # not found gives n_rows; a found row is below pad_row, which is never free
+    return torch.searchsorted(cum, ranks).clamp_(max=cfg.pad_row)
+
+
+def _user_write(cfg: TorchSimConfig, st: dict, lbas, active, k: Consts):
+    """One user write per volume, in place. ``lbas`` is (V,) int64. With
+    ``active`` (V,) bool, the masked write: volumes where it is False (the
+    -1 pad steps of a shorter trace) are left as they were."""
+    s, pad = cfg.segment_size, cfg.pad_row
+    t = st["t"]
+    if active is None:
+        act, one, lba = k.true, k.ones_v, lbas
+    else:
+        act, one, lba = active, active.to(torch.int32), torch.clamp(lbas, min=0)
+
+    # invalidate the predecessor (none for a fresh LBA: loc_seg = -1); only
+    # the over-capacity pad row holds offsets >= s, and JAX drops those
+    loc = k.lba0 + lba
+    old_sid = st["loc_seg"].view(-1)[loc]
+    old_off = st["loc_off"].view(-1)[loc]
+    had_old = (old_sid >= 0) & act
+    had_old_i = had_old.to(torch.int32)
+    old_row = k.row0 + old_sid * had_old_i
+    _put(st["seg_valid"], k.kept(st["seg_valid"], old_row * s + old_off,
+                                 had_old & (old_off < s)), k.false)
+    _add(st["seg_nvalid"], old_row, -had_old_i)
+    v = t - st["last_uw"].view(-1)[loc]   # huge for a fresh LBA: "infinite lifespan"
+
+    # the block's class: the classify kernel with is_gc = 0
+    cls = classify(v[:, None], k.zeros_v1, k.zeros_v1, k.zeros_v1, st["ell"],
+                   st["p_scheme"], site="user")[:, 0]
+    cls_flat = k.cls0 + cls
+    sid = st["open_sid"].view(-1)[cls_flat]
+    sid_row = k.row0 + sid
+    off = st["seg_n"].view(-1)[sid_row]
+    # off reaches s only on the over-capacity pad row: dropped
+    new = k.kept(st["seg_lba"], sid_row * s + off, (off < s) & act)
+    _put(st["seg_lba"], new, lba.to(torch.int32))
+    _put(st["seg_utime"], new, t)
+    _put(st["seg_valid"], new, k.true)
+    _add(st["seg_n"], sid_row, one)
+    _add(st["seg_nvalid"], sid_row, one)
+    # the pad row's fill count never exceeds s (every write caps it), so
+    # capping every volume's leaves the inactive ones as they were
+    st["seg_n"][:, pad].clamp_(max=s)
+    at = loc if active is None else k.kept(st["loc_seg"], loc, act)
+    _put(st["loc_seg"], at, sid)
+    _put(st["loc_off"], at, off)
+    _put(st["last_uw"], at, t)
+
+    # seal a full segment and promote a free one to open
+    fresh = _alloc_free_ids(cfg, st["seg_state"], k.rank1)[:, 0]
+    sealed = (st["seg_n"].view(-1)[sid_row] >= s) & act
+    at = k.kept(st["seg_state"], sid_row, sealed)
+    _put(st["seg_state"], at, k.i32[2])
+    _put(st["seg_stime"], at, t)
+    at = k.kept(st["seg_state"], k.row0 + fresh, sealed)
+    _put(st["seg_state"], at, k.i32[1])
+    _put(st["seg_cls"], at, cls)
+    _put(st["seg_ctime"], at, t)
+    _put(st["open_sid"], k.kept(st["open_sid"], cls_flat, sealed), fresh.to(torch.int32))
+
+    # write-density EWMA (the idle_window scheduler's signal), a multiply
+    # then an add, kept as two ops; the float32 constants go in as Python
+    # floats (a device tensor made from a host value would cost a copy)
+    a = np.float32(1.0 / cfg.density_window)
+    dens = st["lat_dens"] * float(np.float32(1.0) - a) + float(a)
+    st["lat_dens"] = dens if active is None else torch.where(active, dens, st["lat_dens"])
+    st["t"] = t + one
+    st["total_occ"] = st["total_occ"] + one
+    st["total_valid"] = st["total_valid"] + (one - had_old_i)
+    st["user_writes"] = st["user_writes"] + one
+    st["overflow"] = st["overflow"] + (sealed & (fresh == pad)).to(torch.int32)
+    _add(st["class_user"], cls_flat, one)
+
+
+def _gc_bookkeeping(st, vrow, do, k: Consts):
+    """ℓ estimation (Algorithm 1 lines 4-9): Class-1 victims feed the running
+    lifespan total; every ``p_ncw`` of them ℓ becomes their mean. Returns the
+    victims' class and the updated (ell, ell_tot, nc), stored where ``do``."""
+    victim_cls = st["seg_cls"].view(-1)[vrow]
+    is_c1 = victim_cls == 0
+    nc = st["nc"] + is_c1.to(torch.int32)
+    life = (st["t"] - st["seg_ctime"].view(-1)[vrow]).to(torch.float32)
+    ell_tot = st["ell_tot"] + torch.where(is_c1, life, k.zero_f)
+    refresh = nc >= st["p_ncw"]
+    ell = torch.where(refresh, ell_tot / torch.clamp(nc, min=1), st["ell"])
+    nc = nc.masked_fill(refresh, 0)
+    ell_tot = ell_tot.masked_fill(refresh, 0.0)
+    st["ell"] = torch.where(do, ell, st["ell"])
+    st["ell_tot"] = torch.where(do, ell_tot, st["ell_tot"])
+    st["nc"] = torch.where(do, nc, st["nc"])
+    return is_c1, ell
+
+
+def _gc_once(cfg: TorchSimConfig, st: dict, victims, do, k: Consts):
+    """Rewrite each volume's victim segment where ``do`` (in place): the live
+    blocks get their GC classes from the classify kernel and move, with one
+    scatter per array, to their class's open segment, spilling into a fresh
+    free segment once it is full. Volumes where ``do`` is False are left as
+    they were."""
+    s, C, pad = cfg.segment_size, cfg.n_class_slots, cfg.pad_row
+    V = victims.shape[0]
+    doc = do[:, None]
+    victim = torch.clamp(victims, min=0)             # do implies victims >= 0
+    vrow = k.row0 + victim
+    k_total = st["seg_nvalid"].view(-1)[vrow]
+    victim_n = st["seg_n"].view(-1)[vrow]
+    lba_v = st["seg_lba"].view(-1, s)[vrow]
+    utime_v = st["seg_utime"].view(-1, s)[vrow]
+    valid_v = st["seg_valid"].view(-1, s)[vrow]
+    is_c1, ell = _gc_bookkeeping(st, vrow, do, k)
+
+    # the live blocks' classes: the classify kernel with is_gc = 1, v = 0,
+    # g the block's age and from_c1 the victim's class
+    g = st["t"][:, None] - utime_v
+    from_c1 = is_c1.to(torch.int32)[:, None].expand(V, s).contiguous()
+    gc_cls = classify(k.zeros_vs, g, from_c1, k.ones_vs, ell, st["p_scheme"])
+    classes = torch.where(valid_v, gc_cls, k.i32[-1])
+    free_ids = _alloc_free_ids(cfg, st["seg_state"], k.rankC)
+
+    # per-slot (class, rank) keys: rank = position among same-class live slots
+    slot_cls = torch.clamp(classes, 0, C - 1).to(torch.int64)
+    onehot = classes[:, :, None] == k.cls_ids
+    cum = torch.cumsum(onehot, dim=1, dtype=torch.int32)            # (V, s, C)
+    rank = torch.gather(cum, 2, slot_cls[:, :, None])[:, :, 0] - 1
+    per_cls = cum[:, -1, :]                                         # (V, C)
+
+    # per-class destinations: the open segment, then a fresh one. Padded
+    # class slots (>= p_classes) count no blocks, and their stale open_sid
+    # is masked out of every metadata write below
+    cls_active = k.cls_ids[None, :] < st["p_classes"][:, None]
+    sids = st["open_sid"].to(torch.int64)
+    n0 = torch.gather(st["seg_n"], 1, sids)
+    room = torch.clamp(s - n0, min=0)   # a pad-row open segment can sit at capacity
+    took1 = torch.minimum(per_cls, room)
+    took2 = per_cls - took1
+
+    live = classes >= 0
+    room_s = torch.gather(room, 1, slot_cls)
+    in_first = live & (rank < room_s)
+    dst_sid = torch.where(in_first, torch.gather(sids, 1, slot_cls),
+                          torch.gather(free_ids, 1, slot_cls))
+    dst_off = torch.where(in_first, torch.gather(n0, 1, slot_cls) + rank, rank - room_s)
+    moved = live & doc
+    at = k.kept(st["seg_lba"], (k.row0[:, None] + dst_sid) * s + dst_off,
+                moved & (dst_off < s))
+    _put(st["seg_lba"], at, lba_v)
+    _put(st["seg_utime"], at, utime_v)
+    _put(st["seg_valid"], at, k.true)
+    at = k.kept(st["loc_seg"], k.lba0[:, None] + lba_v, moved)
+    _put(st["loc_seg"], at, dst_sid.to(torch.int32))
+    _put(st["loc_off"], at, dst_off)
+
+    # per-class metadata, as masked (V, C) scatters: fill counts, first-block
+    # time, seal-if-full and promote-fresh
+    open_rows = k.row0[:, None] + sids
+    fresh_rows = k.row0[:, None] + free_ids
+    for key in ("seg_n", "seg_nvalid"):
+        _add(st[key], open_rows, took1 * doc)
+        _add(st[key], fresh_rows, took2 * doc)
+    t_c = st["t"][:, None].expand(V, C)
+    _put(st["seg_ctime"], k.kept(st["seg_ctime"], open_rows, doc & (n0 == 0) & (per_cls > 0)),
+         t_c)
+    sealed = cls_active & (n0 + took1 >= s)
+    at = k.kept(st["seg_state"], open_rows, doc & sealed)
+    _put(st["seg_state"], at, k.i32[2])
+    _put(st["seg_stime"], at, t_c)
+    at = k.kept(st["seg_state"], fresh_rows, doc & sealed)
+    _put(st["seg_state"], at, k.i32[1])
+    _put(st["seg_cls"], at, k.cls_ids.expand(V, C))
+    _put(st["seg_ctime"], at, t_c)
+    st["open_sid"].copy_(torch.where(doc & sealed, free_ids, sids))
+    used_pad = (free_ids == pad) & ((took2 > 0) | sealed)
+    st["overflow"] = st["overflow"] + used_pad.sum(1, dtype=torch.int32) * do
+
+    # over-capacity appends to the pad row were dropped; cap its fill count
+    # (it never exceeds s, so this leaves volumes without GC as they were)
+    st["seg_n"][:, pad].clamp_(max=s)
+
+    # release the victim; the pad row (a victim only after exhaustion
+    # promoted it) returns to reserved state 3, never to the free pool
+    at = k.kept(st["seg_state"], vrow, do)
+    _put(st["seg_state"], at, torch.where(victim == pad, k.i32[3], k.i32[0]))
+    _put(st["seg_n"], at, k.i32[0])
+    _put(st["seg_nvalid"], at, k.i32[0])
+    _put(st["seg_valid"], k.kept(st["seg_valid"], vrow[:, None] * s + k.slots, doc), k.false)
+
+    # total_valid is untouched: GC moves valid blocks, never creates them
+    st["total_occ"] = torch.where(do, st["total_occ"] - victim_n + k_total, st["total_occ"])
+    st["gc_writes"] = st["gc_writes"] + k_total * do
+    st["reclaimed"] = st["reclaimed"] + do.to(torch.int32)
+    st["class_gc"] = st["class_gc"] + per_cls * doc
+
+
+def _select_victims_fleet(st):
+    return segment_select_batch(st["seg_n"], st["seg_nvalid"], st["seg_stime"],
+                                st["seg_state"], st["t"], st["p_selector"])[0]
+
+
+def _select_victim_single(st):
+    idx, _ = segment_select(st["seg_n"][0], st["seg_nvalid"][0], st["seg_stime"][0],
+                            st["seg_state"][0], st["t"][0], st["p_selector"][0])
+    return idx.reshape(1)
+
+
+def fleet_gc_tick(cfg: TorchSimConfig, st: dict, k: Consts, step_active=None, select=None,
+                  stats: ReplayStats | None = None):
+    """GC ticks over a batched state, in place, while any volume's garbage
+    proportion exceeds its ``p_gp`` (at most ``cfg.max_gc_per_step`` ticks).
+    Each tick selects a victim per volume (``select``; the batched segsel
+    kernel by default) and rewrites it where the volume triggers; volumes
+    below threshold, stalled (no eligible victim) or on a pad step
+    (``step_active`` False) are left as they were. Per volume this is the
+    single-volume GC loop's iteration sequence, so fleets match single runs."""
+    select = select or _select_victims_fleet
+    stalled = torch.zeros_like(st["t"], dtype=torch.bool)
+    for i in range(cfg.max_gc_per_step):
+        need = (_gp(st) > st["p_gp"]) & ~stalled
+        if step_active is not None:
+            need = need & step_active
+        if not bool(need.any()):      # the host sync of this tick iteration
+            break
+        if stats is not None:
+            stats.tick_iterations += 1
+            stats.gc_ticks += 1 if i == 0 else 0
+        victims = select(st)
+        _gc_once(cfg, st, victims, need & (victims >= 0), k)
+        stalled = stalled | (need & (victims < 0))
+
+
+def fleet_step(cfg: TorchSimConfig, st: dict, lbas, masked: bool, k: Consts, select=None,
+               stats: ReplayStats | None = None):
+    """One user write per volume, then the fleet's GC ticks (in place).
+    With ``masked``, pad entries (-1) of ``lbas`` are exact no-ops."""
+    active = lbas >= 0 if masked else None
+    _user_write(cfg, st, lbas, active, k)
+    fleet_gc_tick(cfg, st, k, active, select, stats)
+    if stats is not None:
+        stats.steps += 1
+
+
+def _replay(cfg, st, lbas_tv, masked, select, stats):
+    require_elementwise(torch.unique(st["p_scheme"]).tolist())
+    k = Consts(cfg, st["t"].shape[0], st["t"].device)
+    for i in range(lbas_tv.shape[0]):
+        fleet_step(cfg, st, lbas_tv[i], masked, k, select, stats)
+    return st
+
+
+def run(cfg: TorchSimConfig, trace, policy: dict | None = None, device="cuda",
+        state: dict | None = None, stats: ReplayStats | None = None) -> dict:
+    """Replay one volume's trace (the counterpart of ``jaxsim._run``),
+    starting from ``init_state`` or from ``state``; returns the final state
+    with a leading volume axis of 1. Victims come from `segment_select`."""
+    dev = resolve_device(device)
+    trace = np.asarray(trace, dtype=np.int32)
+    if trace.ndim != 1 or (trace < 0).any() or (trace >= cfg.n_lbas).any():
+        raise ValueError(f"trace must be 1-D LBAs in [0, {cfg.n_lbas})")
+    st = own_state(init_state(cfg, policy, dev) if state is None else state)
+    if st["t"].shape != (1,):
+        raise ValueError("a single-volume state has a leading volume axis of 1")
+    lbas = torch.from_numpy(trace.astype(np.int64)).to(dev)[:, None]
+    return _replay(cfg, st, lbas, False, _select_victim_single, stats)
+
+
+def simulate(trace, cfg: TorchSimConfig, policy: dict | None = None, device="cuda") -> dict:
+    """Replay ``trace`` on one volume; returns the summary of ``jaxsim.simulate_jax``."""
+    st = state_to_numpy(run(cfg, trace, policy, device))
+    return _summary(cfg, {k: x[0] for k, x in st.items()})
+
+
+# -- fleet mode -----------------------------------------------------------------
+
+def pad_fleet(traces) -> np.ndarray:
+    """Stack 1-D traces of unequal length into a (V, T_max) int32 matrix
+    padded with -1 (replayed as masked no-op steps)."""
+    traces = [np.asarray(t, dtype=np.int32) for t in traces]
+    T = max((len(t) for t in traces), default=0)
+    out = np.full((len(traces), T), -1, dtype=np.int32)
+    for i, t in enumerate(traces):
+        out[i, : len(t)] = t
+    return out
+
+
+def coerce_fleet(traces) -> np.ndarray:
+    """Normalize a list of 1-D traces or a (V, T) matrix to padded int32."""
+    padded = np.asarray(traces, dtype=np.int32) if isinstance(traces, np.ndarray) \
+        else pad_fleet(traces)
+    if padded.ndim != 2:
+        raise ValueError("traces must be a list of 1-D traces or a (V, T) matrix")
+    return padded
+
+
+def broadcast_policies(cfg: TorchSimConfig, n_volumes: int) -> dict:
+    """(V,) policy arrays that replicate ``cfg``'s knobs."""
+    return {k: np.full(n_volumes, v) for k, v in default_policy(cfg).items()}
+
+
+def run_fleet(cfg: TorchSimConfig, traces, policies: dict | None = None, device="cuda",
+              state: dict | None = None, stats: ReplayStats | None = None) -> dict:
+    """Replay V volumes in lockstep (the counterpart of ``jaxsim._run_fleet``)
+    and return the final batched state. ``traces`` is a list of 1-D traces
+    (unequal lengths are padded with -1) or a padded (V, T) matrix;
+    ``policies`` optionally gives (V,) arrays per policy key."""
+    dev = resolve_device(device)
+    padded = coerce_fleet(traces)
+    V = padded.shape[0]
+    if (padded >= cfg.n_lbas).any():
+        raise ValueError(f"trace LBAs must lie in [0, {cfg.n_lbas})")
+    if state is None:
+        state = init_state(cfg, broadcast_policies(cfg, V) if policies is None else policies,
+                           dev)
+    elif policies is not None:
+        raise ValueError("pass policies or a state, not both (the state carries its policy)")
+    st = own_state(state)
+    if st["t"].shape != (V,):
+        raise ValueError(f"state holds {st['t'].shape[0]} volumes, traces {V}")
+    masked = bool((padded < 0).any())
+    lbas = torch.from_numpy(np.ascontiguousarray(padded.T).astype(np.int64)).to(dev)
+    return _replay(cfg, st, lbas, masked, _select_victims_fleet, stats)
+
+
+def _summary(cfg: TorchSimConfig, st: dict) -> dict:
+    """Summary of one volume's final state (numpy arrays, no volume axis)."""
+    user = int(st["user_writes"])
+    gc_writes = int(st["gc_writes"])
+    overflow = int(st["overflow"])
+    return {
+        "scheme": SCHEME_NAMES[int(st["p_scheme"])],
+        "selector": SELECTOR_NAMES[int(st["p_selector"])],
+        "gp_threshold": float(st["p_gp"]),
+        "gcsched": GCSCHED_NAMES[int(st["p_gcsched"])],
+        "user_writes": user,
+        "gc_writes": gc_writes,
+        "wa": (user + gc_writes) / user if user else 1.0,
+        "reclaimed": int(st["reclaimed"]),
+        "overflow": overflow,
+        "free_exhausted": overflow,
+        "degraded": overflow > 0,   # pad-row accounting: WA is logical past here
+        "ell": float(st["ell"]),
+        "class_user_writes": np.asarray(st["class_user"]).tolist(),
+        "class_gc_writes": np.asarray(st["class_gc"]).tolist(),
+    }
+
+
+def summarize_fleet(cfg: TorchSimConfig, st: dict, n_volumes: int) -> dict:
+    """Per-volume summaries and the fleet aggregate from a batched state."""
+    st = state_to_numpy(st)
+    vols = [_summary(cfg, {k: x[i] for k, x in st.items()}) for i in range(n_volumes)]
+    user = sum(r["user_writes"] for r in vols)
+    gc = sum(r["gc_writes"] for r in vols)
+    overflow = sum(r["overflow"] for r in vols)
+    return {"volumes": vols, "fleet": {
+        "n_volumes": n_volumes,
+        "user_writes": user,
+        "gc_writes": gc,
+        "wa": (user + gc) / max(user, 1),
+        "overflow": overflow,
+        "free_exhausted": overflow,
+        "degraded": overflow > 0,
+        "per_volume_wa": [r["wa"] for r in vols],
+    }}
+
+
+def simulate_fleet(traces, cfg: TorchSimConfig, policies: dict | None = None,
+                   device="cuda") -> dict:
+    """Replay N independent volumes in lockstep; returns
+    ``{"volumes": [per-volume summary, ...], "fleet": aggregate}``, each
+    volume's result equal to a single-volume run of its trace."""
+    padded = coerce_fleet(traces)
+    st = run_fleet(cfg, padded, policies, device)
+    return summarize_fleet(cfg, st, padded.shape[0])
