@@ -9,13 +9,24 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together);
 3. kernels: each kernel's wrapper on card tensors against its plain PyTorch
-   version on the same inputs (bit equality required), and its time;
-4. engine parity: a reduced fleet replayed on the card (kernels) and on the
+   version on the same inputs (bit equality for the replay engine's
+   kernels; the Zipf sums within rtol 2e-4 / atol 1e-6 and bit-identical on
+   a repeat), and its time;
+4. decode: flash-decode attention through its entry point at qwen3-32b's,
+   starcoder2-3b's and phi3-mini's decode geometry in bfloat16 and float32,
+   against its plain version (1e-4 in float32, 2e-2 in bfloat16), then
+   timed at qwen3-32b's in bfloat16 beside scaled_dot_product_attention;
+5. analysis: the paper's §3 at its own scale (n = 10 * 2^18): the eight
+   Fig 8 / Fig 10 points of the repository's benchmark, five of them held
+   to the paper's values, all four figure grids through the Zipf kernel,
+   and Figs 9 / 11 on the benchmark-grade volume pool, equal on the card
+   and on the CPU;
+6. engine parity: a reduced fleet replayed on the card (kernels) and on the
    CPU (plain versions) must end in bit-equal states; one volume replayed
    alone on the card (the single-volume victim kernel) must equal its row
    of the fleet; an undersized segment pool must keep the free-pool
    exhaustion envelope;
-5. main run: the 186-volume mixed corpus tiled over the four GC thresholds
+7. main run: the 186-volume mixed corpus tiled over the four GC thresholds
    of the repository's gcbench (744 volumes of 64 MiB at 4 KiB blocks),
    SepBIT with cost-benefit selection, then a profiled steady window.
 
@@ -35,12 +46,27 @@ from pathlib import Path
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (NVIDIA data sheet)
+F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores (same sheet)
+BF16_FLOPS = 989e12            # H100 SXM dense bfloat16 on the tensor cores (same sheet)
 MAIN_VOLUMES_PER_TILE = 186    # the paper's corpus size (Exp#1/Exp#2)
 MAIN_GPS = (0.08, 0.12, 0.16, 0.22)   # gcbench's GC thresholds
 MAIN_N_LBAS = 16384            # 64 MiB volumes at 4 KiB blocks
 MAIN_SEGMENT = 128
 PARITY_N_LBAS = 2048           # the card-against-CPU fleet's volumes
 PROFILE_STEPS = 200            # the profiled steady window after the main run
+# benchmarks/run.py fig8_user_bit / fig10_gc_bit: (window GiB, window GiB,
+# alpha, the paper's percentage or None), and tests/test_analysis.py's
+# tolerance for each paper value, in percentage points
+FIG8_POINTS = ((0.25, 4, 1.0, 77.1), (1, 0.25, 1.0, None), (1, 4, 1.0, 87.1), (1, 1, 0.0, 9.5))
+FIG10_POINTS = ((2, 8, 1.0, 41.2), (32, 8, 1.0, 14.9), (2, 8, 0.2, None), (32, 8, 0.2, None))
+PAPER_TOL = {77.1: 0.2, 87.1: 0.3, 9.5: 0.2, 41.2: 0.3, 14.9: 0.3}
+# float operations of the Zipf kernel per pmf element: log1pf and each of
+# the four expf counted as one, plus 17 multiplies, adds and subtracts
+ZIPF_OPS_PER_ELEMENT = 22
+# (Hq, Hkv, D) of the decode geometries: src/repro/configs/qwen3_32b.py,
+# starcoder2_3b.py, phi3_mini.py; (B, S) timed and checked
+QWEN3_32B, STARCODER2_3B, PHI3_MINI = (64, 8, 128), (24, 2, 128), (32, 32, 96)
+DECODE_TIMED, DECODE_CHECKED = (16, 8192), (8, 4096)
 
 
 def log(msg: str) -> None:
@@ -73,8 +99,13 @@ def time_ms(fn, reps: int = 50, rounds: int = 5) -> float:
     return float(np.median(times))
 
 
-def bound_ms(n_bytes: int) -> float:
-    return 1e3 * n_bytes / HBM_BYTES_PER_S
+def bound(n_bytes: int, n_ops: int = 0, flops_per_s: float = F32_FLOPS) -> dict:
+    """The least time in ms for moving ``n_bytes`` and doing ``n_ops`` at
+    the card's published rates (``bound_ms``), and which of the two bounds
+    it (``bound_by``)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / flops_per_s
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def max_abs_err(a, b) -> float:
@@ -148,7 +179,7 @@ def _classify_row(name, site, v, g, c1, gc, ell, sids, what) -> dict:
         "shape": [V, B], "bit_equal": ok, "max_abs_err": max_abs_err(out, rout),
         "ms": time_ms(lambda: classify(v, g, c1, gc, ell, sids, site=site)),
         "plain_ms": time_ms(lambda: ref.classify_ref(v, g, c1, gc, ell, sids)),
-        "bound_ms": bound_ms(20 * V * B + 8 * V), "bound_by": "bytes",
+        **bound(20 * V * B + 8 * V),
         "tolerance": "bit-equal", "library_ms": None}
 
 
@@ -179,7 +210,7 @@ def phase_kernels(rng, main_shape, single_segments) -> list[dict]:
         "shape": [V, S], "bit_equal": ok, "max_abs_err": max_abs_err(score, rscore),
         "ms": time_ms(lambda: segment_select_batch(*arrays)),
         "plain_ms": time_ms(lambda: ref.segment_select_batch_ref(*arrays)),
-        "bound_ms": bound_ms(16 * V * S + 8 * V + 8 * V), "bound_by": "bytes",
+        **bound(16 * V * S + 8 * V + 8 * V),
         "tolerance": "bit-equal", "library_ms": None})
 
     # K2: the single-volume shape, and the int32 index edge past 2^24
@@ -213,7 +244,7 @@ def phase_kernels(rng, main_shape, single_segments) -> list[dict]:
         "max_abs_err": max(max_abs_err(s1, rs1), max_abs_err(se, rse)),
         "ms": time_ms(lambda: segment_select(*args1)),
         "plain_ms": time_ms(lambda: ref.segment_select_ref(*args1)),
-        "bound_ms": bound_ms(16 * S1 + 8 + 8), "bound_by": "bytes",
+        **bound(16 * S1 + 8 + 8),
         "tolerance": "bit-equal", "library_ms": None})
 
     # K3 at its two call sites: the GC rewrite's (volumes, segment_size)
@@ -247,6 +278,223 @@ def phase_kernels(rng, main_shape, single_segments) -> list[dict]:
         log(f"[kernels] {r['name']} {r['shape']}: {r['ms'] * 1e3:.2f} us "
             f"(plain {r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f} us)")
     return rows
+
+
+def phase_zipf_kernel() -> list[dict]:
+    """K4 at the paper's n against its plain version, for the exponents of
+    every Fig 8 / Fig 10 point over the alpha = 1 and alpha = 0 pmfs, with a
+    bit-identical repeat; then its time at one point of each figure."""
+    import torch
+
+    from repro_torch.core import analysis
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.zipfprob import zipf_bit_sums
+    G, n = analysis.BLOCKS_PER_GIB, analysis.PAPER_N
+    exps = {"fig8": [(u0 * G, v0 * G, 0.0, 0.0) for u0, v0, _, _ in FIG8_POINTS],
+            "fig10": [(0.0, 0.0, g0 * G, r0 * G) for g0, r0, _, _ in FIG10_POINTS]}
+    worst = {"fig8": 0.0, "fig10": 0.0}
+    for alpha in (1.0, 0.0):
+        p = analysis.zipf_pmf(n, alpha, "cuda")
+        for fig, points in exps.items():
+            for e in points:
+                got, again = zipf_bit_sums(p, *e), zipf_bit_sums(p, *e)
+                want = ref.zipf_bit_sums_ref(p, *e)
+                torch.cuda.synchronize()
+                close = torch.allclose(got, want, rtol=2e-4, atol=1e-6)
+                if not (close and torch.equal(got, again)):
+                    raise AssertionError(f"K4 at alpha {alpha}, exponents {e}: {got.tolist()} "
+                                         f"against plain {want.tolist()}, repeat "
+                                         f"{again.tolist()}")
+                worst[fig] = max(worst[fig], max_abs_err(got, want))
+    log(f"[kernels] K4 zipf_bit_sums ({n},) at the exponents of 8 points x alpha 1.0 and "
+        f"0.0: within rtol 2e-4 / atol 1e-6, repeats bit-identical; max |err| {worst}")
+    p = analysis.zipf_pmf(n, 1.0, "cuda")
+    limit = bound(4 * n + 16, ZIPF_OPS_PER_ELEMENT * n)
+    rows = []
+    for fig in ("fig8", "fig10"):
+        e = exps[fig][0]
+        rows.append({
+            "name": f"zipf_bit_sums_{fig}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/zipfprob.cu",
+            "replaces": "src/repro/kernels/zipfprob.py:54",
+            "shape": [n], "exponents": list(e), "max_abs_err": worst[fig],
+            "ms": time_ms(lambda: zipf_bit_sums(p, *e)),
+            "plain_ms": time_ms(lambda: ref.zipf_bit_sums_ref(p, *e)),
+            **limit, "tolerance": "rtol 2e-4, atol 1e-6; repeat bit-identical",
+            "library_ms": None})
+    for r in rows:
+        log(f"[kernels] {r['name']} {r['shape']}: {r['ms'] * 1e3:.2f} us (plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f} us, {r['bound_by']})")
+    return rows
+
+
+def _decode_inputs(seed, B, S, heads, dtype):
+    """q, k, v from a seeded generator on the card; ragged kv_len from a
+    numpy seed with the first row full and the last of length 1."""
+    import torch
+    Hq, Hkv, D = heads
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for shape in ((B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    kl = np.random.default_rng(seed).integers(1, S + 1, B)
+    kl[0], kl[-1] = S, 1
+    return q, k, v, torch.from_numpy(kl.astype(np.int32)).cuda()
+
+
+def phase_decode() -> tuple[dict, int]:
+    """K5's path, its entry point `ops.flash_decode`, at three decode
+    geometries in both dtypes; each output against the plain version; then
+    the kernel, the plain version and scaled_dot_product_attention timed at
+    qwen3-32b's geometry in bfloat16. Returns the K5 row and its launches
+    on the path."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attn, ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    cases = [(name, heads, bs, dtype) for name, heads, bs in (
+        ("qwen3-32b", QWEN3_32B, DECODE_TIMED), ("starcoder2-3b", STARCODER2_3B, DECODE_CHECKED),
+        ("phi3-mini", PHI3_MINI, DECODE_CHECKED)) for dtype in (torch.bfloat16, torch.float32)]
+    inputs = [_decode_inputs(i, *bs, heads, dtype) for i, (_, heads, bs, dtype) in enumerate(cases)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [ops.flash_decode(*x) for x in inputs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()["flash_decode"]
+    log(f"[decode] {len(cases)} calls of ops.flash_decode in {wall:.3f} s; launches {launches}")
+    if launches != len(cases):
+        raise AssertionError("the decode path did not go through its kernel")
+    errs = []
+    for (name, heads, bs, dtype), x, out in zip(cases, inputs, outs):
+        want = ref.flash_decode_ref(*x)
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        err = max_abs_err(out.float(), want.float())
+        ok = (out.shape == want.shape and out.dtype == x[0].dtype
+              and bool(torch.isfinite(out).all())
+              and torch.allclose(out.float(), want.float(), atol=tol, rtol=tol))
+        log(f"[decode] {name} (B, S) {bs} (Hq, Hkv, D) {heads} {str(dtype)[6:]}: max |err| "
+            f"{err:.3e} (tolerance {tol}) ok={ok}")
+        if not ok:
+            raise AssertionError(f"K5 disagrees with its plain version at {name} {dtype}")
+        errs.append(err)
+
+    q, k, v, kl = inputs[0]          # the timed case: qwen3-32b in bfloat16
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    mask = (torch.arange(S, device="cuda")[None, :] < kl[:, None])[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q[:, :, None], k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+    lib_err = max_abs_err(library()[:, :, 0].float(), ref.flash_decode_ref(q, k, v, kl).float())
+    rows_read = int(kl.clamp(max=S).sum())
+    size = q.element_size()
+    limit = bound(rows_read * Hkv * D * 2 * size + 2 * B * Hq * D * size + 4 * B,
+                  4 * Hq * D * rows_read, BF16_FLOPS)
+    # the wrapper's kv_len check reads the device, which a CUDA graph cannot
+    # capture: time the launch behind it
+    row = {"name": "flash_decode", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
+           "replaces": "src/repro/kernels/decode_attn.py:66",
+           "shape": [B, S, Hq, Hkv, D], "dtype": "bfloat16", "kv_rows": rows_read,
+           "max_abs_err": errs[0],
+           "ms": time_ms(lambda: decode_attn._launch(q, k, v, kl), reps=5),
+           "plain_ms": time_ms(lambda: ref.flash_decode_ref(q, k, v, kl), reps=5),
+           **limit, "tolerance": "2e-2 (bfloat16), 1e-4 (float32)",
+           "library_ms": time_ms(library, reps=5)}
+    log(f"[kernels] flash_decode qwen3-32b B={B} S={S} bf16, {rows_read} KV rows: "
+        f"{row['ms'] * 1e3:.1f} us (plain {row['plain_ms'] * 1e3:.1f} us, "
+        f"scaled_dot_product_attention {row['library_ms'] * 1e3:.1f} us, its max |err| "
+        f"{lib_err:.3e}; bound {row['bound_ms'] * 1e3:.1f} us, {row['bound_by']})")
+    return row, launches
+
+
+def _same(a: float, b: float) -> bool:
+    return a == b or (np.isnan(a) and np.isnan(b))
+
+
+def phase_analysis() -> dict:
+    """The paper's §3 through the port's entry points on the card, at the
+    paper's n; returns K4's launches in the Fig 8 and the Fig 10 runs."""
+    import torch
+
+    from repro_torch.core import analysis as A
+    from repro_torch.core.volumes import default_pool
+    from repro_torch.kernels import ops
+    G = A.BLOCKS_PER_GIB
+    launches, failed = {}, []
+
+    def check(what, value, want, tol):
+        ok = abs(value - want) <= tol
+        log(f"[analysis] {what}: {value:.4f} (paper {want}, tolerance {tol}) ok={ok}")
+        if not ok:
+            failed.append(what)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fig8 = {(u0, v0, a): 100 * A.pr_user_bit(u0 * G, v0 * G, alpha=a)
+            for u0, v0, a, _ in FIG8_POINTS}
+    grid8a, curve8b = A.fig8a_grid(), A.fig8b_curve()
+    launches["zipf_bit_sums_fig8"] = ops.launch_counts()["zipf_bit_sums"]
+    t1 = time.perf_counter()
+    ops.reset_launch_counts()
+    fig10 = {(g0, r0, a): 100 * A.pr_gc_bit(g0 * G, r0 * G, alpha=a)
+             for g0, r0, a, _ in FIG10_POINTS}
+    grid10a, curve10b = A.fig10a_grid(), A.fig10b_curve()
+    launches["zipf_bit_sums_fig10"] = ops.launch_counts()["zipf_bit_sums"]
+    t2 = time.perf_counter()
+    log(f"[analysis] n {A.PAPER_N}: Fig 8 points and grids {t1 - t0:.3f} s, Fig 10 points "
+        f"and grids {t2 - t1:.3f} s; K4 launches {launches}")
+    for points, values in ((FIG8_POINTS, fig8), (FIG10_POINTS, fig10)):
+        for a, b, alpha, paper in points:
+            value = values[(a, b, alpha)]
+            if paper is None:
+                log(f"[analysis] ({a}, {b}) GiB alpha {alpha}: {value:.4f} (no paper value)")
+            else:
+                check(f"({a}, {b}) GiB alpha {alpha}", value, paper, PAPER_TOL[paper])
+    check("Fig 8(a) minimum", 100 * min(grid8a.values()), 77.1, 0.3)
+    check("Fig 8(b) alpha 1 minimum", 100 * min(curve8b[(1.0, v)] for v in (0.25, 0.5, 1, 2, 4)),
+          87.1, 0.3)
+    check("Fig 10(b) separation at alpha 0.2", fig10[(2, 8, 0.2)] - fig10[(32, 8, 0.2)], 3.5, 0.4)
+    check("Fig 10(b) separation at alpha 1.0", fig10[(2, 8, 1.0)] - fig10[(32, 8, 1.0)], 26.4, 0.4)
+    values = [*grid8a.values(), *curve8b.values(), *grid10a.values(), *curve10b.values()]
+    n_evals = len(FIG8_POINTS) + len(FIG10_POINTS) + len(values)
+    log(f"[analysis] grids: {len(grid8a)} + {len(curve8b)} + {len(grid10a)} + {len(curve10b)} "
+        f"values, all in [0, 1]: {all(0.0 <= x <= 1.0 for x in values)}")
+    if (sum(launches.values()) != n_evals or 0 in launches.values()
+            or not all(0.0 <= x <= 1.0 for x in values)):
+        failed.append("grids")
+
+    t0 = time.perf_counter()
+    pool = default_pool(scale=4)
+    n = max(int(tr.max()) for _, tr in pool) + 1
+    t1 = time.perf_counter()
+    log(f"[analysis] pool: {len(pool)} volumes x {n} LBAs x {len(pool[0][1])} writes, made in "
+        f"{t1 - t0:.2f} s")
+    windows = ([("fig9", A.trace_conditional_user, v0f, int(0.1 * n), int(v0f * n))
+                for v0f in (0.1, 0.4)]
+               + [("fig11", A.trace_conditional_gc, g0f, int(g0f * n), int(0.5 * n))
+                  for g0f in (0.1, 1.0)])
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        got = [[fn(tr, a, b, device=device) for _, tr in pool] for _, fn, _, a, b in windows]
+        torch.cuda.synchronize()
+        log(f"[analysis] Figs 9 / 11 on {device}: {time.perf_counter() - t0:.3f} s")
+        if device == "cuda":
+            card = got
+    for (fig, _, frac, _, _), a, b in zip(windows, card, got):
+        same = all(_same(x, y) for x, y in zip(a, b))
+        finite = [x for x in a if np.isfinite(x)]
+        log(f"[analysis] {fig} at {frac} x WSS: median {100 * np.median(finite):.4f}% over "
+            f"{len(finite)} volumes; card == cpu: {same}")
+        if not same or not finite:
+            failed.append(f"{fig} at {frac}")
+    if failed:
+        raise AssertionError(f"analysis checks failed: {failed}")
+    return launches
 
 
 def fleet_config(n_lbas: int):
@@ -458,12 +706,17 @@ def main() -> int:
     kernels = phase_kernels(np.random.default_rng(0),
                             (MAIN_VOLUMES_PER_TILE * len(MAIN_GPS), main_rows),
                             fleet_config(PARITY_N_LBAS).n_rows)
+    kernels += phase_zipf_kernel()
+    decode_row, decode_launches = phase_decode()
+    kernels.append(decode_row)
+    analysis_launches = phase_analysis()
     single_rows, k2_launches = phase_parity()
     cfg, st, counts = phase_main()
     if (cfg.n_rows, single_rows) != (main_rows, fleet_config(PARITY_N_LBAS).n_rows):
         raise AssertionError("a kernel was timed at another shape than its path's")
     phase_profile(cfg, st)
-    launches = {**counts, "segment_select": k2_launches}
+    launches = {**counts, "segment_select": k2_launches, **analysis_launches,
+                "flash_decode": decode_launches}
     for row in kernels:
         row["launches"] = launches[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

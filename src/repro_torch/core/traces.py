@@ -97,6 +97,11 @@ def shifting_trace(n_lbas: int, n_updates: int, alpha: float = 1.0,
     return updates
 
 
+def sequential_trace(n_lbas: int, n_passes: int = 4) -> np.ndarray:
+    """Sequential overwrite passes: the zero-skew extreme."""
+    return np.tile(np.arange(n_lbas, dtype=np.int64), n_passes)
+
+
 def add_bursts(updates: np.ndarray, rng: np.random.Generator, *,
                echo_prob: float = 0.5, gap_mean: float = 48.0,
                max_echoes: int = 3) -> np.ndarray:
@@ -167,3 +172,15 @@ GENERATORS = {
     "mixed": mixed_trace,
     "bursty": bursty_trace,
 }
+
+
+def trace_stats(trace: np.ndarray) -> dict:
+    """Requests, working-set size, traffic over the working set and the
+    fraction of requests that update an LBA already written."""
+    uniq = np.unique(trace)
+    return {
+        "requests": int(len(trace)),
+        "wss_lbas": int(len(uniq)),
+        "traffic_over_wss": float(len(trace) / max(len(uniq), 1)),
+        "update_fraction": float(1.0 - len(uniq) / max(len(trace), 1)),
+    }

@@ -6,7 +6,9 @@ first use. The hash covers the source and the flags, so an edited source
 builds anew and a finished build is reused. The kernels target Hopper
 (``sm_90a``) and are built with ``-fmad=false`` and without fast math: the
 replay engine is an integer state machine whose float scores and class
-thresholds must match the plain PyTorch versions bit for bit.
+thresholds must match the plain PyTorch versions bit for bit, and the Zipf
+sums need the full-precision ``expf`` and ``log1pf``. A kernel that wants a
+fused multiply-add asks for it with ``fmaf``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"segsel": "segsel.cu", "classify": "classify.cu"}
+SOURCES = {"segsel": "segsel.cu", "classify": "classify.cu", "zipfprob": "zipfprob.cu",
+           "decode_attn": "decode_attn.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

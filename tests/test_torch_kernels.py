@@ -162,7 +162,8 @@ def test_wrappers_route_cpu_tensors_to_the_plain_versions():
     assert torch.equal(ops.classify(v, g, c1, gc, ell, sids, site="user"),
                        tref.classify_ref(v, g, c1, gc, ell, sids))
     assert ops.launch_counts() == {"segment_select_batch": 0, "segment_select": 0,
-                                   "classify_gc": 0, "classify_user": 0}
+                                   "classify_gc": 0, "classify_user": 0,
+                                   "zipf_bit_sums": 0, "flash_decode": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
