@@ -14,8 +14,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    a repeat), and its time;
 4. decode: flash-decode attention through its entry point at qwen3-32b's,
    starcoder2-3b's and phi3-mini's decode geometry in bfloat16 and float32,
-   against its plain version (1e-4 in float32, 2e-2 in bfloat16), then
-   timed at qwen3-32b's in bfloat16 beside scaled_dot_product_attention;
+   against its plain version (1e-4 in float32, 2e-2 in bfloat16; and within
+   atol 1e-4, rtol 2^-8 of the plain version in float32, half an ulp of the
+   bfloat16 output), a repeat bit-identical, then timed in bfloat16 beside
+   scaled_dot_product_attention at each geometry (qwen3-32b's in the kernel
+   table, and again with every row live), with the split grid;
 5. analysis: the paper's §3 at its own scale (n = 10 * 2^18): the eight
    Fig 8 / Fig 10 points of the repository's benchmark, five of them held
    to the paper's values, all four figure grids through the Zipf kernel,
@@ -67,6 +70,7 @@ ZIPF_OPS_PER_ELEMENT = 22
 # starcoder2_3b.py, phi3_mini.py; (B, S) timed and checked
 QWEN3_32B, STARCODER2_3B, PHI3_MINI = (64, 8, 128), (24, 2, 128), (32, 32, 96)
 DECODE_TIMED, DECODE_CHECKED = (16, 8192), (8, 4096)
+PREV_DECODE_MS = 1.472         # K5 before the split-KV design, at the timed shape (PERF.md, run D)
 
 
 def log(msg: str) -> None:
@@ -137,7 +141,7 @@ def phase_build() -> None:
         f"(nvcc {' '.join(build.NVCC_FLAGS)})")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "error" in line.lower():
+            if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -343,12 +347,12 @@ def _decode_inputs(seed, B, S, heads, dtype):
 
 def phase_decode() -> tuple[dict, int]:
     """K5's path, its entry point `ops.flash_decode`, at three decode
-    geometries in both dtypes; each output against the plain version; then
-    the kernel, the plain version and scaled_dot_product_attention timed at
-    qwen3-32b's geometry in bfloat16. Returns the K5 row and its launches
-    on the path."""
+    geometries in both dtypes; each output against the plain version and a
+    repeat bit-identical; the split grid of each geometry; then the kernel
+    and scaled_dot_product_attention timed at each geometry in bfloat16, and
+    the plain version too at qwen3-32b's. Returns the K5 row and its
+    launches on the path."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attn, ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain version in full float32
@@ -369,31 +373,41 @@ def phase_decode() -> tuple[dict, int]:
         raise AssertionError("the decode path did not go through its kernel")
     errs = []
     for (name, heads, bs, dtype), x, out in zip(cases, inputs, outs):
-        want = ref.flash_decode_ref(*x)
-        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-        err = max_abs_err(out.float(), want.float())
-        ok = (out.shape == want.shape and out.dtype == x[0].dtype
-              and bool(torch.isfinite(out).all())
-              and torch.allclose(out.float(), want.float(), atol=tol, rtol=tol))
+        ok, err, err32 = _decode_check(out, *x)
         log(f"[decode] {name} (B, S) {bs} (Hq, Hkv, D) {heads} {str(dtype)[6:]}: max |err| "
-            f"{err:.3e} (tolerance {tol}) ok={ok}")
+            f"{err:.3e}, against float32 {err32:.3e} ok={ok}")
         if not ok:
             raise AssertionError(f"K5 disagrees with its plain version at {name} {dtype}")
         errs.append(err)
 
+    for x, out in zip(inputs, outs):
+        if not torch.equal(decode_attn._launch(*x), out):
+            raise AssertionError("K5 is not bit-identical on a repeat of the same input")
+    for (name, heads, bs, dtype), x in zip(cases, inputs):
+        if dtype != torch.bfloat16:
+            continue
+        B, S = bs
+        grid = decode_attn.split_grid(B, S, *heads)
+        live = sum(-(-n // grid["chunk"]) for n in x[3].clamp(max=S).tolist())
+        per_chunk = heads[1] * grid["tiles"]
+        log(f"[decode] {name} grid: chunk {grid['chunk']} rows, {grid['chunks']} chunks x "
+            f"{per_chunk} (KV head, query-head tile) x {B} rows = "
+            f"{grid['chunks'] * per_chunk * B} blocks, {live * per_chunk} live, "
+            f"{grid['threads']} threads each; query-head tile {grid['tile']} "
+            f"({grid['tiles']} per KV head); combine {heads[0] * B} blocks")
+        if name != "qwen3-32b":      # the timed case's row is below
+            ms = time_ms(lambda: decode_attn._launch(*x), reps=5)
+            log(f"[decode] {name} bf16: {ms * 1e3:.2f} us, scaled_dot_product_attention "
+                f"{_decode_library(*x)[1] * 1e3:.2f} us, "
+                f"bound {_decode_bound(*x)['bound_ms'] * 1e3:.2f} us")
+
     q, k, v, kl = inputs[0]          # the timed case: qwen3-32b in bfloat16
     B, Hq, D = q.shape
     _, S, Hkv, _ = k.shape
-    mask = (torch.arange(S, device="cuda")[None, :] < kl[:, None])[:, None, None, :]
-
-    def library():
-        return F.scaled_dot_product_attention(q[:, :, None], k.transpose(1, 2),
-                                              v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+    library, library_ms = _decode_library(q, k, v, kl)
     lib_err = max_abs_err(library()[:, :, 0].float(), ref.flash_decode_ref(q, k, v, kl).float())
     rows_read = int(kl.clamp(max=S).sum())
-    size = q.element_size()
-    limit = bound(rows_read * Hkv * D * 2 * size + 2 * B * Hq * D * size + 4 * B,
-                  4 * Hq * D * rows_read, BF16_FLOPS)
+    limit = _decode_bound(q, k, v, kl)
     # the wrapper's kv_len check reads the device, which a CUDA graph cannot
     # capture: time the launch behind it
     row = {"name": "flash_decode", "route": "cuda",
@@ -403,13 +417,71 @@ def phase_decode() -> tuple[dict, int]:
            "max_abs_err": errs[0],
            "ms": time_ms(lambda: decode_attn._launch(q, k, v, kl), reps=5),
            "plain_ms": time_ms(lambda: ref.flash_decode_ref(q, k, v, kl), reps=5),
-           **limit, "tolerance": "2e-2 (bfloat16), 1e-4 (float32)",
-           "library_ms": time_ms(library, reps=5)}
+           **limit, "tolerance": "2e-2 (bfloat16), 1e-4 (float32); against the float32 "
+           "plain version atol 1e-4, rtol 2^-8 (bfloat16) or 1e-4", "library_ms": library_ms}
     log(f"[kernels] flash_decode qwen3-32b B={B} S={S} bf16, {rows_read} KV rows: "
-        f"{row['ms'] * 1e3:.1f} us (plain {row['plain_ms'] * 1e3:.1f} us, "
+        f"{row['ms'] * 1e3:.1f} us (the kernel before the split-KV design, recorded in PERF.md, "
+        f"not this run: {PREV_DECODE_MS * 1e3:.0f} us; "
+        f"plain {row['plain_ms'] * 1e3:.1f} us, "
         f"scaled_dot_product_attention {row['library_ms'] * 1e3:.1f} us, its max |err| "
         f"{lib_err:.3e}; bound {row['bound_ms'] * 1e3:.1f} us, {row['bound_by']})")
+    # the same inputs with every row live: the kernel's gain above comes
+    # from skipping the rows past kv_len, which the library reads masked
+    full = (q, k, v, torch.full_like(kl, S))
+    ok, err, err32 = _decode_check(decode_attn._launch(*full), *full)
+    log(f"[decode] qwen3-32b bf16, every row live ({B * S} KV rows): max |err| {err:.3e}, "
+        f"against float32 {err32:.3e} ok={ok}")
+    if not ok:
+        raise AssertionError("K5 disagrees with its plain version with every row live")
+    log(f"[decode] qwen3-32b bf16, every row live: "
+        f"{time_ms(lambda: decode_attn._launch(*full), reps=5) * 1e3:.2f} us, "
+        f"scaled_dot_product_attention {_decode_library(*full)[1] * 1e3:.2f} us, "
+        f"bound {_decode_bound(*full)['bound_ms'] * 1e3:.2f} us")
     return row, launches
+
+
+def _decode_check(out, q, k, v, kl) -> tuple[bool, float, float]:
+    """K5's output against the plain version on the same inputs: within
+    atol = rtol = 1e-4 (float32) or 2e-2 (bfloat16); and against the plain
+    version in float32 on the same values, before the output's rounding,
+    within atol 1e-4 and rtol 1e-4 (float32) or 2^-8 (bfloat16: half an
+    ulp). Returns (ok, max |err|, max |err| against float32)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    want = ref.flash_decode_ref(q, k, v, kl)
+    want32 = ref.flash_decode_ref(q.float(), k.float(), v.float(), kl)
+    tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
+    rtol32 = 2.0 ** -8 if q.dtype == torch.bfloat16 else 1e-4
+    ok = (out.shape == want.shape and out.dtype == q.dtype and bool(torch.isfinite(out).all())
+          and torch.allclose(out.float(), want.float(), atol=tol, rtol=tol)
+          and torch.allclose(out.float(), want32, atol=1e-4, rtol=rtol32))
+    return ok, max_abs_err(out.float(), want.float()), max_abs_err(out.float(), want32)
+
+
+def _decode_bound(q, k, v, kl) -> dict:
+    """K5's bound: the K and V rows up to kv_len, q, the output and kv_len
+    once each; 4 * Hq * D operations per row at the bf16 tensor-core rate."""
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    rows_read = int(kl.clamp(max=S).sum())
+    size = q.element_size()
+    return bound(rows_read * Hkv * D * 2 * size + 2 * B * Hq * D * size + 4 * B,
+                 4 * Hq * D * rows_read, BF16_FLOPS)
+
+
+def _decode_library(q, k, v, kl):
+    """scaled_dot_product_attention on the decode inputs (the yardstick, not
+    used by the port), and its time in ms."""
+    import torch
+    import torch.nn.functional as F
+    S = k.shape[1]
+    mask = (torch.arange(S, device="cuda")[None, :] < kl[:, None])[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q[:, :, None], k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+    return library, time_ms(library, reps=5)
 
 
 def _same(a: float, b: float) -> bool:

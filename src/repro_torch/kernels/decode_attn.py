@@ -20,12 +20,28 @@ from .segsel import check_tensors
 launches = {"flash_decode": 0}
 
 HEAD_DIMS = (64, 96, 128)       # D the kernel takes (tested on the card)
-MAX_GROUP = 64                  # query heads per KV head; bounds its shared memory
+MAX_GROUP = 64                  # query heads per KV head
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"flash_decode_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-                                       _P, _P]}
+_GRID = ("chunk", "chunks", "tile", "tiles", "threads", "scratch")
+_SIGNATURES = {
+    "flash_decode_grid": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
+    "flash_decode_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                            _P, _P, _P]}
+
+
+def split_grid(B: int, S: int, Hq: int, Hkv: int, D: int) -> dict:
+    """The kernel's launch shape, as its C side chooses it: ``chunk`` KV rows
+    per split block and ``chunks`` blocks along S, ``tile`` query heads per
+    block and ``tiles`` per KV head, ``threads`` per block, and ``scratch``,
+    the float32 values of the split pass's partials. Sized from S alone, so
+    the launch reads nothing from the device. Builds the kernel library."""
+    lib = build.library("decode_attn", _SIGNATURES)
+    grid = (ctypes.c_longlong * len(_GRID))()
+    if lib.flash_decode_grid(B, S, Hkv, Hq // Hkv, D, grid) != 0:
+        raise ValueError(f"no flash_decode grid for B={B} S={S} Hq={Hq} Hkv={Hkv} D={D}")
+    return dict(zip(_GRID, grid))
 
 
 def _check_shapes(q, k, v, kv_len) -> torch.device:
@@ -73,16 +89,24 @@ def flash_decode(q, k, v, kv_len):
 
 def _launch(q, k, v, kv_len):
     """The kernel on tensors that passed `flash_decode`'s checks, with no
-    read of the device (so that a CUDA graph can capture it)."""
+    read of the device (so that a CUDA graph can capture it). The split
+    pass's partials go to float32 scratch from `torch.empty`."""
     B, Hq, D = q.shape
     _, S, Hkv, _ = k.shape
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel's "
+                             "vector loads)")
+    part = torch.empty(split_grid(B, S, Hq, Hkv, D)["scratch"], dtype=torch.float32,
+                       device=q.device)
     out = torch.empty_like(q)
     lib = build.library("decode_attn", _SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.flash_decode_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                       kv_len.data_ptr(), B, S, Hkv, Hq // Hkv, D,
-                                      _DTYPES[q.dtype], 1.0 / (D ** 0.5), out.data_ptr(), stream)
+                                      _DTYPES[q.dtype], 1.0 / (D ** 0.5), part.data_ptr(),
+                                      out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed with CUDA error {err}")
     launches["flash_decode"] += 1

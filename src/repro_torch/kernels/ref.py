@@ -92,3 +92,36 @@ def flash_decode_ref(q, k, v, kv_len):
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", w, v.to(torch.float32))
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def flash_decode_split_ref(q, k, v, kv_len, chunk):
+    """`flash_decode_ref` computed as the split kernel does: per chunk of
+    ``chunk`` rows that starts before min(kv_len, S), the partial (m, l, acc)
+    of its unmasked rows in float32; then, in chunk order, M = max m,
+    out = sum e^(m - M) acc / max(sum e^(m - M) l, 1e-30). Chunks wholly past
+    kv_len take no part. Output in q's dtype, (B, Hq, D)."""
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    G = Hq // Hkv
+    qf = q.to(torch.float32).reshape(B, Hkv, G, D) / (D ** 0.5)
+    lens = torch.clamp(kv_len.to(torch.int64), max=S)
+    out = torch.empty(B, Hkv, G, D, dtype=torch.float32, device=q.device)
+    for b in range(B):
+        n = int(lens[b])
+        parts = []
+        for r0 in range(0, n, chunk):
+            kc = k[b, r0:min(r0 + chunk, n)].to(torch.float32)                  # (rows, Hkv, D)
+            vc = v[b, r0:min(r0 + chunk, n)].to(torch.float32)
+            s = torch.einsum("hgd,rhd->hgr", qf[b], kc)
+            m = torch.amax(s, dim=-1)                                        # (Hkv, G)
+            p = torch.exp(s - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("hgr,rhd->hgd", p, vc)))
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        acc = torch.zeros(Hkv, G, D, dtype=torch.float32, device=q.device)
+        den = torch.zeros(Hkv, G, dtype=torch.float32, device=q.device)
+        for m, l, a in parts:
+            w = torch.exp(m - M)
+            acc = acc + w[..., None] * a
+            den = den + w * l
+        out[b] = acc / torch.clamp(den, min=1e-30)[..., None]
+    return out.reshape(B, Hq, D).to(q.dtype)

@@ -216,6 +216,57 @@ def test_flash_decode_matches_pallas_and_jnp(B, Hq, Hkv, D, S, dtype):
                                    atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("B,Hq,Hkv,D,S", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_split_ref_matches_pallas_and_plain(B, Hq, Hkv, D, S, dtype):
+    """The plain split-and-combine version (the CUDA kernel's arithmetic), at
+    the kernel's chunk and at one that splits every shape, against the Pallas
+    kernel (interpret mode), the jnp oracle and `flash_decode_ref`; atol =
+    rtol = 1e-4 in float32, 2e-2 in bfloat16. 512 is the kernel's chunk
+    (``kChunk`` in csrc/decode_attn.cu)."""
+    rng = np.random.default_rng(B * Hq * D + S + 1)
+    x = [rng.standard_normal(shape).astype(np.float32)
+         for shape in ((B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+    kl = rng.integers(1, S + 1, B).astype(np.int32)
+    kl[0] = S
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in x)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in x)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    wants = [np.asarray(w, np.float32) for w in (
+        jops.flash_decode(jq, jk, jv, jnp.asarray(kl), kv_tile=256),
+        jref.flash_decode_ref(jq, jk, jv, jnp.asarray(kl)))]
+    wants.append(tref.flash_decode_ref(q, k, v, torch.from_numpy(kl)).float().numpy())
+    for chunk in (512, 64):
+        got = tref.flash_decode_split_ref(q, k, v, torch.from_numpy(kl), chunk)
+        assert got.dtype == tdt and got.shape == (B, Hq, D)
+        for want in wants:
+            np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("G", [1, 8, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_split_ref_at_chunk_edges(G, dtype):
+    """kv_len chunk - 1, chunk, chunk + 1, 1 and above S, with S not a
+    multiple of the chunk: within 1e-4 (float32) or 2e-2 (bfloat16) of
+    `flash_decode_ref`, and chunks wholly past kv_len take no part (rows
+    there changed to huge values change no bit of the output)."""
+    chunk, Hkv, D = 16, 2, 64
+    S = 3 * chunk + 5
+    rng = np.random.default_rng(G)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dtype)
+               for s in ((5, Hkv * G, D), (5, S, Hkv, D), (5, S, Hkv, D)))
+    kl = torch.tensor([chunk - 1, chunk, chunk + 1, 1, S + 7], dtype=torch.int32)
+    got = tref.flash_decode_split_ref(q, k, v, kl, chunk)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), tref.flash_decode_ref(q, k, v, kl).float(),
+                               atol=tol, rtol=tol)
+    k2, v2 = k.clone(), v.clone()
+    for b, n in enumerate(kl.tolist()):
+        k2[b, n:], v2[b, n:] = 1e4, -1e4
+    assert torch.equal(tref.flash_decode_split_ref(q, k2, v2, kl, chunk), got)
+
+
 def test_flash_decode_masks_past_kv_len():
     """Positions at or past kv_len change nothing; kv_len above S counts as S."""
     rng = np.random.default_rng(3)

@@ -119,13 +119,25 @@ def test_zipf_kernel_matches_plain_and_repeats_bit_identically(card, alpha):
     assert ops.launch_counts()["zipf_bit_sums"] == 6
 
 
+def _assert_decode_close(got, q, k, v, kl):
+    """atol = rtol = 1e-4 in float32, 2e-2 in bfloat16, against the plain
+    version with its float32 products in full float32 (TF32 off); and within
+    atol 1e-4, rtol 1e-4 (float32) or 2^-8 (bfloat16, half an ulp of the
+    output's rounding) of the plain version in float32 on the same values."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), tref.flash_decode_ref(q, k, v, kl).float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(),
+                               tref.flash_decode_ref(q.float(), k.float(), v.float(), kl),
+                               atol=1e-4, rtol=2.0 ** -8 if q.dtype == torch.bfloat16 else 1e-4)
+
+
 @pytest.mark.parametrize("B,Hq,Hkv,D,S", [(2, 8, 2, 64, 700), (3, 24, 2, 128, 333),
                                           (2, 32, 32, 96, 300), (2, 64, 8, 128, 1100)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_kernel_matches_plain(card, B, Hq, Hkv, D, S, dtype):
-    """atol = rtol = 1e-4 in float32, 2e-2 in bfloat16, with the plain
-    version's float32 products in full float32 (TF32 off)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """Within the tolerances of `_assert_decode_close`."""
     rng = np.random.default_rng(S + D)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(card, dtype)
                for s in ((B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
@@ -135,11 +147,44 @@ def test_flash_decode_kernel_matches_plain(card, B, Hq, Hkv, D, S, dtype):
     ops.reset_launch_counts()
     got = decode_attn.flash_decode(q, k, v, kl)
     assert ops.launch_counts()["flash_decode"] == 1
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    torch.testing.assert_close(got.float(), tref.flash_decode_ref(q, k, v, kl).float(),
-                               atol=tol, rtol=tol)
+    _assert_decode_close(got, q, k, v, kl)
     with pytest.raises(ValueError, match=">= 1"):
         decode_attn.flash_decode(q, k, v, torch.zeros_like(kl))
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 6, 8, 12, 16, 64])
+@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_split_edges(card, G, D, dtype):
+    """The split kernel at the edges of its chunks: kv_len chunk - 1, chunk,
+    chunk + 1, 1 and above S, with S not a multiple of the chunk, at every
+    query-head tile (1, 2, 4 and 8, full and partial); within the tolerances
+    of `_assert_decode_close`, within atol = rtol = 1e-4 (float32) or 2e-2
+    (bfloat16) of the plain split-and-combine version, and bit-identical on
+    a repeat."""
+    Hkv = 2
+    chunk = decode_attn.split_grid(1, 1, Hkv * G, Hkv, D)["chunk"]
+    B, S = 5, 2 * chunk + 37
+    rng = np.random.default_rng(G * D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(card, dtype)
+               for s in ((B, Hkv * G, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    kl = torch.tensor([chunk - 1, chunk, chunk + 1, 1, S + 100], dtype=torch.int32, device=card)
+    ops.reset_launch_counts()
+    got = decode_attn.flash_decode(q, k, v, kl)
+    assert ops.launch_counts()["flash_decode"] == 1
+    _assert_decode_close(got, q, k, v, kl)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(),
+                               tref.flash_decode_split_ref(q, k, v, kl, chunk).float(),
+                               atol=tol, rtol=tol)
+    assert torch.equal(decode_attn.flash_decode(q, k, v, kl), got)
+
+
+def test_flash_decode_rejects_unaligned_tensors(card):
+    q = torch.zeros(1, 8, 64, device=card)
+    kv = torch.zeros(1 * 16 * 1 * 64 + 1, device=card)[1:].view(1, 16, 1, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attn.flash_decode(q, kv, kv, torch.full((1,), 16, dtype=torch.int32, device=card))
 
 
 def test_analysis_on_the_card_matches_the_cpu(card):
