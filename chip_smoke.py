@@ -24,14 +24,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    to the paper's values, all four figure grids through the Zipf kernel,
    and Figs 9 / 11 on the benchmark-grade volume pool, equal on the card
    and on the CPU;
-6. engine parity: a reduced fleet replayed on the card (kernels) and on the
-   CPU (plain versions) must end in bit-equal states; one volume replayed
-   alone on the card (the single-volume victim kernel) must equal its row
-   of the fleet; an undersized segment pool must keep the free-pool
-   exhaustion envelope;
+6. engine parity: a reduced fleet replayed on the card by the replay kernel
+   and by the step engine (kernels K1 and K3 between PyTorch ops) must end
+   in states bit-equal to the step engine's on the CPU; one volume replayed
+   alone on the card under both engines (the replay kernel at V = 1, and the
+   single-volume victim kernel K2) must equal its row of the fleet; in the
+   free-pool exhaustion corner the replay kernel must equal the CPU and the
+   step engine keep its envelope;
 7. main run: the 186-volume mixed corpus tiled over the four GC thresholds
    of the repository's gcbench (744 volumes of 64 MiB at 4 KiB blocks),
-   SepBIT with cost-benefit selection, then a profiled steady window.
+   SepBIT with cost-benefit selection, replayed by the replay kernel and
+   then by the step engine, every final key equal; eight of its volumes
+   replayed over the whole trace by the step engine on the CPU, the replay
+   kernel's plain version, equal to their rows; the replay kernel timed
+   alone on both inputs;
+8. scale: the replay kernel alone on 32 volumes of 1 GiB, held to the
+   state invariants, its time and its victim scans' bytes per user write;
+9. profile: steady windows of both engines under torch.profiler.
 
 Before the last line it prints the kernel table as one JSON object; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA it exits 1
@@ -56,7 +65,12 @@ MAIN_GPS = (0.08, 0.12, 0.16, 0.22)   # gcbench's GC thresholds
 MAIN_N_LBAS = 16384            # 64 MiB volumes at 4 KiB blocks
 MAIN_SEGMENT = 128
 PARITY_N_LBAS = 2048           # the card-against-CPU fleet's volumes
-PROFILE_STEPS = 200            # the profiled steady window after the main run
+PROFILE_REPLAY_STEPS = 8192    # the profiled steady windows after the main run, per engine
+PROFILE_STEP_STEPS = 100
+PLAIN_VOLUMES_PER_TILE = 2     # main-run volumes per GC threshold replayed by the CPU step engine
+REPLAY_TIMED = 5               # launches of the replay kernel timed, each on a fresh state
+SCALE_N_LBAS = 262144          # [scale]: 1 GiB volumes at 4 KiB blocks
+SCALE_VOLUMES_PER_TILE = 8
 # benchmarks/run.py fig8_user_bit / fig10_gc_bit: (window GiB, window GiB,
 # alpha, the paper's percentage or None), and tests/test_analysis.py's
 # tolerance for each paper value, in percentage points
@@ -604,10 +618,20 @@ def check_integrity(cfg, st, traces, what):
             raise AssertionError(f"{what}: volume {i} breaks a state invariant")
 
 
+def _differing_keys(got: dict, want: dict) -> list[str]:
+    return [k for k in want
+            if not np.array_equal(got[k], want[k]) or got[k].dtype != want[k].dtype]
+
+
 def phase_parity() -> tuple[int, int]:
-    """Card against CPU on a reduced fleet, then one volume alone on the card
-    (the single-volume path), then the exhaustion envelope. Returns the
-    single-volume path's segment count (K2's shape) and K2's launches there."""
+    """The replay kernel and the step engine on the card against the step
+    engine on the CPU: a reduced fleet under both engines, then one volume
+    alone under both (the single-volume paths: the replay kernel at V = 1,
+    and the step engine's K2), then the free-pool exhaustion corner (the
+    replay kernel bit-equal to the CPU; the step engine, whose scatters
+    leave the order of duplicate targets undefined on the card, within its
+    envelope). Returns the single-volume segment count (K2's shape) and
+    K2's launches there."""
     import dataclasses
 
     import torch
@@ -621,40 +645,58 @@ def phase_parity() -> tuple[int, int]:
     traces = make_fleet("mixed", V, n, 2 * n, jitter=0.25, seed=29)
     policies = fleet_policies(cfg, [MAIN_GPS[i % len(MAIN_GPS)] for i in range(V)])
     t0 = time.perf_counter()
-    card = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, policies, device="cuda"))
-    t1 = time.perf_counter()
-    cpu = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, policies, device="cpu"))
-    t2 = time.perf_counter()
-    bad = [k for k in cpu
-           if not np.array_equal(card[k], cpu[k]) or card[k].dtype != cpu[k].dtype]
-    log(f"[parity] fleet V={V} n_lbas={n}: card {t1 - t0:.1f} s, cpu {t2 - t1:.1f} s, "
-        f"differing keys: {bad}")
-    if bad:
-        raise AssertionError(f"card and CPU fleets differ in {bad}")
-    if not (card["reclaimed"] > 0).all() or card["overflow"].any():
+    cpu = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, policies, device="cpu",
+                                                    engine="step"))
+    log(f"[parity] fleet V={V} n_lbas={n}: step engine on the cpu {time.perf_counter() - t0:.1f} s")
+    if not (cpu["reclaimed"] > 0).all() or cpu["overflow"].any():
         raise AssertionError("parity fleet: GC did not run everywhere, or the pool overflowed")
-    check_integrity(cfg, card, traces, "parity fleet")
+    card = {}
+    for engine in ("replay", "step"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        card[engine] = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, policies,
+                                                                 device="cuda", engine=engine))
+        wall = time.perf_counter() - t0
+        bad = _differing_keys(card[engine], cpu)
+        log(f"[parity] fleet V={V} engine={engine} on the card {wall:.2f} s, differing keys "
+            f"against the cpu: {bad}; launches {ops.launch_counts()}")
+        if bad:
+            raise AssertionError(f"engine={engine} on the card and the CPU differ in {bad}")
+    check_integrity(cfg, card["replay"], traces, "parity fleet")
 
-    # one volume alone: the single-volume path, victims from segment_select
+    # one volume alone: the replay kernel at V = 1, and the step engine's
+    # single-volume path with victims from segment_select (K2)
     i = 1
     single_cfg = dataclasses.replace(cfg, gp_threshold=float(policies["p_gp"][i]))
-    ops.reset_launch_counts()
-    alone = convert.state_to_numpy(torchsim.run(single_cfg, traces[i], device="cuda"))
-    counts = ops.launch_counts()
-    bad = [k for k in alone if not np.array_equal(alone[k][0], card[k][i])]
-    log(f"[parity] volume {i} alone on the card vs its fleet row: differing keys {bad}; "
-        f"launches {counts}")
-    if bad or 0 in (counts["segment_select"], counts["classify_gc"], counts["classify_user"]):
-        raise AssertionError("single-volume replay disagrees or skipped its kernels")
+    for engine in ("replay", "step"):
+        ops.reset_launch_counts()
+        alone = convert.state_to_numpy(torchsim.run(single_cfg, traces[i], device="cuda",
+                                                    engine=engine))
+        counts = ops.launch_counts()
+        bad = [k for k in alone if not np.array_equal(alone[k][0], cpu[k][i])]
+        log(f"[parity] volume {i} alone, engine={engine}, vs its fleet row: differing keys "
+            f"{bad}; launches {counts}")
+        wanted = (("replay",) if engine == "replay"
+                  else ("segment_select", "classify_gc", "classify_user"))
+        if bad or 0 in (counts[k] for k in wanted):
+            raise AssertionError(f"single-volume replay (engine={engine}) disagrees or "
+                                 f"skipped its kernels")
+    k2_launches = counts["segment_select"]
 
-    # free-pool exhaustion on the card: duplicate scatter targets alias the
-    # pad row, where CUDA leaves the order of writes undefined; the envelope
-    # (live rows intact, pad row never free, overflow counted) must hold
+    # free-pool exhaustion: classes alias the pad row and scatters meet
+    # duplicate targets
     ecfg = dataclasses.replace(cfg, n_lbas=96, segment_size=8, n_segments=16,
                                gp_threshold=0.10)
     tr = np.asarray(np.random.default_rng(67).integers(0, 96, size=6 * 96), np.int32)
+    want = convert.state_to_numpy(torchsim.run(ecfg, tr, device="cpu", engine="step"))
+    got = convert.state_to_numpy(torchsim.run(ecfg, tr, device="cuda"))
+    bad = _differing_keys(got, want)
+    log(f"[parity] exhaustion corner, engine=replay on the card vs the cpu: overflow="
+        f"{int(got['overflow'][0])}, differing keys {bad}")
+    if bad or int(want["overflow"][0]) == 0:
+        raise AssertionError("replay kernel differs from the CPU in the exhaustion corner")
     st = {k: x[0] for k, x in convert.state_to_numpy(
-        torchsim.run(ecfg, tr, device="cuda")).items()}
+        torchsim.run(ecfg, tr, device="cuda", engine="step")).items()}
     live = (st["loc_seg"] >= 0) & (st["loc_seg"] < ecfg.pad_row)
     lbas = np.nonzero(live)[0]
     seg, off = st["loc_seg"][lbas], st["loc_off"][lbas]
@@ -662,15 +704,70 @@ def phase_parity() -> tuple[int, int]:
               and (st["seg_lba"][seg, off] == lbas).all() and st["seg_valid"][seg, off].all()
               and (off < ecfg.segment_size).all() and (st["seg_n"] <= ecfg.segment_size).all()
               and int(st["seg_state"][ecfg.pad_row]) != 0)
-    log(f"[parity] exhaustion envelope on the card: overflow={int(st['overflow'])} ok={ok}")
+    log(f"[parity] exhaustion envelope, engine=step on the card: overflow={int(st['overflow'])} "
+        f"ok={ok}")
     if not ok:
         raise AssertionError("free-pool exhaustion envelope broken on the card")
     torch.cuda.synchronize()
-    return cfg.n_rows, counts["segment_select"]
+    return cfg.n_rows, k2_launches
+
+
+def replay_bound(st: dict, trace) -> dict:
+    """The replay kernel's bound: the trace and every state key the kernel
+    takes read once, every key it writes (all but the policy's ``p_*``) and
+    its (T,) iteration counts written once."""
+    from repro_torch.kernels.replay import STATE_FIELDS
+    n_bytes = (trace.nbytes + sum(st[k].nbytes for k in STATE_FIELDS)
+               + sum(st[k].nbytes for k in STATE_FIELDS if not k.startswith("p_"))
+               + 4 * trace.shape[1])
+    return {**bound(n_bytes), "bytes": n_bytes}
+
+
+def scan_bytes_per_write(cfg, final: dict) -> float:
+    """Bytes of segment metadata the victim scans read per user write: 16
+    per row (fill, valid count, seal time, state) for every reclaimed
+    victim. It grows with ``n_rows``, i.e. with the volume's size."""
+    return 16 * cfg.n_rows * float(final["reclaimed"].sum()) / float(final["user_writes"].sum())
+
+
+def time_replay(cfg, policies, trace, want: dict, reps: int = REPLAY_TIMED) -> float:
+    """Median device time in ms of ``reps`` launches of the replay kernel,
+    each on a fresh state, between two CUDA events; the wrapper's checks,
+    the state and the counts buffer are made before the first event. Each
+    final state must equal ``want`` (numpy) bit for bit."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import torchsim
+    from repro_torch.core.config import init_state
+    from repro_torch.kernels import replay as kreplay
+    times = []
+    for _ in range(reps):
+        st = torchsim.own_state(init_state(cfg, policies, "cuda"))
+        kreplay.check_inputs(cfg, st, trace)
+        iterations = torch.zeros(trace.shape[1], dtype=torch.int32, device="cuda")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        kreplay.launch(cfg, st, trace, iterations)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        if _differing_keys(convert.state_to_numpy(st), want):
+            raise AssertionError("the replay kernel is not bit-identical on a repeat")
+        del st
+    return float(np.median(times))
 
 
 def phase_main():
-    """The main run; returns its config, final state and kernel launches."""
+    """The main run, replayed twice: by the replay kernel (the card's main
+    path) and by the step engine; every final key must agree. Then the step
+    engine on the CPU, the kernel's plain version, replays a subset of the
+    main run's volumes over the whole trace (PLAIN_VOLUMES_PER_TILE per GC
+    threshold), which must equal their rows; and the kernel alone is timed
+    on the main run's inputs and on the subset's. Returns the config, the
+    step engine's final state, the launches of each run and the replay
+    kernel's row."""
     import torch
 
     from repro_torch import convert
@@ -680,8 +777,9 @@ def phase_main():
     P, n = MAIN_VOLUMES_PER_TILE, MAIN_N_LBAS
     V = P * len(MAIN_GPS)
     log(f"[main] cut: volumes of {n} blocks (64 MiB at 4 KiB) instead of the paper's "
-        f">= 10 GiB, since the replay runs its trace steps in sequence under a smoke "
-        f"time limit")
+        f">= 10 GiB, so that the step engine, which replays the trace steps in sequence, "
+        f"fits the smoke time limit beside the replay kernel ([scale] times the replay "
+        f"kernel alone on 1 GiB volumes)")
     t0 = time.perf_counter()
     traces = tiled_fleet("mixed", len(MAIN_GPS), P, n, 2 * n, jitter=0.25, seed=23)
     cfg = fleet_config(n)
@@ -691,38 +789,148 @@ def phase_main():
         f"{cfg.n_rows}, steps {padded.shape[1]}, writes {int((padded >= 0).sum())}; "
         f"traces made in {time.perf_counter() - t0:.1f} s")
 
-    stats = torchsim.ReplayStats()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
+    runs = {}
+    for engine in ("replay", "step"):
+        stats = torchsim.ReplayStats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        st = torchsim.run_fleet(cfg, padded, policies, device="cuda", stats=stats, engine=engine)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        final = convert.state_to_numpy(st)
+        res = torchsim.summarize_fleet(cfg, st, V)
+        writes = res["fleet"]["user_writes"]
+        log(f"[main] engine={engine}: wall {wall:.3f} s, user steps {stats.steps}, volume-writes "
+            f"{writes}, volume-writes/s {writes / wall:.1f}, s/step {wall / stats.steps:.9f}")
+        log(f"[main] engine={engine}: GC ticks {stats.gc_ticks}, tick iterations "
+            f"{stats.tick_iterations} ({stats.tick_iterations / stats.steps:.4f} per step), "
+            f"host syncs {stats.host_syncs} ({stats.host_syncs / stats.steps:.7f} per step), "
+            f"reclaimed {int(final['reclaimed'].sum())}, overflow {res['fleet']['overflow']}, "
+            f"peak device memory {peak / 2**30:.2f} GiB")
+        was = np.asarray(res["fleet"]["per_volume_wa"])
+        med = {gp: float(np.median(was[j * P:(j + 1) * P])) for j, gp in enumerate(MAIN_GPS)}
+        log(f"[main] engine={engine}: fleet WA {res['fleet']['wa']:.6f}; median WA per GC "
+            f"threshold {med}")
+        log(f"[main] engine={engine}: kernel launches {counts}")
+        if res["fleet"]["overflow"] != 0:
+            raise AssertionError("main run overflowed its segment pool")
+        if not (np.isfinite(was).all() and (was >= 1.0).all() and (final["reclaimed"] > 0).all()):
+            raise AssertionError("main run WA out of range, or a volume never ran GC")
+        check_integrity(cfg, final, traces, f"main run, engine={engine}")
+        runs[engine] = {"st": st, "final": final, "stats": stats, "wall": wall,
+                        "counts": counts, "writes": writes}
+    replay, step = runs["replay"], runs["step"]
+    if replay["counts"]["replay"] != 1 or any(
+            replay["counts"][k] for k in ("segment_select_batch", "classify_gc", "classify_user")):
+        raise AssertionError("the replay engine's main run did not go through the replay kernel")
+    if 0 in (step["counts"]["segment_select_batch"], step["counts"]["classify_gc"],
+             step["counts"]["classify_user"]):
+        raise AssertionError("the step engine's main run did not go through its kernels")
+    bad = _differing_keys(replay["final"], step["final"])
+    same = (replay["stats"].steps, replay["stats"].gc_ticks, replay["stats"].tick_iterations) \
+        == (step["stats"].steps, step["stats"].gc_ticks, step["stats"].tick_iterations)
+    log(f"[main] replay kernel vs step engine on the card: differing keys {bad}; same steps, "
+        f"GC ticks and tick iterations: {same}; wall {replay['wall']:.3f} s against "
+        f"{step['wall']:.3f} s = {step['wall'] / replay['wall']:.1f}x")
+    if bad or not same:
+        raise AssertionError(f"the replay kernel and the step engine differ: {bad}, stats {same}")
+
+    # the kernel's plain version, the step engine on the CPU, on a subset of
+    # the volumes over the whole padded trace: the arithmetic at the main
+    # run's widths held to code that shares nothing with the kernel
+    sub = [j * P + i * (P // PLAIN_VOLUMES_PER_TILE) for j in range(len(MAIN_GPS))
+           for i in range(PLAIN_VOLUMES_PER_TILE)]
+    sub_policies = {k: x[sub] for k, x in policies.items()}
+    sub_trace = np.ascontiguousarray(padded[sub])
     t0 = time.perf_counter()
-    st = torchsim.run_fleet(cfg, padded, policies, device="cuda", stats=stats)
+    cpu = convert.state_to_numpy(torchsim.run_fleet(cfg, sub_trace, sub_policies, device="cpu",
+                                                    engine="step"))
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    bad = [k for k in cpu if not np.array_equal(replay["final"][k][sub], cpu[k])]
+    err = max(max_abs_err(torch.from_numpy(replay["final"][k][sub].astype(np.float64)),
+                          torch.from_numpy(cpu[k].astype(np.float64))) for k in cpu)
+    log(f"[main] replay kernel vs the step engine on the cpu, volumes {sub} over all "
+        f"{padded.shape[1]} steps: differing keys {bad}, max abs err {err}; cpu "
+        f"{plain_ms / 1e3:.3f} s, reclaimed {cpu['reclaimed'].tolist()}")
+    if bad or not (cpu["reclaimed"] > 0).all():
+        raise AssertionError(f"the replay kernel differs from the CPU step engine in {bad}")
+
+    trace = torch.from_numpy(np.ascontiguousarray(padded)).cuda()
+    ms = time_replay(cfg, policies, trace, replay["final"])
+    ms_sub = time_replay(cfg, sub_policies, torch.from_numpy(sub_trace).cuda(), cpu)
+    T = padded.shape[1]
+    limit = replay_bound(replay["st"], trace)
+    row = {"name": "replay", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/replay.cu",
+           "replaces": "src/repro/kernels/segsel.py:150; src/repro/kernels/classify.py:49",
+           "shape": [V, T], "steps": T, "max_abs_err": err,
+           "ms": ms, "ms_per_step": ms / T, "plain_ms": plain_ms, "plain_volumes": sub,
+           "ms_plain_volumes": ms_sub, **limit,
+           "tolerance": "bit-equal on every state key: to engine='step' on the card over all "
+                        "volumes, to the step engine on the CPU (the plain version; plain_ms) "
+                        "over plain_volumes, whose kernel time is ms_plain_volumes",
+           "library_ms": None}
+    log(f"[kernels] replay ({V}, {T}): {ms:.3f} ms per replay (median of {REPLAY_TIMED}, "
+        f"checks outside), {1e3 * ms / T:.4f} us per step, repeats bit-identical; bound "
+        f"{limit['bound_ms']:.3f} ms ({limit['bound_by']}, {limit['bytes']} bytes) = "
+        f"{ms / limit['bound_ms']:.1f}x; victim scans {scan_bytes_per_write(cfg, replay['final']):.1f} "
+        f"bytes per user write; on volumes {sub}: {ms_sub:.3f} ms, step engine on the cpu "
+        f"{plain_ms:.1f} ms")
+    return cfg, step["st"], {k: runs[k]["counts"] for k in runs}, row
+
+
+def phase_scale() -> None:
+    """The replay kernel alone on volumes of SCALE_N_LBAS blocks (1 GiB at 4
+    KiB), SCALE_VOLUMES_PER_TILE per GC threshold: its time, and the victim
+    scans' bytes per user write against the main run's. No engine replays
+    this size beside it (the step engines replay its steps in sequence, far
+    past the smoke's limit); the final state is held to the invariants."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import torchsim
+    from repro_torch.core.config import init_state
+    from repro_torch.core.tracegen import tiled_fleet
+    from repro_torch.kernels import replay as kreplay
+    P, n = SCALE_VOLUMES_PER_TILE, SCALE_N_LBAS
+    traces = tiled_fleet("mixed", len(MAIN_GPS), P, n, 2 * n, jitter=0.25, seed=23)
+    cfg = fleet_config(n)
+    policies = fleet_policies(cfg, np.repeat(MAIN_GPS, P))
+    padded = torchsim.coerce_fleet(traces)
+    V, T = padded.shape
+    trace = torch.from_numpy(np.ascontiguousarray(padded)).cuda()
+    st = torchsim.own_state(init_state(cfg, policies, "cuda"))
+    kreplay.check_inputs(cfg, st, trace)
+    iterations = torch.zeros(T, dtype=torch.int32, device="cuda")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    start.record()
+    kreplay.launch(cfg, st, trace, iterations)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
     final = convert.state_to_numpy(st)
     res = torchsim.summarize_fleet(cfg, st, V)
-    writes = res["fleet"]["user_writes"]
-    log(f"[main] wall {wall:.3f} s, user steps {stats.steps}, volume-writes {writes}, "
-        f"volume-writes/s {writes / wall:.1f}, s/step {wall / stats.steps:.6f}")
-    log(f"[main] GC ticks {stats.gc_ticks}, tick iterations {stats.tick_iterations} "
-        f"({stats.tick_iterations / stats.steps:.4f} per step), host syncs per step "
-        f"{(stats.steps + stats.tick_iterations) / stats.steps:.4f}, reclaimed "
-        f"{int(final['reclaimed'].sum())}, overflow {res['fleet']['overflow']}, "
-        f"peak device memory {peak / 2**30:.2f} GiB")
     was = np.asarray(res["fleet"]["per_volume_wa"])
+    if res["fleet"]["overflow"] != 0 or not (np.isfinite(was).all() and (was >= 1.0).all()
+                                             and (final["reclaimed"] > 0).all()):
+        raise AssertionError("scale run overflowed, or its WA is out of range")
+    check_integrity(cfg, final, traces, "scale run")
+    writes = res["fleet"]["user_writes"]
+    limit = replay_bound(st, trace)
     med = {gp: float(np.median(was[j * P:(j + 1) * P])) for j, gp in enumerate(MAIN_GPS)}
-    log(f"[main] fleet WA {res['fleet']['wa']:.6f}; median WA per GC threshold {med}")
-    log(f"[main] kernel launches {counts}")
-    if res["fleet"]["overflow"] != 0:
-        raise AssertionError("main run overflowed its segment pool")
-    if 0 in (counts["segment_select_batch"], counts["classify_gc"], counts["classify_user"]):
-        raise AssertionError("main run did not go through its kernels")
-    if not (np.isfinite(was).all() and (was >= 1.0).all() and (final["reclaimed"] > 0).all()):
-        raise AssertionError("main run WA out of range, or a volume never ran GC")
-    check_integrity(cfg, final, traces, "main run")
-    return cfg, st, counts
+    log(f"[scale] {V} volumes of {n} blocks (1 GiB at 4 KiB), n_rows {cfg.n_rows}, steps {T}, "
+        f"writes {writes}: replay kernel {ms:.3f} ms, {writes / ms * 1e3:.1f} volume-writes/s "
+        f"(kernel time), {1e3 * ms / T:.4f} us per step; bound {limit['bound_ms']:.3f} ms "
+        f"({limit['bytes']} bytes) = {ms / limit['bound_ms']:.1f}x")
+    log(f"[scale] tick iterations {int(iterations.sum())}, reclaimed "
+        f"{int(final['reclaimed'].sum())}, overflow 0, fleet WA {res['fleet']['wa']:.6f}, "
+        f"median WA per GC threshold {med}; victim scans "
+        f"{scan_bytes_per_write(cfg, final):.1f} bytes per user write")
 
 
 def _device_us(event) -> float:
@@ -733,33 +941,36 @@ def _device_us(event) -> float:
     return 0.0
 
 
-def phase_profile(cfg, st, steps: int = PROFILE_STEPS) -> None:
-    """A steady window after the main run: ``steps`` more random updates per
-    volume under torch.profiler; prints the device's busy share of the wall
-    time, the kernel launches per step and the kernels by device time. The
-    profiler slows the host, so the busy share is a lower bound of the
-    unprofiled run's."""
+def phase_profile(cfg, st) -> None:
+    """Steady windows after the main run under torch.profiler: random
+    updates per volume replayed by the replay kernel (PROFILE_REPLAY_STEPS)
+    and by the step engine (PROFILE_STEP_STEPS); for each, the device's busy
+    share of the wall time, the kernel launches per step and the kernels by
+    device time. The profiler slows the host, so a busy share is a lower
+    bound of the unprofiled run's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import torchsim
     V = st["t"].shape[0]
-    extra = np.random.default_rng(5).integers(0, cfg.n_lbas, (V, steps), dtype=np.int32)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        torchsim.run_fleet(cfg, extra, device="cuda", state=st)
+    for engine, steps in (("replay", PROFILE_REPLAY_STEPS), ("step", PROFILE_STEP_STEPS)):
+        extra = np.random.default_rng(5).integers(0, cfg.n_lbas, (V, steps), dtype=np.int32)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages() if _device_us(e) > 0]
-    kernels = [e for e in rows if e.device_type.name == "CUDA"] or rows
-    busy_us = sum(_device_us(e) for e in kernels)
-    launches = sum(e.count for e in kernels)
-    log(f"[profile] {steps} steady steps x {V} volumes: wall {wall:.3f} s (profiled), "
-        f"device busy {busy_us / 1e6:.4f} s = {100 * busy_us / 1e6 / wall:.2f}% of wall, "
-        f"{launches / steps:.1f} kernel launches per step")
-    for e in sorted(kernels, key=lambda e: -_device_us(e))[:10]:
-        log(f"[profile]   {e.key[:70]:70s} {_device_us(e):12.1f} us x{e.count}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            torchsim.run_fleet(cfg, extra, device="cuda", state=st, engine=engine)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [e for e in prof.key_averages() if _device_us(e) > 0]
+        kernels = [e for e in rows if e.device_type.name == "CUDA"] or rows
+        busy_us = sum(_device_us(e) for e in kernels)
+        launches = sum(e.count for e in kernels)
+        log(f"[profile] engine={engine}: {steps} steady steps x {V} volumes: wall {wall:.3f} s "
+            f"(profiled), device busy {busy_us / 1e6:.4f} s = {100 * busy_us / 1e6 / wall:.2f}% "
+            f"of wall, {launches / steps:.4f} kernel launches per step, "
+            f"{V * steps / wall:.1f} volume-writes/s")
+        for e in sorted(kernels, key=lambda e: -_device_us(e))[:8]:
+            log(f"[profile]   {e.key[:70]:70s} {_device_us(e):12.1f} us x{e.count}")
 
 
 def main() -> int:
@@ -783,12 +994,14 @@ def main() -> int:
     kernels.append(decode_row)
     analysis_launches = phase_analysis()
     single_rows, k2_launches = phase_parity()
-    cfg, st, counts = phase_main()
+    cfg, st, counts, replay_row = phase_main()
+    kernels.append(replay_row)
     if (cfg.n_rows, single_rows) != (main_rows, fleet_config(PARITY_N_LBAS).n_rows):
         raise AssertionError("a kernel was timed at another shape than its path's")
+    phase_scale()
     phase_profile(cfg, st)
-    launches = {**counts, "segment_select": k2_launches, **analysis_launches,
-                "flash_decode": decode_launches}
+    launches = {**counts["step"], "segment_select": k2_launches, **analysis_launches,
+                "flash_decode": decode_launches, "replay": counts["replay"]["replay"]}
     for row in kernels:
         row["launches"] = launches[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -2,9 +2,11 @@
 
 A fleet of block traces is replayed through log-structured volumes and write
 amplification comes out, as in the JAX package, whose results this port
-matches bit for bit. The GC victim argmax and the GC class assignment run as
-hand-written CUDA kernels for Hopper (``kernels/csrc``) on CUDA tensors and
-as plain PyTorch on CPU tensors.
+matches bit for bit. On CUDA tensors the whole replay is one hand-written
+CUDA kernel for Hopper (``kernels/csrc/replay.cu``, with the GC victim
+argmax and the GC class assignment inside); ``engine="step"`` runs the step
+engine instead, PyTorch ops per step around the victim-argmax and
+class-assignment kernels. On CPU tensors the plain PyTorch versions run.
 
 Entry points run on the card unless the caller passes ``device="cpu"``; they
 raise when CUDA is missing and the CPU was not asked for.

@@ -23,7 +23,13 @@ element, so a masked write changes nothing and costs no host sync.
 
 The GC loop asks the host whether any volume still needs GC before each
 tick iteration: one host sync per iteration, plus the one per step that
-finds none. `ReplayStats` counts steps and iterations.
+finds none. `ReplayStats` counts steps, iterations and host syncs.
+
+That is the step engine (``engine="step"``). By default (``engine="replay"``)
+`run` and `run_fleet` hand a state on the card to the replay kernel
+(`kernels.replay`): one launch replays every volume, with no host sync per
+step. For a state on the CPU they run the kernel's plain version, the step
+engine (`step_replay`).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 from .. import resolve_device
 from ..convert import state_to_numpy
 from ..kernels.classify import classify
+from ..kernels.replay import replay as replay_kernel
 from ..kernels.segsel import segment_select, segment_select_batch
 from .config import (
     GCSCHED_NAMES,
@@ -47,16 +54,22 @@ from .config import (
 )
 from .placement.schemes import require_elementwise
 
+ENGINES = ("replay", "step")
+
 
 @dataclasses.dataclass
 class ReplayStats:
-    """Host-side counts of one replay: lockstep steps, steps whose GC loop ran
-    at least once, and GC tick iterations (host syncs = steps + iterations,
-    less the steps that hit ``max_gc_per_step``)."""
+    """Counts of one replay: lockstep steps, steps whose GC loop ran at least
+    once, GC tick iterations (per step, the most any volume ran), and the
+    host syncs the engine made while replaying (the step engine: one per tick
+    iteration and one per step that finds no volume over its threshold; the
+    replay kernel: one read of its counts after the launch). The checks
+    before a replay (scheme ids, pad steps, LBA range) are not counted."""
 
     steps: int = 0
     gc_ticks: int = 0
     tick_iterations: int = 0
+    host_syncs: int = 0
 
 
 def own_state(state: dict) -> dict:
@@ -352,6 +365,8 @@ def fleet_gc_tick(cfg: TorchSimConfig, st: dict, k: Consts, step_active=None, se
         need = (_gp(st) > st["p_gp"]) & ~stalled
         if step_active is not None:
             need = need & step_active
+        if stats is not None:
+            stats.host_syncs += 1
         if not bool(need.any()):      # the host sync of this tick iteration
             break
         if stats is not None:
@@ -373,19 +388,44 @@ def fleet_step(cfg: TorchSimConfig, st: dict, lbas, masked: bool, k: Consts, sel
         stats.steps += 1
 
 
-def _replay(cfg, st, lbas_tv, masked, select, stats):
-    require_elementwise(torch.unique(st["p_scheme"]).tolist())
+def step_replay(cfg: TorchSimConfig, st: dict, trace, stats: ReplayStats | None = None,
+                select=None):
+    """The step engine: replay the (V, T) int32 ``trace`` (-1: a pad step)
+    through ``st`` in place, one lockstep step at a time. The plain version of
+    the replay kernel (`kernels.replay`)."""
+    masked = bool((trace < 0).any())
+    lbas_tv = trace.t().contiguous().to(torch.int64)
     k = Consts(cfg, st["t"].shape[0], st["t"].device)
     for i in range(lbas_tv.shape[0]):
         fleet_step(cfg, st, lbas_tv[i], masked, k, select, stats)
     return st
 
 
+def _check_engine(engine: str) -> None:
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; choices: {ENGINES}")
+
+
+def _replay(cfg, st, trace, stats, engine, select):
+    """The replay kernel for a state on the card under ``engine="replay"``;
+    else its plain version, the step engine (the only one on the CPU)."""
+    if engine == "replay" and trace.is_cuda:
+        replay_kernel(cfg, st, trace, stats)
+    else:
+        require_elementwise(torch.unique(st["p_scheme"]).tolist())
+        step_replay(cfg, st, trace, stats, select)
+    return st
+
+
 def run(cfg: TorchSimConfig, trace, policy: dict | None = None, device="cuda",
-        state: dict | None = None, stats: ReplayStats | None = None) -> dict:
+        state: dict | None = None, stats: ReplayStats | None = None,
+        engine: str = "replay") -> dict:
     """Replay one volume's trace (the counterpart of ``jaxsim._run``),
     starting from ``init_state`` or from ``state``; returns the final state
-    with a leading volume axis of 1. Victims come from `segment_select`."""
+    with a leading volume axis of 1. ``engine="replay"`` runs the replay
+    kernel with one volume; ``engine="step"`` the step engine, with victims
+    from `segment_select`."""
+    _check_engine(engine)
     dev = resolve_device(device)
     trace = np.asarray(trace, dtype=np.int32)
     if trace.ndim != 1 or (trace < 0).any() or (trace >= cfg.n_lbas).any():
@@ -393,8 +433,8 @@ def run(cfg: TorchSimConfig, trace, policy: dict | None = None, device="cuda",
     st = own_state(init_state(cfg, policy, dev) if state is None else state)
     if st["t"].shape != (1,):
         raise ValueError("a single-volume state has a leading volume axis of 1")
-    lbas = torch.from_numpy(trace.astype(np.int64)).to(dev)[:, None]
-    return _replay(cfg, st, lbas, False, _select_victim_single, stats)
+    return _replay(cfg, st, torch.from_numpy(trace[None]).to(dev), stats, engine,
+                   _select_victim_single)
 
 
 def simulate(trace, cfg: TorchSimConfig, policy: dict | None = None, device="cuda") -> dict:
@@ -431,11 +471,15 @@ def broadcast_policies(cfg: TorchSimConfig, n_volumes: int) -> dict:
 
 
 def run_fleet(cfg: TorchSimConfig, traces, policies: dict | None = None, device="cuda",
-              state: dict | None = None, stats: ReplayStats | None = None) -> dict:
+              state: dict | None = None, stats: ReplayStats | None = None,
+              engine: str = "replay") -> dict:
     """Replay V volumes in lockstep (the counterpart of ``jaxsim._run_fleet``)
     and return the final batched state. ``traces`` is a list of 1-D traces
     (unequal lengths are padded with -1) or a padded (V, T) matrix;
-    ``policies`` optionally gives (V,) arrays per policy key."""
+    ``policies`` optionally gives (V,) arrays per policy key. ``engine``:
+    ``"replay"`` (the replay kernel) or ``"step"`` (the step engine, victims
+    from `segment_select_batch`)."""
+    _check_engine(engine)
     dev = resolve_device(device)
     padded = coerce_fleet(traces)
     V = padded.shape[0]
@@ -449,9 +493,8 @@ def run_fleet(cfg: TorchSimConfig, traces, policies: dict | None = None, device=
     st = own_state(state)
     if st["t"].shape != (V,):
         raise ValueError(f"state holds {st['t'].shape[0]} volumes, traces {V}")
-    masked = bool((padded < 0).any())
-    lbas = torch.from_numpy(np.ascontiguousarray(padded.T).astype(np.int64)).to(dev)
-    return _replay(cfg, st, lbas, masked, _select_victims_fleet, stats)
+    return _replay(cfg, st, torch.from_numpy(np.ascontiguousarray(padded)).to(dev), stats,
+                   engine, _select_victims_fleet)
 
 
 def _summary(cfg: TorchSimConfig, st: dict) -> dict:

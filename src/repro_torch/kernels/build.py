@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file exposes a plain C entry point and is compiled on its
 own into ``build/kernels/lib<name>-<hash>.so`` at the repository root, at
-first use. The hash covers the source and the flags, so an edited source
-builds anew and a finished build is reused. The kernels target Hopper
+first use. The hash covers the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header builds anew and a finished
+build is reused. The kernels target Hopper
 (``sm_90a``) and are built with ``-fmad=false`` and without fast math: the
 replay engine is an integer state machine whose float scores and class
 thresholds must match the plain PyTorch versions bit for bit, and the Zipf
@@ -23,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"segsel": "segsel.cu", "classify": "classify.cu", "zipfprob": "zipfprob.cu",
-           "decode_attn": "decode_attn.cu"}
+           "decode_attn": "decode_attn.cu", "replay": "replay.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -43,8 +44,13 @@ def _nvcc() -> str:
 
 
 def target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path; its hash covers the source, every shared header
+    (``csrc/*.cuh``) and the flags, so an edit to any of them builds anew."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

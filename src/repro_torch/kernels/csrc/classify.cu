@@ -8,16 +8,10 @@
 // engine classifies user writes with plain jnp). There v = t + 2^30 for a
 // fresh LBA, which rounds to float32 on its way to the comparison with ℓ.
 //
-// Classes, by the dense scheme id of the row:
-//   nosep (0)  0
-//   sepgc (1)  is_gc
-//   sepbit (2) user: v < ℓ -> 0, else 1; GC: 2 if from class 0,
-//              else 3 + [g >= 4ℓ] + [g >= 16ℓ]
-//   uw (7)     user: 0/1 as sepbit; GC: 2
-//   gw (8)     user: 0; GC: 1 + [g >= 4ℓ] + [g >= 16ℓ]
-//   any other  0 (the stateful schemes never consult this kernel)
-// v and g convert to float32 by round-to-nearest and 4ℓ, 16ℓ are exact
-// products, so the comparisons match the plain PyTorch version bit for bit.
+// The class chain is engine_ops::classify_one (engine_ops.cuh, shared with
+// the replay kernel): v and g convert to float32 by round-to-nearest and
+// 4ℓ, 16ℓ are exact products, so the classes match the plain PyTorch
+// version bit for bit.
 //
 // What bounds it on this card: memory. Per element it reads 16 bytes and
 // writes 4, with a handful of compares: 1.9 MB at (744, 128), about 0.6 us
@@ -29,6 +23,8 @@
 // row with coalesced int32 loads.
 
 #include <cuda_runtime.h>
+
+#include "engine_ops.cuh"
 
 namespace {
 
@@ -46,29 +42,7 @@ classify_kernel(const int* __restrict__ v, const int* __restrict__ g,
     const long long k = static_cast<long long>(row) * row_len + col;
     const int sid = scheme_ids[row];
     const float e = ell[row];
-    const float vf = __int2float_rn(v[k]);
-    const float gf = __int2float_rn(g[k]);
-    const bool gc = is_gc[k] != 0;
-    const int user_cls = vf < e ? 0 : 1;
-    const int older = (gf >= __fmul_rn(4.0f, e) ? 1 : 0) + (gf >= __fmul_rn(16.0f, e) ? 1 : 0);
-    int cls = 0;
-    switch (sid) {
-      case 1:
-        cls = gc ? 1 : 0;
-        break;
-      case 2:
-        cls = gc ? (from_c1[k] != 0 ? 2 : 3 + older) : user_cls;
-        break;
-      case 7:
-        cls = gc ? 2 : user_cls;
-        break;
-      case 8:
-        cls = gc ? 1 + older : 0;
-        break;
-      default:
-        cls = 0;
-    }
-    out[k] = cls;
+    out[k] = engine_ops::classify_one(sid, e, v[k], g[k], from_c1[k] != 0, is_gc[k] != 0);
   }
 }
 

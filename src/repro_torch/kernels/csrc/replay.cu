@@ -1,0 +1,456 @@
+// The whole fleet replay in one launch: per volume, every user write of its
+// trace and, after each, its GC loop, with victim selection and GC
+// classification done inside.
+//
+// Replaces, on the card, the step engine of core/torchsim.py (`_user_write`
+// and `fleet_gc_tick` -> `_gc_once`: about 230 PyTorch launches and 1.66
+// host syncs per lockstep step) together with the two TPU kernels on its
+// path: segment_select_batch / segment_select (src/repro/kernels/segsel.py,
+// the victim argmax; at V = 1 this kernel is the single-volume path) and
+// classify (src/repro/kernels/classify.py, the GC classes; and the user
+// write's class). Their per-element arithmetic is engine_ops.cuh, shared
+// with segsel.cu and classify.cu.
+//
+// Why one kernel can do it: volumes are independent (the JAX package proves
+// it with its provenance lints SA501-SA504), and each volume's GC iterations
+// in the fleet's tick loop are a prefix of that loop (jaxsim.fleet_gc_tick),
+// so a volume can run its own loop with no knowledge of the others. Each
+// warp (one block of 32 threads) replays one volume from its first step to
+// its last; no host decision is left.
+//
+// What it computes: exactly the step engine's transitions, in its order,
+// so the final state is bit-equal to it (and to the JAX package):
+//   user write: invalidate the predecessor (a slot offset >= s is dropped),
+//     v = t - last_uw (int32, wraps), class, append to the class's open
+//     segment (an offset >= s, only on the pad row, is dropped), cap the pad
+//     row's fill at s, update loc_* and last_uw, seal when full and promote
+//     the first free row (the pad row when none is free), the lat_dens EWMA
+//     as a multiply then an add, the counters; a pad step (-1) is skipped;
+//   GC loop: while gp > p_gp and fewer than max_gc_per_step iterations ran
+//     this step: the victim argmax (none: the volume stalls for the step),
+//     then the rewrite of `_gc_once`: ℓ bookkeeping, the victim slots'
+//     classes, per-class ranks in slot order, the first C free rows (class c
+//     takes the c-th whether it needs one or not), destinations, per-class
+//     metadata, the victim's release, the counters.
+// Where several writes of one scatter of the step engine hit one element
+// (only when the free pool is exhausted and classes alias the pad row), the
+// last in slot or class order wins, as in the step engine on the CPU.
+//
+// What bounds it on this card: the chain of dependent memory round trips of
+// each volume (a user write reads its LBA's location, then its class's open
+// segment; a GC iteration scores every row, reads the victim's slots, scans
+// for free rows), far above the bytes the replay must move (the trace, and
+// the state read and written once). The kernel is latency bound, one warp
+// per volume, with as many volumes side by side as the fleet has. Each GC
+// iteration scores every row of its volume, 16 B a row, so the victim
+// scan's cost per user write grows with the volume's row count and, at
+// large volumes, outweighs the user writes (chip_smoke.py's [scale] phase
+// measures it).
+//
+// Design: per-volume scalars, the open segment of each class and the class
+// counters live in registers for the whole replay (lane c holds class c);
+// segment metadata, slots and the location map stay in global memory (the
+// metadata of 744 volumes x 363 rows is 6.5 MB and stays in L2), so shared
+// memory caps no volume's size (the victim scan's time grows with it).
+// Shared memory holds only the warp's scratch: the victim's slots (read
+// whole before any move, as the step engine gathers them) and the free rows. Ranks come from one ballot per class; duplicate targets are
+// resolved with __match_any_sync so the highest slot (or class) writes. Fill
+// counts that several lanes may add to (the pad row) use atomicAdd. The trace
+// is read 32 steps at a time by the warp; the per-step GC iteration count
+// goes to a (T,) buffer with atomicMax, so the host learns the tick counts
+// with one read after the launch.
+
+#include <cuda_runtime.h>
+
+#include <climits>
+
+#include "engine_ops.cuh"
+
+// The replay's arguments, passed by value to the kernel. Must match
+// ReplayArgs in kernels/replay.py field for field. Outside the unnamed
+// namespace, so that the C entry points that take it keep external linkage.
+struct ReplayArgs {
+  int* seg_lba;
+  int* seg_utime;
+  unsigned char* seg_valid;
+  int* seg_n;
+  int* seg_nvalid;
+  int* seg_cls;
+  int* seg_state;
+  int* seg_ctime;
+  int* seg_stime;
+  int* open_sid;
+  int* loc_seg;
+  int* loc_off;
+  int* last_uw;
+  int* t;
+  int* total_occ;
+  int* total_valid;
+  int* user_writes;
+  int* gc_writes;
+  int* reclaimed;
+  int* overflow;
+  float* ell;
+  float* ell_tot;
+  int* nc;
+  int* class_user;
+  int* class_gc;
+  float* lat_dens;
+  const int* p_scheme;
+  const int* p_selector;
+  const float* p_gp;
+  const int* p_ncw;
+  const int* p_classes;
+  const int* trace;     // (V, T), -1 = pad step
+  int* iterations;      // (T,), zeroed by the caller
+  int n_volumes;
+  int n_steps;
+  int n_rows;
+  int seg_size;
+  int n_classes;        // class slots C
+  int n_lbas;
+  int max_gc;
+  float dens_keep;      // 1 - 1/density_window, float32
+  float dens_add;       // 1/density_window, float32
+};
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxClasses = 32;   // one lane per class slot
+constexpr int kScanRows = 4;      // rows each lane loads per round of a free-row scan
+
+// One volume's arrays.
+struct Volume {
+  int* lba;
+  int* utime;
+  unsigned char* valid;
+  int* n;
+  int* nvalid;
+  int* cls;
+  int* state;
+  int* ctime;
+  int* stime;
+  int* loc_seg;
+  int* loc_off;
+  int* last_uw;
+};
+
+// int32 subtraction that wraps like the reference's
+__device__ __forceinline__ int wrap_sub(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
+}
+
+__device__ __forceinline__ unsigned lanes_below(int lane) { return (1u << lane) - 1u; }
+
+// True in the highest lane among those whose `key` matches this lane's.
+// Every lane of the warp must call it.
+template <typename K>
+__device__ __forceinline__ bool highest_of_group(K key, int lane) {
+  return ((__match_any_sync(kFull, key) >> lane) >> 1) == 0;
+}
+
+// The first `want` rows with state 0 (free), ascending, into out[0, want);
+// the pad row past the end of the free pool. Every lane must call it.
+__device__ __forceinline__ void first_free_rows(const int* state, int n_rows, int pad, int want,
+                                                int* out, int lane) {
+  int found = 0;
+  for (int base = 0; base < n_rows && found < want; base += 32 * kScanRows) {
+    int st[kScanRows];
+#pragma unroll
+    for (int k = 0; k < kScanRows; ++k) {
+      const int r = base + k * 32 + lane;
+      st[k] = r < n_rows ? state[r] : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < kScanRows; ++k) {
+      const unsigned m = __ballot_sync(kFull, st[k] == 0);
+      const int pos = found + __popc(m & lanes_below(lane));
+      if (st[k] == 0 && pos < want) out[pos] = base + k * 32 + lane;
+      found += __popc(m);
+    }
+  }
+  for (int c = found + lane; c < want; c += 32) out[c] = pad;
+  __syncwarp();
+}
+
+// The victim argmax of segsel.cu over one volume's rows, reduced across the
+// warp (every lane gets it): -1 when no row is eligible.
+__device__ __forceinline__ int select_victim(const Volume& vol, int n_rows, int t, int selector,
+                                             int lane) {
+  float best = -INFINITY;
+  int best_i = INT_MAX;
+#pragma unroll 4
+  for (int j = lane; j < n_rows; j += 32) {
+    const float s = engine_ops::score_one(vol.n[j], vol.nvalid[j], vol.stime[j], vol.state[j],
+                                          t, selector);
+    if (s > best) {  // j rises along the loop, so the first maximum stays
+      best = s;
+      best_i = j;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float s = __shfl_xor_sync(kFull, best, off);
+    const int i = __shfl_xor_sync(kFull, best_i, off);
+    if (engine_ops::beats(s, i, best, best_i)) {
+      best = s;
+      best_i = i;
+    }
+  }
+  return best == -INFINITY ? -1 : best_i;
+}
+
+__global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
+  extern __shared__ int smem[];
+  const int s = a.seg_size, R = a.n_rows, C = a.n_classes, pad = R - 1;
+  const int lane = threadIdx.x;
+  const int v = blockIdx.x;
+  int* sh_free = smem;                       // kMaxClasses
+  int* sh_lba = smem + kMaxClasses;          // s
+  int* sh_utime = sh_lba + s;                // s
+  unsigned char* sh_valid = reinterpret_cast<unsigned char*>(sh_utime + s);   // s
+
+  const long long row0 = static_cast<long long>(v) * R;
+  const long long lba0 = static_cast<long long>(v) * a.n_lbas;
+  const Volume vol{a.seg_lba + row0 * s, a.seg_utime + row0 * s, a.seg_valid + row0 * s,
+                   a.seg_n + row0, a.seg_nvalid + row0, a.seg_cls + row0,
+                   a.seg_state + row0, a.seg_ctime + row0, a.seg_stime + row0,
+                   a.loc_seg + lba0, a.loc_off + lba0, a.last_uw + lba0};
+
+  // the volume's scalars, in registers for the whole replay
+  int t = a.t[v], total_occ = a.total_occ[v], total_valid = a.total_valid[v];
+  int user_writes = a.user_writes[v], gc_writes = a.gc_writes[v], reclaimed = a.reclaimed[v];
+  int overflow = a.overflow[v], nc = a.nc[v];
+  float ell = a.ell[v], ell_tot = a.ell_tot[v], lat_dens = a.lat_dens[v];
+  const int scheme = a.p_scheme[v], selector = a.p_selector[v], ncw = a.p_ncw[v];
+  const int live_classes = a.p_classes[v];
+  const float gp_limit = a.p_gp[v];
+  // lane c holds class slot c's open segment and counters
+  const long long cls0 = static_cast<long long>(v) * C;
+  const bool has_class = lane < C;
+  int open_sid = has_class ? a.open_sid[cls0 + lane] : 0;
+  int class_user = has_class ? a.class_user[cls0 + lane] : 0;
+  int class_gc = has_class ? a.class_gc[cls0 + lane] : 0;
+
+  const int* trace = a.trace + static_cast<long long>(v) * a.n_steps;
+  for (int base = 0; base < a.n_steps; base += 32) {
+    const int ahead = base + lane < a.n_steps ? trace[base + lane] : -1;
+    const int n_here = min(32, a.n_steps - base);
+    for (int k = 0; k < n_here; ++k) {
+      const int lba = __shfl_sync(kFull, ahead, k);
+      if (lba < 0) continue;    // a pad step of a shorter trace: no write, no GC
+      __syncwarp();
+
+      // ---- user write (torchsim._user_write) ----
+      const int old_sid = vol.loc_seg[lba], old_off = vol.loc_off[lba];
+      const int lifespan = wrap_sub(t, vol.last_uw[lba]);
+      const bool had_old = old_sid >= 0;
+      const int cls = engine_ops::classify_one(scheme, ell, lifespan, 0, false, false);
+      const int sid = __shfl_sync(kFull, open_sid, cls);
+      const int off = vol.n[sid];
+      const int n_new = sid == pad ? min(off + 1, s) : off + 1;
+      if (lane == 0) {
+        if (had_old) {
+          if (old_off < s) vol.valid[static_cast<long long>(old_sid) * s + old_off] = 0;
+          atomicSub(&vol.nvalid[old_sid], 1);
+        }
+        if (off < s) {
+          const long long at = static_cast<long long>(sid) * s + off;
+          vol.lba[at] = lba;
+          vol.utime[at] = t;
+          vol.valid[at] = 1;
+        }
+        vol.n[sid] = n_new;
+        atomicAdd(&vol.nvalid[sid], 1);
+        vol.loc_seg[lba] = sid;
+        vol.loc_off[lba] = off;
+        vol.last_uw[lba] = t;
+      }
+      if (n_new >= s) {     // sealed: promote the first free row
+        first_free_rows(vol.state, R, pad, 1, sh_free, lane);
+        const int fresh = sh_free[0];
+        if (lane == 0) {
+          vol.state[sid] = 2;
+          vol.stime[sid] = t;
+          vol.state[fresh] = 1;
+          vol.cls[fresh] = cls;
+          vol.ctime[fresh] = t;
+        }
+        if (lane == cls) open_sid = fresh;
+        overflow += fresh == pad ? 1 : 0;
+      }
+      lat_dens = __fadd_rn(__fmul_rn(lat_dens, a.dens_keep), a.dens_add);
+      t += 1;
+      total_occ += 1;
+      total_valid += had_old ? 0 : 1;
+      user_writes += 1;
+      if (lane == cls) class_user += 1;
+      __syncwarp();
+
+      // ---- GC loop (torchsim.fleet_gc_tick, one volume) ----
+      int iters = 0;
+      for (int it = 0; it < a.max_gc; ++it) {
+        const float occ = __int2float_rn(max(total_occ, 1));
+        const float gp = __fsub_rn(1.0f, __fdiv_rn(__int2float_rn(total_valid), occ));
+        if (!(gp > gp_limit)) break;
+        ++iters;
+        const int victim = select_victim(vol, R, t, selector, lane);
+        if (victim < 0) break;    // stalled for the rest of this step
+
+        // ---- rewrite the victim (torchsim._gc_once) ----
+        const long long vslot0 = static_cast<long long>(victim) * s;
+        const int k_total = vol.nvalid[victim], victim_n = vol.n[victim];
+        const int victim_cls = vol.cls[victim], victim_ctime = vol.ctime[victim];
+        for (int j = lane; j < s; j += 32) {
+          sh_lba[j] = vol.lba[vslot0 + j];
+          sh_utime[j] = vol.utime[vslot0 + j];
+          sh_valid[j] = vol.valid[vslot0 + j];
+        }
+        const int n0 = has_class ? vol.n[open_sid] : 0;
+        first_free_rows(vol.state, R, pad, C, sh_free, lane);   // syncs the warp
+        const int free_row = has_class ? sh_free[lane] : pad;
+
+        // ℓ bookkeeping (Algorithm 1 lines 4-9)
+        const bool is_c1 = victim_cls == 0;
+        nc += is_c1 ? 1 : 0;
+        const float life = __int2float_rn(wrap_sub(t, victim_ctime));
+        ell_tot = __fadd_rn(ell_tot, is_c1 ? life : 0.0f);
+        if (nc >= ncw) {
+          ell = __fdiv_rn(ell_tot, __int2float_rn(max(nc, 1)));
+          nc = 0;
+          ell_tot = 0.0f;
+        }
+
+        // classes, ranks and destinations of the victim's slots, 32 at a time
+        const int room = max(s - n0, 0);
+        int per_cls = 0;    // lane c: live slots of class c so far
+        for (int b = 0; b < s; b += 32) {
+          const int j = b + lane;
+          const bool live = j < s && sh_valid[j] != 0;
+          const int blk = j < s ? sh_lba[j] : 0;
+          const int ut = j < s ? sh_utime[j] : 0;
+          const int c = live ? engine_ops::classify_one(scheme, ell, 0, wrap_sub(t, ut), is_c1,
+                                                        true)
+                             : -1;
+          int rank = 0;
+          for (int q = 0; q < C; ++q) {
+            const unsigned m = __ballot_sync(kFull, c == q);
+            const int before = __shfl_sync(kFull, per_cls, q);
+            if (c == q) rank = before + __popc(m & lanes_below(lane));
+            if (lane == q) per_cls += __popc(m);
+          }
+          const int src = live ? c : 0;
+          const int room_c = __shfl_sync(kFull, room, src);
+          const int n0_c = __shfl_sync(kFull, n0, src);
+          const int open_c = __shfl_sync(kFull, open_sid, src);
+          const int free_c = __shfl_sync(kFull, free_row, src);
+          const bool first = rank < room_c;
+          const int dst_sid = first ? open_c : free_c;
+          const int dst_off = first ? n0_c + rank : rank - room_c;
+          const bool put = live && dst_off < s;
+          const long long at = put ? static_cast<long long>(dst_sid) * s + dst_off : -1 - lane;
+          if (highest_of_group(at, lane) && put) {
+            vol.lba[at] = blk;
+            vol.utime[at] = ut;
+            vol.valid[at] = 1;
+          }
+          if (highest_of_group(live ? blk : -1 - lane, lane) && live) {
+            vol.loc_seg[blk] = dst_sid;
+            vol.loc_off[blk] = dst_off;
+          }
+          __syncwarp();
+        }
+
+        // per-class metadata: fill counts, first-block time, seal-if-full,
+        // promote-fresh; padded class slots (>= p_classes) count no blocks
+        const int took1 = min(per_cls, room), took2 = per_cls - took1;
+        const bool sealed = has_class && lane < live_classes && n0 + took1 >= s;
+        if (has_class) {
+          if (took1 > 0) {
+            atomicAdd(&vol.n[open_sid], took1);
+            atomicAdd(&vol.nvalid[open_sid], took1);
+          }
+          if (took2 > 0) {
+            atomicAdd(&vol.n[free_row], took2);
+            atomicAdd(&vol.nvalid[free_row], took2);
+          }
+          if (n0 == 0 && per_cls > 0) vol.ctime[open_sid] = t;
+          if (sealed) {
+            vol.state[open_sid] = 2;
+            vol.stime[open_sid] = t;
+          }
+        }
+        __syncwarp();
+        if (highest_of_group(sealed ? free_row : -1 - lane, lane) && sealed) {
+          vol.state[free_row] = 1;
+          vol.cls[free_row] = lane;
+          vol.ctime[free_row] = t;
+        }
+        const bool pad_fill = has_class && ((open_sid == pad && took1 > 0) ||
+                                            (free_row == pad && took2 > 0));
+        overflow += __popc(
+            __ballot_sync(kFull, has_class && free_row == pad && (took2 > 0 || sealed)));
+        if (sealed) open_sid = free_row;
+        const bool cap_pad = __any_sync(kFull, pad_fill);
+        __syncwarp();
+        if (cap_pad && lane == 0 && vol.n[pad] > s) vol.n[pad] = s;
+        __syncwarp();
+
+        // release the victim; the pad row returns to reserved state 3
+        if (lane == 0) {
+          vol.state[victim] = victim == pad ? 3 : 0;
+          vol.n[victim] = 0;
+          vol.nvalid[victim] = 0;
+        }
+        for (int j = lane; j < s; j += 32) vol.valid[vslot0 + j] = 0;
+        __syncwarp();
+        total_occ = total_occ - victim_n + k_total;
+        gc_writes += k_total;
+        reclaimed += 1;
+        class_gc += per_cls;
+      }
+      if (lane == 0 && iters > 0) atomicMax(&a.iterations[base + k], iters);
+    }
+  }
+
+  if (lane == 0) {
+    a.t[v] = t;
+    a.total_occ[v] = total_occ;
+    a.total_valid[v] = total_valid;
+    a.user_writes[v] = user_writes;
+    a.gc_writes[v] = gc_writes;
+    a.reclaimed[v] = reclaimed;
+    a.overflow[v] = overflow;
+    a.nc[v] = nc;
+    a.ell[v] = ell;
+    a.ell_tot[v] = ell_tot;
+    a.lat_dens[v] = lat_dens;
+  }
+  if (has_class) {
+    a.open_sid[cls0 + lane] = open_sid;
+    a.class_user[cls0 + lane] = class_user;
+    a.class_gc[cls0 + lane] = class_gc;
+  }
+}
+
+}  // namespace
+
+// Largest segment size and class-slot count the kernel takes (its shared
+// scratch and one lane per class slot).
+extern "C" int replay_limits(int* max_seg_size, int* max_classes) {
+  *max_seg_size = 4096;
+  *max_classes = kMaxClasses;
+  return 0;
+}
+
+// Replays a (V, T) trace through the state named in `args`, in place, one
+// block of one warp per volume. Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int replay_launch(const ReplayArgs* args, void* stream) {
+  if (args->n_volumes > 0) {
+    const size_t smem = sizeof(int) * (kMaxClasses + 2 * args->seg_size) + args->seg_size;
+    replay_kernel<<<args->n_volumes, 32, smem, static_cast<cudaStream_t>(stream)>>>(*args);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -6,15 +6,10 @@
 // and segment_select (body _segsel_kernel, the single-volume call). One
 // kernel serves both: the 1-D form is a launch with one volume.
 //
-// Scores, in the float32 op order of _score_tile:
-//   greedy        (n - nv) / max(n, 1)
-//   cost-benefit  ((1 - u) * age) / (1 + u),  u = nv / max(n, 1),
-//                 age = max(t - stime, 0)
-// Segments that are not sealed (state != 2) or hold no garbage score -inf.
+// The score of one segment is engine_ops::score_one (engine_ops.cuh, shared
+// with the replay kernel): Greedy or Cost-Benefit in the float32 op order of
+// _score_tile, -inf for a segment that is not sealed or holds no garbage.
 // Ties go to the lowest index; idx is -1 when the best score is -inf.
-// Every op is an explicit round-to-nearest intrinsic and the library is
-// built with -fmad=false, so scores are bit-equal to the plain PyTorch
-// version.
 //
 // What bounds it on this card: memory. It reads 16 bytes per segment and
 // does about ten float operations on them, far below the card's float32
@@ -33,36 +28,16 @@
 #include <cuda_runtime.h>
 
 #include <climits>
-#include <cmath>
+
+#include "engine_ops.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-__device__ __forceinline__ float score_one(int n, int nv, int stime, int state, int t,
-                                           int selector) {
-  const float nf = __int2float_rn(n);
-  const float nvf = __int2float_rn(nv);
-  const float garbage = __fsub_rn(nf, nvf);
-  const float denom = fmaxf(nf, 1.0f);
-  const float greedy = __fdiv_rn(garbage, denom);
-  const float u = __fdiv_rn(nvf, denom);
-  // int32 subtraction that wraps like the reference's (signed overflow is
-  // undefined in C++, so subtract as unsigned)
-  int age_i = static_cast<int>(static_cast<unsigned>(t) - static_cast<unsigned>(stime));
-  age_i = age_i > 0 ? age_i : 0;
-  const float age = __int2float_rn(age_i);
-  const float cost_benefit =
-      __fdiv_rn(__fmul_rn(__fsub_rn(1.0f, u), age), __fadd_rn(1.0f, u));
-  const float score = selector == 0 ? greedy : cost_benefit;
-  return (state == 2 && garbage > 0.0f) ? score : -INFINITY;
-}
-
-// (s, i) beats (best, best_i): a higher score, or the same score at a lower index
-__device__ __forceinline__ bool beats(float s, int i, float best, int best_i) {
-  return s > best || (s == best && i < best_i);
-}
+using engine_ops::beats;
+using engine_ops::score_one;
 
 __global__ void __launch_bounds__(kThreads)
 segsel_kernel(const int* __restrict__ seg_n, const int* __restrict__ seg_nvalid,

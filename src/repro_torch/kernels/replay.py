@@ -1,0 +1,122 @@
+"""The per-volume replay kernel: a whole fleet replay in one launch.
+
+A state on the card goes to the hand-written kernel in ``csrc/replay.cu``
+(one warp per volume runs every user write of its trace and its GC loop,
+with victim selection and GC classification inside). The kernel's plain
+version is the step engine of `core.torchsim` (`_user_write` and
+`fleet_gc_tick` once per lockstep step), which `torchsim` runs for a state
+on the CPU; this wrapper takes only CUDA tensors and raises on any other.
+There is no fallback from one to the other. ``launches`` counts the
+kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..core.config import TorchSimConfig, state_spec
+from ..core.placement.schemes import require_elementwise
+from . import build
+
+launches = {"replay": 0}
+
+# the state keys the kernel reads or writes, in the order of ReplayArgs in
+# csrc/replay.cu; the other keys (the timing model's, p_gcsched) it leaves alone
+STATE_FIELDS = ("seg_lba", "seg_utime", "seg_valid", "seg_n", "seg_nvalid", "seg_cls",
+                "seg_state", "seg_ctime", "seg_stime", "open_sid", "loc_seg", "loc_off",
+                "last_uw", "t", "total_occ", "total_valid", "user_writes", "gc_writes",
+                "reclaimed", "overflow", "ell", "ell_tot", "nc", "class_user", "class_gc",
+                "lat_dens", "p_scheme", "p_selector", "p_gp", "p_ncw", "p_classes")
+
+
+class ReplayArgs(ctypes.Structure):
+    _fields_ = ([(key, ctypes.c_void_p) for key in STATE_FIELDS]
+                + [("trace", ctypes.c_void_p), ("iterations", ctypes.c_void_p)]
+                + [(name, ctypes.c_int) for name in ("n_volumes", "n_steps", "n_rows",
+                                                     "seg_size", "n_classes", "n_lbas",
+                                                     "max_gc")]
+                + [("dens_keep", ctypes.c_float), ("dens_add", ctypes.c_float)])
+
+
+_SIGNATURES = {"replay_launch": [ctypes.POINTER(ReplayArgs), ctypes.c_void_p],
+               "replay_limits": [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]}
+
+
+def check_inputs(cfg: TorchSimConfig, st: dict, trace) -> None:
+    """Raise unless every state key is a contiguous tensor of its dtype and
+    shape for ``cfg`` with one leading volume axis, ``trace`` a contiguous
+    (V, T) int32 tensor of LBAs in [-1, n_lbas) (-1: a pad step) on the same
+    device, every volume's scheme elementwise, that device CUDA, and the
+    segment size and class slots within the kernel's limits."""
+    if not isinstance(trace, torch.Tensor) or trace.dtype != torch.int32 or trace.dim() != 2:
+        raise TypeError("trace must be a (V, T) int32 tensor")
+    V = trace.shape[0]
+    device = trace.device
+    if not trace.is_contiguous():
+        raise ValueError("trace must be contiguous")
+    for key, (shape, dtype) in state_spec(cfg).items():
+        x = st.get(key)
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"state[{key!r}] must be a tensor")
+        if x.dtype != dtype:
+            raise TypeError(f"state[{key!r}] must be {dtype}, got {x.dtype}")
+        if tuple(x.shape) != (V,) + shape:
+            raise ValueError(f"state[{key!r}] has shape {tuple(x.shape)}, expected "
+                             f"{(V,) + shape} for {V} volumes")
+        if not x.is_contiguous():
+            raise ValueError(f"state[{key!r}] must be contiguous")
+        if x.device != device:
+            raise ValueError(f"state[{key!r}] is on {x.device}, the trace on {device}")
+    if trace.numel() and bool(((trace < -1) | (trace >= cfg.n_lbas)).any()):
+        raise ValueError(f"trace LBAs must lie in [0, {cfg.n_lbas}) or be -1 (a pad step)")
+    require_elementwise(torch.unique(st["p_scheme"]).tolist())
+    if device.type != "cuda":
+        raise ValueError(f"the replay kernel takes CUDA tensors, not {device}; the step "
+                         f"engine (torchsim.step_replay) is its plain version on the CPU")
+    max_seg, max_cls = ctypes.c_int(), ctypes.c_int()
+    build.library("replay", _SIGNATURES).replay_limits(ctypes.byref(max_seg),
+                                                       ctypes.byref(max_cls))
+    if cfg.segment_size > max_seg.value or cfg.n_class_slots > max_cls.value:
+        raise ValueError(f"the replay kernel takes segment_size <= {max_seg.value} and at most "
+                         f"{max_cls.value} class slots")
+
+
+def launch(cfg: TorchSimConfig, st: dict, trace, iterations) -> None:
+    """One launch of the kernel on inputs that passed `check_inputs`, with a
+    zeroed (T,) int32 ``iterations`` buffer on the card that receives, per
+    step, the most GC iterations any volume ran. No host sync."""
+    V, T = trace.shape
+    device = trace.device
+    a = np.float32(1.0 / cfg.density_window)
+    args = ReplayArgs(*(st[key].data_ptr() for key in STATE_FIELDS), trace.data_ptr(),
+                      iterations.data_ptr(), V, T, cfg.n_rows, cfg.segment_size,
+                      cfg.n_class_slots, cfg.n_lbas, cfg.max_gc_per_step,
+                      float(np.float32(1.0) - a), float(a))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = build.library("replay", _SIGNATURES).replay_launch(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"replay kernel launch failed with CUDA error {err}")
+    launches["replay"] += 1 if V else 0     # the C side launches nothing for no volumes
+
+
+def replay(cfg: TorchSimConfig, st: dict, trace, stats=None) -> None:
+    """Replay the (V, T) int32 ``trace`` through the state ``st`` (made by
+    `torchsim.own_state`, on the card) in place: per step, each volume's
+    user write and its GC loop; a -1 step of a volume is skipped whole. With
+    ``stats`` (a `torchsim.ReplayStats`), adds the steps, the steps whose GC
+    loop ran and the fleet's tick iterations (per step, the most any volume
+    ran), as the step engine counts them; they come back with one read after
+    the launch, the replay's only host sync."""
+    check_inputs(cfg, st, trace)
+    iterations = torch.zeros(trace.shape[1], dtype=torch.int32, device=trace.device)
+    launch(cfg, st, trace, iterations)
+    if stats is not None:
+        per_step = iterations.cpu()
+        stats.steps += trace.shape[1]
+        stats.gc_ticks += int((per_step > 0).sum())
+        stats.tick_iterations += int(per_step.sum())
+        stats.host_syncs += 1

@@ -5,6 +5,8 @@ bit-equal to the same fleet replayed on the CPU, and the §3 analysis on the
 card against the CPU. Imports no JAX (the machine with the card has none);
 every test skips where ``torch.cuda.is_available()`` is false."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -81,7 +83,7 @@ def test_cuda_kernels_match_plain_versions(card):
                        tref.classify_ref(uv, z, z, z, uell, usids))
     assert ops.launch_counts() == {"segment_select_batch": 1, "segment_select": 1,
                                    "classify_gc": 1, "classify_user": 1,
-                                   "zipf_bit_sums": 0, "flash_decode": 0}
+                                   "zipf_bit_sums": 0, "flash_decode": 0, "replay": 0}
 
 
 def test_card_fleet_matches_cpu_fleet(card):
@@ -94,7 +96,8 @@ def test_card_fleet_matches_cpu_fleet(card):
     sized = TorchSimConfig(n_lbas=256, segment_size=16, class_slots=6, gp_threshold=0.22)
     cfg = TorchSimConfig(n_lbas=256, segment_size=16, class_slots=6, n_segments=sized.s_max)
     ops.reset_launch_counts()
-    on_card = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device=card))
+    on_card = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device=card,
+                                                        engine="step"))
     counts = ops.launch_counts()
     on_cpu = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device="cpu"))
     assert (on_cpu["reclaimed"] > 0).all()
@@ -103,6 +106,129 @@ def test_card_fleet_matches_cpu_fleet(card):
         np.testing.assert_array_equal(on_card[key], want, err_msg=key)
     assert counts["segment_select_batch"] > 0
     assert counts["classify_gc"] > 0 and counts["classify_user"] > 0
+    assert counts["replay"] == 0
+
+
+def _hetero_fleet(seg, n=256, seed=17):
+    """Unequal trace lengths (pad steps), per-volume GC thresholds and
+    selectors, all five elementwise schemes; the last volume rewrites one
+    LBA seg - 1 times under a threshold of 0, so it is over its threshold
+    with garbage only in its open segment: no eligible victim, it stalls
+    every step."""
+    traces = make_fleet("mixed", 6, n, 3 * n, jitter=0.3, seed=seed)
+    traces.append(np.zeros(seg - 1, np.int32))
+    schemes = np.asarray([2, 2, 0, 1, 7, 8, 2])
+    pol = {"p_scheme": schemes, "p_selector": np.asarray([1, 0, 1, 0, 1, 1, 1]),
+           "p_gp": np.asarray([0.08, 0.22, 0.12, 0.15, 0.2, 0.1, 0.0], np.float32),
+           "p_ncw": np.asarray([16, 8, 16, 16, 24, 16, 16]),
+           "p_classes": np.asarray([6, 6, 1, 2, 3, 4, 6]), "p_gcsched": np.zeros(7)}
+    sized = TorchSimConfig(n_lbas=n, segment_size=seg, class_slots=6, gp_threshold=0.22)
+    cfg = TorchSimConfig(n_lbas=n, segment_size=seg, class_slots=6, n_segments=sized.s_max)
+    return cfg, traces, pol
+
+
+def _replay_both(cfg, traces, pol, device):
+    """The fleet under the replay kernel and the step engine on ``device``:
+    their final states (numpy), their `ReplayStats` and the launch counts of
+    each."""
+    out = []
+    for engine in ("replay", "step"):
+        stats = torchsim.ReplayStats()
+        ops.reset_launch_counts()
+        st = torchsim.run_fleet(cfg, traces, pol, device=device, stats=stats, engine=engine)
+        out.append((convert.state_to_numpy(st), stats, ops.launch_counts()))
+    return out
+
+
+def _assert_same_state(got, want):
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+@pytest.mark.parametrize("seg", [8, 64, 128])
+def test_replay_kernel_matches_step_engine_and_cpu(card, seg):
+    """Bit-equal on every state key: the replay kernel, the step engine on
+    the card and the step engine on the CPU; the same `ReplayStats`; one
+    launch; a repeat bit-identical."""
+    cfg, traces, pol = _hetero_fleet(seg, n=256 if seg == 8 else 2048)
+    (rep, rstats, rcounts), (step, sstats, scounts) = _replay_both(cfg, traces, pol, card)
+    cpu = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device="cpu",
+                                                    engine="step"))
+    assert (cpu["reclaimed"][:6] > 0).all() and cpu["reclaimed"][6] == 0
+    assert cpu["overflow"].sum() == 0
+    _assert_same_state(rep, cpu)
+    _assert_same_state(step, cpu)
+    assert (rstats.steps, rstats.gc_ticks, rstats.tick_iterations) == \
+        (sstats.steps, sstats.gc_ticks, sstats.tick_iterations)
+    assert rstats.host_syncs == 1 and sstats.host_syncs > sstats.steps
+    assert rcounts["replay"] == 1 and rcounts["segment_select_batch"] == 0
+    assert rcounts["classify_gc"] == rcounts["classify_user"] == 0
+    assert scounts["replay"] == 0 and scounts["segment_select_batch"] > 0
+    again = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device=card))
+    _assert_same_state(again, rep)
+
+
+@pytest.mark.parametrize("max_gc", [1, 2])
+def test_replay_kernel_max_gc_per_step(card, max_gc):
+    """Thresholds of 0-2 % make steps need several GC iterations, so a cap
+    of 1 or 2 binds (the uncapped replay runs more iterations): the kernel
+    equals the step engine on the card and on the CPU."""
+    cfg, traces, pol = _hetero_fleet(8, n=256, seed=31)
+    pol = dict(pol, p_gp=np.asarray([0.0, 0.02, 0.0, 0.01, 0.0, 0.02, 0.0], np.float32))
+    capped = dataclasses.replace(cfg, max_gc_per_step=max_gc)
+    (rep, rstats, _), (step, sstats, _) = _replay_both(capped, traces, pol, card)
+    cpu = convert.state_to_numpy(torchsim.run_fleet(capped, traces, pol, device="cpu"))
+    _assert_same_state(rep, cpu)
+    _assert_same_state(step, cpu)
+    assert (rstats.gc_ticks, rstats.tick_iterations) == (sstats.gc_ticks, sstats.tick_iterations)
+    uncapped = torchsim.ReplayStats()
+    torchsim.run_fleet(cfg, traces, pol, device=card, stats=uncapped)
+    assert uncapped.tick_iterations > rstats.tick_iterations >= max_gc
+
+
+def test_replay_kernel_single_volume_equals_fleet_row(card):
+    """`run` (V = 1) under the replay kernel equals the volume's fleet row,
+    and the step engine's single-volume path (K2)."""
+    cfg, traces, pol = _hetero_fleet(16, n=512)
+    fleet = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device=card))
+    for i in (0, 4):
+        one = {k: v[i:i + 1] for k, v in pol.items()}
+        ops.reset_launch_counts()
+        alone = convert.state_to_numpy(torchsim.run(cfg, traces[i], one, device=card))
+        assert ops.launch_counts()["replay"] == 1
+        step = convert.state_to_numpy(torchsim.run(cfg, traces[i], one, device=card,
+                                                   engine="step"))
+        assert ops.launch_counts()["segment_select"] > 0
+        for key in fleet:
+            np.testing.assert_array_equal(alone[key][0], fleet[key][i], err_msg=key)
+            np.testing.assert_array_equal(step[key][0], fleet[key][i], err_msg=key)
+
+
+def test_replay_kernel_exhaustion_corner_matches_cpu(card):
+    """The undersized pool where classes alias the pad row and scatters meet
+    duplicate targets: the kernel writes them in slot and class order, so it
+    equals the CPU step engine bit for bit."""
+    cfg = TorchSimConfig(n_lbas=96, segment_size=8, n_segments=16, gp_threshold=0.10)
+    tr = np.asarray(np.random.default_rng(67).integers(0, 96, size=6 * 96), np.int32)
+    rep = convert.state_to_numpy(torchsim.run(cfg, tr, device=card))
+    cpu = convert.state_to_numpy(torchsim.run(cfg, tr, device="cpu", engine="step"))
+    assert int(cpu["overflow"][0]) > 0
+    _assert_same_state(rep, cpu)
+
+
+def test_replay_kernel_continues_a_replay(card):
+    """A replay split in two (the second half from the first's state) ends
+    where one replay of the whole trace ends."""
+    cfg, traces, pol = _hetero_fleet(16, n=256)
+    padded = torchsim.pad_fleet(traces)
+    whole = convert.state_to_numpy(torchsim.run_fleet(cfg, padded, pol, device=card))
+    half = padded.shape[1] // 2
+    mid = torchsim.run_fleet(cfg, padded[:, :half], pol, device=card)
+    end = convert.state_to_numpy(torchsim.run_fleet(cfg, padded[:, half:], device=card,
+                                                    state=mid))
+    _assert_same_state(end, whole)
 
 
 @pytest.mark.parametrize("alpha", [0.0, 1.0])

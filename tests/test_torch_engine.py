@@ -16,6 +16,7 @@ from repro.core.tracegen import make_fleet
 from repro_torch import convert
 from repro_torch.core import torchsim
 from repro_torch.core.config import TorchSimConfig, init_state
+from repro_torch.kernels import ops
 
 N, SEG = 128, 8
 ELEMENTWISE = ["nosep", "sepgc", "sepbit", "uw", "gw"]
@@ -80,12 +81,23 @@ def hetero_fleet():
     return jcfg, traces, pol, ref
 
 
-def test_hetero_fleet_matches_jax(hetero_fleet):
+@pytest.mark.parametrize("engine", ["replay", "step"])
+def test_hetero_fleet_matches_jax(hetero_fleet, engine, monkeypatch):
+    """Both engines equal JAX. On the CPU ``engine="replay"`` runs the
+    replay kernel's plain version, the step engine, so the two cases are the
+    same replay: the replay case asserts that it went through `step_replay`
+    and launched no kernel."""
     jcfg, traces, pol, ref = hetero_fleet
     assert (np.asarray(ref["reclaimed"]) > 0).all()
     assert len({len(t) for t in traces}) > 1
+    ran = []
+    step = torchsim.step_replay
+    monkeypatch.setattr(torchsim, "step_replay", lambda *a, **kw: ran.append(1) or step(*a, **kw))
+    ops.reset_launch_counts()
     stats = torchsim.ReplayStats()
-    st = torchsim.run_fleet(_port_cfg(jcfg), traces, pol, device="cpu", stats=stats)
+    st = torchsim.run_fleet(_port_cfg(jcfg), traces, pol, device="cpu", stats=stats,
+                            engine=engine)
+    assert ran == [1] and ops.launch_counts()["replay"] == 0
     _assert_states_equal(convert.state_to_numpy(st), ref)
     assert stats.steps == max(len(t) for t in traces)
     assert 0 < stats.gc_ticks <= stats.tick_iterations
@@ -174,6 +186,15 @@ def test_exhaustion_corner_matches_jax_and_keeps_its_envelope():
 def test_unported_config_values_raise(change, item):
     with pytest.raises(NotImplementedError, match=item):
         TorchSimConfig(n_lbas=N, segment_size=SEG, **change)
+
+
+@pytest.mark.parametrize("engine", ["kernel", "Step", ""])
+def test_unknown_engines_raise(engine):
+    cfg = TorchSimConfig(n_lbas=N, segment_size=SEG)
+    with pytest.raises(ValueError, match="engine"):
+        torchsim.run(cfg, TRACES["zipf"], device="cpu", engine=engine)
+    with pytest.raises(ValueError, match="engine"):
+        torchsim.run_fleet(cfg, [TRACES["zipf"]], device="cpu", engine=engine)
 
 
 def test_unported_policies_raise():

@@ -15,10 +15,14 @@ from repro.core.placement import jax_schemes
 from repro.kernels import classify as jclassify
 from repro.kernels import ref as jref
 from repro.kernels import segsel as jsegsel
+from repro_torch.core import torchsim
+from repro_torch.core.config import TorchSimConfig, init_state
 from repro_torch.core.placement import schemes as tschemes
+from repro_torch.kernels import build
 from repro_torch.kernels import classify as tclassify
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import replay as treplay
 from repro_torch.kernels import segsel as tsegsel
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -163,7 +167,7 @@ def test_wrappers_route_cpu_tensors_to_the_plain_versions():
                        tref.classify_ref(v, g, c1, gc, ell, sids))
     assert ops.launch_counts() == {"segment_select_batch": 0, "segment_select": 0,
                                    "classify_gc": 0, "classify_user": 0,
-                                   "zipf_bit_sums": 0, "flash_decode": 0}
+                                   "zipf_bit_sums": 0, "flash_decode": 0, "replay": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -201,4 +205,78 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 if name.split(".")[0] in ("jax", "jaxlib", "repro"):
                     bad.append(f"{path.relative_to(ROOT)}:{node.lineno} imports {name}")
     assert len(_port_sources()) > 10
+    assert ROOT / "src" / "repro_torch" / "kernels" / "replay.py" in _port_sources()
     assert not bad, bad
+
+
+def _replay_inputs(V=2, T=12, n=64):
+    cfg = TorchSimConfig(n_lbas=n, segment_size=8)
+    st = torchsim.own_state(init_state(cfg, torchsim.broadcast_policies(cfg, V), "cpu"))
+    trace = torch.from_numpy(np.random.default_rng(3).integers(0, n, (V, T)).astype(np.int32))
+    return cfg, st, trace
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    (lambda cfg, st, tr: (dict(st, seg_n=st["seg_n"].long()), tr), TypeError, "int32"),
+    (lambda cfg, st, tr: (dict(st, ell=st["ell"].double()), tr), TypeError, "float32"),
+    (lambda cfg, st, tr: (dict(st, seg_lba=st["seg_lba"].transpose(1, 2).contiguous()
+                               .transpose(1, 2)), tr), ValueError, "contiguous"),
+    (lambda cfg, st, tr: (st, tr[:1]), ValueError, "shape"),
+    (lambda cfg, st, tr: (st, tr[0]), TypeError, r"\(V, T\)"),
+    (lambda cfg, st, tr: (st, tr.long()), TypeError, "int32"),
+    (lambda cfg, st, tr: (st, tr.t().contiguous().t()), ValueError, "contiguous"),
+    (lambda cfg, st, tr: (st, torch.full_like(tr, -2)), ValueError, "-1"),
+    (lambda cfg, st, tr: (st, tr + cfg.n_lbas), ValueError, "LBAs"),
+    (lambda cfg, st, tr: (dict(st, p_scheme=torch.full_like(st["p_scheme"], 3)), tr),
+     NotImplementedError, "fk"),
+    (lambda cfg, st, tr: ({k: v for k, v in st.items() if k != "last_uw"}, tr), TypeError,
+     "last_uw"),
+    (lambda cfg, st, tr: (st, tr), ValueError, "CUDA"),
+])
+def test_replay_wrapper_rejects_what_the_kernel_does_not_take(bad, err, match):
+    """Checked before any launch; the wrapper takes only CUDA tensors, and a
+    well-formed state on the CPU is refused last."""
+    cfg, st, trace = _replay_inputs()
+    st, trace = bad(cfg, st, trace)
+    before = {k: v.clone() for k, v in st.items()}
+    ops.reset_launch_counts()
+    with pytest.raises(err, match=match):
+        treplay.replay(cfg, st, trace)
+    assert ops.launch_counts()["replay"] == 0
+    assert all(torch.equal(before[k], st[k]) for k in st)
+
+
+def test_replay_wrapper_routes_cpu_tensors_to_the_step_engine(monkeypatch):
+    """`torchsim`'s replay wrapper (`_replay`) sends a state on the CPU under
+    ``engine="replay"`` to the kernel's plain version, the step engine, and
+    never to the kernel's wrapper, which refuses CPU tensors."""
+    cfg, st, trace = _replay_inputs(T=200)
+    trace[1, 150:] = -1
+    want = torchsim.own_state(st)
+    stats, want_stats = torchsim.ReplayStats(), torchsim.ReplayStats()
+    ran = []
+    step = torchsim.step_replay
+    monkeypatch.setattr(torchsim, "step_replay", lambda *a, **kw: ran.append(1) or step(*a, **kw))
+    ops.reset_launch_counts()
+    torchsim._replay(cfg, st, trace, stats, "replay", None)
+    assert ran == [1] and ops.launch_counts()["replay"] == 0
+    step(cfg, want, trace, want_stats)
+    assert int(st["reclaimed"].min()) > 0
+    assert all(torch.equal(want[k], st[k]) for k in st)
+    assert stats == want_stats and stats.steps == 200
+
+
+def test_kernel_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edit to a shared header (csrc/*.cuh) names a new library, so a
+    stale build is never reused."""
+    for f in build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {name: build.target(name) for name in build.SOURCES}
+    header = tmp_path / "engine_ops.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: build.target(name) for name in build.SOURCES}
+    assert all(before[n] != after[n] for n in ("segsel", "classify", "replay"))
+    assert "replay" in build.SOURCES
+    for name in ("segsel", "classify", "replay"):
+        assert '#include "engine_ops.cuh"' in (tmp_path / build.SOURCES[name]).read_text()
