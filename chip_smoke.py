@@ -10,8 +10,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    with nvcc for sm_90a (one nvcc per source, all started together);
 3. kernels: each kernel's wrapper on card tensors against its plain PyTorch
    version on the same inputs (bit equality for the replay engine's
-   kernels; the Zipf sums within rtol 2e-4 / atol 1e-6 and bit-identical on
-   a repeat), and its time;
+   kernels; the Zipf sums within rtol 2e-4 / atol 1e-6 at every alpha of
+   the figures, batches of 8, 25, 20, 5 and 5 points bit-equal to their
+   points launched one at a time and bit-identical on a repeat), and its
+   time (the Zipf sums at one point, and at the Fig 8(a) and Fig 10(a)
+   grids' and the Fig 8(b) and Fig 10(b) curves' batches);
 4. decode: flash-decode attention through its entry point at qwen3-32b's,
    starcoder2-3b's and phi3-mini's decode geometry in bfloat16 and float32,
    against its plain version (1e-4 in float32, 2e-2 in bfloat16; and within
@@ -21,9 +24,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    table, and again with every row live), with the split grid;
 5. analysis: the paper's §3 at its own scale (n = 10 * 2^18): the eight
    Fig 8 / Fig 10 points of the repository's benchmark, five of them held
-   to the paper's values, all four figure grids through the Zipf kernel,
-   and Figs 9 / 11 on the benchmark-grade volume pool, equal on the card
-   and on the CPU;
+   to the paper's values, all four figure grids through the Zipf kernel
+   (one launch per pmf: 11 in each figure's part; every point counted;
+   points shared by two calls equal bit for bit; the pmf made on the card
+   compared with numpy's, printed), and Figs 9 / 11 on the benchmark-grade
+   volume pool, equal on the card and on the CPU;
 6. engine parity: a reduced fleet replayed on the card by the replay kernel
    and by the step engine (kernels K1 and K3 between PyTorch ops) must end
    in states bit-equal to the step engine's on the CPU; one volume replayed
@@ -77,9 +82,6 @@ SCALE_VOLUMES_PER_TILE = 8
 FIG8_POINTS = ((0.25, 4, 1.0, 77.1), (1, 0.25, 1.0, None), (1, 4, 1.0, 87.1), (1, 1, 0.0, 9.5))
 FIG10_POINTS = ((2, 8, 1.0, 41.2), (32, 8, 1.0, 14.9), (2, 8, 0.2, None), (32, 8, 0.2, None))
 PAPER_TOL = {77.1: 0.2, 87.1: 0.3, 9.5: 0.2, 41.2: 0.3, 14.9: 0.3}
-# float operations of the Zipf kernel per pmf element: log1pf and each of
-# the four expf counted as one, plus 17 multiplies, adds and subtracts
-ZIPF_OPS_PER_ELEMENT = 22
 # (Hq, Hkv, D) of the decode geometries: src/repro/configs/qwen3_32b.py,
 # starcoder2_3b.py, phi3_mini.py; (B, S) timed and checked
 QWEN3_32B, STARCODER2_3B, PHI3_MINI = (64, 8, 128), (24, 2, 128), (32, 32, 96)
@@ -298,51 +300,105 @@ def phase_kernels(rng, main_shape, single_segments) -> list[dict]:
     return rows
 
 
+def _fig_exponents() -> dict:
+    """K4's batches on the path, as (u0, v0, g0, r0) rows in blocks: the
+    eight Fig 8 / Fig 10 points, the default Fig 8(a) and Fig 10(a) grids,
+    and the Fig 8(b) and Fig 10(b) curves' batch at one alpha."""
+    from repro_torch.core import analysis as A
+    G = A.BLOCKS_PER_GIB
+    fig8 = [(u0 * G, v0 * G, 0.0, 0.0) for u0, v0, _, _ in FIG8_POINTS]
+    fig10 = [(0.0, 0.0, g0 * G, r0 * G) for g0, r0, _, _ in FIG10_POINTS]
+    return {"fig8": fig8, "fig10": fig10, "points": fig8 + fig10,
+            "fig8a": [(u0 * G, v0 * G, 0.0, 0.0) for u0 in A.FIG8_WINDOWS_GIB
+                      for v0 in A.FIG8_WINDOWS_GIB],
+            "fig10a": [(0.0, 0.0, g0 * G, r0 * G) for g0 in A.FIG10_G0_GIB
+                       for r0 in A.FIG10A_R0_GIB],
+            "fig8b": [(A.FIG8B_U0_GIB * G, v0 * G, 0.0, 0.0) for v0 in A.FIG8_WINDOWS_GIB],
+            "fig10b": [(0.0, 0.0, g0 * G, A.FIG10B_R0_GIB * G) for g0 in A.FIG10_G0_GIB]}
+
+
+def zipf_ops(n: int, exps) -> int:
+    """K4's float operations over an (n,) pmf whose p are all below 1, for
+    the batch ``exps``, by the kernel table's rule: only the arithmetic the
+    kernel does. Per element the negation, log1pf and the Σp add once; per
+    point a multiply and an expf for each nonzero exponent (u0, v0, g0 and
+    g0 + r0 added in float32), 7 operations for s0 and s1 unless u0 = v0 =
+    0, and 5 for s2 and s3 where g0 is nonzero, else 3 for s3 where g0 + r0
+    is (s2 is then the shared Σp)."""
+    per_element = 3
+    for u0, v0, g0, r0 in exps:
+        u0, v0, g0 = (np.float32(x) for x in (u0, v0, g0))
+        gr = g0 + np.float32(r0)
+        per_element += 2 * sum(bool(x != 0) for x in (u0, v0, g0, gr))
+        per_element += 7 if u0 != 0 or v0 != 0 else 0
+        per_element += 5 if g0 != 0 else 3 if gr != 0 else 0
+    return n * per_element
+
+
 def phase_zipf_kernel() -> list[dict]:
-    """K4 at the paper's n against its plain version, for the exponents of
-    every Fig 8 / Fig 10 point over the alpha = 1 and alpha = 0 pmfs, with a
-    bit-identical repeat; then its time at one point of each figure."""
+    """K4 at the paper's n against its plain version over the pmf of every
+    alpha of the figures: the eight Fig 8 / Fig 10 points as one batch, the
+    Fig 8(a) and Fig 10(a) grids as batches of 25 and 20 and the Fig 8(b)
+    and Fig 10(b) curves' batches of 5, each batch equal bit for bit to its
+    points launched one at a time and to a repeat. Then, over the alpha = 1
+    pmf, the time of a single-point launch at one point of each figure, and
+    of the grids' and the curves' launches."""
     import torch
 
     from repro_torch.core import analysis
     from repro_torch.kernels import ref
-    from repro_torch.kernels.zipfprob import zipf_bit_sums
-    G, n = analysis.BLOCKS_PER_GIB, analysis.PAPER_N
-    exps = {"fig8": [(u0 * G, v0 * G, 0.0, 0.0) for u0, v0, _, _ in FIG8_POINTS],
-            "fig10": [(0.0, 0.0, g0 * G, r0 * G) for g0, r0, _, _ in FIG10_POINTS]}
-    worst = {"fig8": 0.0, "fig10": 0.0}
-    for alpha in (1.0, 0.0):
+    from repro_torch.kernels.zipfprob import batch_grid, zipf_bit_sums, zipf_bit_sums_batch
+    n = analysis.PAPER_N
+    batches = _fig_exponents()
+    checked = ("points", "fig8a", "fig10a", "fig8b", "fig10b")
+    worst = {"fig8": 0.0, "fig10": 0.0, "fig8a": 0.0, "fig10a": 0.0, "fig8b": 0.0, "fig10b": 0.0}
+    for alpha in analysis.FIG_ALPHAS:
         p = analysis.zipf_pmf(n, alpha, "cuda")
-        for fig, points in exps.items():
-            for e in points:
-                got, again = zipf_bit_sums(p, *e), zipf_bit_sums(p, *e)
-                want = ref.zipf_bit_sums_ref(p, *e)
-                torch.cuda.synchronize()
-                close = torch.allclose(got, want, rtol=2e-4, atol=1e-6)
-                if not (close and torch.equal(got, again)):
-                    raise AssertionError(f"K4 at alpha {alpha}, exponents {e}: {got.tolist()} "
-                                         f"against plain {want.tolist()}, repeat "
-                                         f"{again.tolist()}")
-                worst[fig] = max(worst[fig], max_abs_err(got, want))
-    log(f"[kernels] K4 zipf_bit_sums ({n},) at the exponents of 8 points x alpha 1.0 and "
-        f"0.0: within rtol 2e-4 / atol 1e-6, repeats bit-identical; max |err| {worst}")
+        for name in checked:
+            exps = batches[name]
+            got, again = zipf_bit_sums_batch(p, exps), zipf_bit_sums_batch(p, exps)
+            singles = torch.stack([zipf_bit_sums(p, *e) for e in exps])
+            want = ref.zipf_bit_sums_batch_ref(p, exps)
+            torch.cuda.synchronize()
+            close = torch.allclose(got, want, rtol=2e-4, atol=1e-6)
+            if not (close and torch.equal(got, again) and torch.equal(got, singles)):
+                raise AssertionError(f"K4 batch {name} at alpha {alpha}: {got.tolist()} against "
+                                     f"plain {want.tolist()}, repeat {again.tolist()}, single "
+                                     f"calls {singles.tolist()}")
+            if name == "points":
+                half = len(batches["fig8"])
+                worst["fig8"] = max(worst["fig8"], max_abs_err(got[:half], want[:half]))
+                worst["fig10"] = max(worst["fig10"], max_abs_err(got[half:], want[half:]))
+            else:
+                worst[name] = max(worst[name], max_abs_err(got, want))
+    log(f"[kernels] K4 zipf_bit_sums_batch ({n},) over alpha {analysis.FIG_ALPHAS}, batches "
+        f"of {', '.join(f'{len(batches[k])} ({k})' for k in checked)} points: within rtol 2e-4 "
+        f"/ atol 1e-6, equal bit for bit to single-point launches, repeats bit-identical; max "
+        f"|err| {worst}; grid {batch_grid(n)}")
     p = analysis.zipf_pmf(n, 1.0, "cuda")
-    limit = bound(4 * n + 16, ZIPF_OPS_PER_ELEMENT * n)
+    timed = {"fig8": batches["fig8"][:1], "fig10": batches["fig10"][:1],
+             "fig8a_batch": batches["fig8a"], "fig10a_batch": batches["fig10a"],
+             "fig8b_batch": batches["fig8b"], "fig10b_batch": batches["fig10b"]}
     rows = []
-    for fig in ("fig8", "fig10"):
-        e = exps[fig][0]
+    for name, exps in timed.items():
+        on_card = torch.tensor(exps, dtype=torch.float32, device="cuda")
         rows.append({
-            "name": f"zipf_bit_sums_{fig}", "route": "cuda",
+            "name": f"zipf_bit_sums_{name}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/zipfprob.cu",
             "replaces": "src/repro/kernels/zipfprob.py:54",
-            "shape": [n], "exponents": list(e), "max_abs_err": worst[fig],
-            "ms": time_ms(lambda: zipf_bit_sums(p, *e)),
-            "plain_ms": time_ms(lambda: ref.zipf_bit_sums_ref(p, *e)),
-            **limit, "tolerance": "rtol 2e-4, atol 1e-6; repeat bit-identical",
+            "shape": [n], "points": len(exps), "exponents": [list(e) for e in exps],
+            "max_abs_err": worst[name.removesuffix("_batch")],
+            "ms": time_ms(lambda: zipf_bit_sums_batch(p, on_card)),
+            "plain_ms": time_ms(lambda: ref.zipf_bit_sums_batch_ref(p, exps), reps=10),
+            **bound(4 * n + 32 * len(exps), zipf_ops(n, exps)),
+            "tolerance": "rtol 2e-4, atol 1e-6; bit-equal to single-point launches; repeat "
+                         "bit-identical",
             "library_ms": None})
     for r in rows:
-        log(f"[kernels] {r['name']} {r['shape']}: {r['ms'] * 1e3:.2f} us (plain "
-            f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f} us, {r['bound_by']})")
+        log(f"[kernels] {r['name']} {r['shape']} x {r['points']} points: {r['ms'] * 1e3:.2f} us, "
+            f"{r['ms'] * 1e3 / r['points']:.3f} us per point (plain {r['plain_ms'] * 1e3:.2f} us, "
+            f"bound {r['bound_ms'] * 1e3:.3f} us, {r['bound_by']}, "
+            f"{zipf_ops(1, r['exponents'])} operations per element)")
     return rows
 
 
@@ -504,14 +560,19 @@ def _same(a: float, b: float) -> bool:
 
 def phase_analysis() -> dict:
     """The paper's §3 through the port's entry points on the card, at the
-    paper's n; returns K4's launches in the Fig 8 and the Fig 10 runs."""
+    paper's n; returns K4's launches in the Fig 8 and the Fig 10 parts, by
+    row of the kernel table: the single-point launches of the eight points,
+    the Fig 8(a) / Fig 10(a) grids' batched launches and the Fig 8(b) /
+    Fig 10(b) curves' launches, one per alpha."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import analysis as A
+    from repro_torch.core.traces import zipf_probs
     from repro_torch.core.volumes import default_pool
     from repro_torch.kernels import ops
     G = A.BLOCKS_PER_GIB
-    launches, failed = {}, []
+    failed = []
 
     def check(what, value, want, tol):
         ok = abs(value - want) <= tol
@@ -519,40 +580,113 @@ def phase_analysis() -> dict:
         if not ok:
             failed.append(what)
 
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    fig8 = {(u0, v0, a): 100 * A.pr_user_bit(u0 * G, v0 * G, alpha=a)
-            for u0, v0, a, _ in FIG8_POINTS}
-    grid8a, curve8b = A.fig8a_grid(), A.fig8b_curve()
-    launches["zipf_bit_sums_fig8"] = ops.launch_counts()["zipf_bit_sums"]
-    t1 = time.perf_counter()
-    ops.reset_launch_counts()
-    fig10 = {(g0, r0, a): 100 * A.pr_gc_bit(g0 * G, r0 * G, alpha=a)
-             for g0, r0, a, _ in FIG10_POINTS}
-    grid10a, curve10b = A.fig10a_grid(), A.fig10b_curve()
-    launches["zipf_bit_sums_fig10"] = ops.launch_counts()["zipf_bit_sums"]
-    t2 = time.perf_counter()
-    log(f"[analysis] n {A.PAPER_N}: Fig 8 points and grids {t1 - t0:.3f} s, Fig 10 points "
-        f"and grids {t2 - t1:.3f} s; K4 launches {launches}")
+    def k4() -> int:
+        return ops.launch_counts()["zipf_bit_sums"]
+
+    def parts() -> dict:
+        """Both figure parts through the entry points: their values, K4's
+        (launches, points) in each part, its launches by row of the kernel
+        table, and each part's wall."""
+        out = {"counts": {}, "rows": {}, "wall": {}}
+        for part, points, pr, grid, curve, sub in (
+                ("fig8", FIG8_POINTS, A.pr_user_bit, A.fig8a_grid, A.fig8b_curve, "8"),
+                ("fig10", FIG10_POINTS, A.pr_gc_bit, A.fig10a_grid, A.fig10b_curve, "10")):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out[part] = {(a, b, alpha): pr(a * G, b * G, alpha=alpha) for a, b, alpha, _ in points}
+            out["rows"][f"zipf_bit_sums_{part}"] = before = k4()
+            out[f"{part}_grid"] = grid()
+            out["rows"][f"zipf_bit_sums_fig{sub}a_batch"] = k4() - before
+            before = k4()
+            out[f"{part}_curve"] = curve()
+            out["rows"][f"zipf_bit_sums_fig{sub}b_batch"] = k4() - before
+            out["wall"][part] = time.perf_counter() - t0
+            out["counts"][part] = (k4(), ops.point_counts()["zipf_bit_sums"])
+        return out
+
+    first = parts()
+    warm = parts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        parts()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, counts = first["rows"], first["counts"]
+    fig8, grid8a, curve8b = first["fig8"], first["fig8_grid"], first["fig8_curve"]
+    fig10, grid10a, curve10b = first["fig10"], first["fig10_grid"], first["fig10_curve"]
+    log(f"[analysis] n {A.PAPER_N}: Fig 8 points and grids {first['wall']['fig8']:.3f} s, "
+        f"Fig 10 points and grids {first['wall']['fig10']:.3f} s (again: "
+        f"{warm['wall']['fig8']:.3f} s, {warm['wall']['fig10']:.3f} s); K4 (launches, points) "
+        f"per part {counts}, launches by row {launches}")
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+               and e.device_type.name == "CUDA"]
+    busy_us = sum(_device_us(e) for e in kernels)
+    log(f"[analysis] both parts under torch.profiler: wall {wall:.4f} s, device busy "
+        f"{busy_us / 1e6:.4f} s = {100 * busy_us / 1e6 / wall:.2f}% of wall, "
+        f"{sum(e.count for e in kernels)} device operations")
+    for e in sorted(kernels, key=lambda e: -_device_us(e))[:6]:
+        log(f"[analysis]   {e.key[:70]:70s} {_device_us(e):10.1f} us x{e.count}")
+    repeat = all(first[k] == warm[k] for k in first if k != "wall")
+    log(f"[analysis] repeat: every value, count and launch bit-identical: {repeat}")
+    if not repeat:
+        failed.append("repeat")
     for points, values in ((FIG8_POINTS, fig8), (FIG10_POINTS, fig10)):
         for a, b, alpha, paper in points:
-            value = values[(a, b, alpha)]
+            value = 100 * values[(a, b, alpha)]
             if paper is None:
                 log(f"[analysis] ({a}, {b}) GiB alpha {alpha}: {value:.4f} (no paper value)")
             else:
                 check(f"({a}, {b}) GiB alpha {alpha}", value, paper, PAPER_TOL[paper])
     check("Fig 8(a) minimum", 100 * min(grid8a.values()), 77.1, 0.3)
-    check("Fig 8(b) alpha 1 minimum", 100 * min(curve8b[(1.0, v)] for v in (0.25, 0.5, 1, 2, 4)),
+    check("Fig 8(b) alpha 1 minimum", 100 * min(curve8b[(1.0, v)] for v in A.FIG8_WINDOWS_GIB),
           87.1, 0.3)
-    check("Fig 10(b) separation at alpha 0.2", fig10[(2, 8, 0.2)] - fig10[(32, 8, 0.2)], 3.5, 0.4)
-    check("Fig 10(b) separation at alpha 1.0", fig10[(2, 8, 1.0)] - fig10[(32, 8, 1.0)], 26.4, 0.4)
+    check("Fig 10(b) separation at alpha 0.2",
+          100 * (fig10[(2, 8, 0.2)] - fig10[(32, 8, 0.2)]), 3.5, 0.4)
+    check("Fig 10(b) separation at alpha 1.0",
+          100 * (fig10[(2, 8, 1.0)] - fig10[(32, 8, 1.0)]), 26.4, 0.4)
     values = [*grid8a.values(), *curve8b.values(), *grid10a.values(), *curve10b.values()]
-    n_evals = len(FIG8_POINTS) + len(FIG10_POINTS) + len(values)
     log(f"[analysis] grids: {len(grid8a)} + {len(curve8b)} + {len(grid10a)} + {len(curve10b)} "
         f"values, all in [0, 1]: {all(0.0 <= x <= 1.0 for x in values)}")
-    if (sum(launches.values()) != n_evals or 0 in launches.values()
-            or not all(0.0 <= x <= 1.0 for x in values)):
+    # one launch per pmf built: the points one at a time, each grid's one pmf,
+    # and each curve's pmf per alpha; every evaluation counted as a point
+    pmfs = {"fig8": len(FIG8_POINTS) + 1 + len({a for a, _ in curve8b}),
+            "fig10": len(FIG10_POINTS) + 1 + len({a for a, _ in curve10b})}
+    evals = {"fig8": len(FIG8_POINTS) + len(grid8a) + len(curve8b),
+             "fig10": len(FIG10_POINTS) + len(grid10a) + len(curve10b)}
+    for part in ("fig8", "fig10"):
+        if counts[part] != (pmfs[part], evals[part]):
+            failed.append(f"{part} part: K4 (launches, points) {counts[part]}, expected "
+                          f"{(pmfs[part], evals[part])}")
+    if 0 in launches.values() or not all(0.0 <= x <= 1.0 for x in values):
         failed.append("grids")
+    # a point evaluated alone (a batch of one) equals the same point in a batch
+    pairs = []
+    for u0, v0, a, _ in FIG8_POINTS:
+        if a == 1.0 and (u0, v0) in grid8a:
+            pairs.append((f"Fig 8(a) {(u0, v0)}", fig8[(u0, v0, a)], grid8a[(u0, v0)]))
+        if u0 == A.FIG8B_U0_GIB and (a, v0) in curve8b:
+            pairs.append((f"Fig 8(b) {(a, v0)}", fig8[(u0, v0, a)], curve8b[(a, v0)]))
+    for g0, r0, a, _ in FIG10_POINTS:
+        if a == 1.0 and (g0, r0) in grid10a:
+            pairs.append((f"Fig 10(a) {(g0, r0)}", fig10[(g0, r0, a)], grid10a[(g0, r0)]))
+        if r0 == A.FIG10B_R0_GIB and (a, g0) in curve10b:
+            pairs.append((f"Fig 10(b) {(a, g0)}", fig10[(g0, r0, a)], curve10b[(a, g0)]))
+    u0, r0 = A.FIG8B_U0_GIB, A.FIG10B_R0_GIB
+    pairs += [(f"Fig 8(a) = 8(b) at u0 {u0}, v0 {v}", grid8a[(u0, v)], curve8b[(1.0, v)])
+              for v in A.FIG8_WINDOWS_GIB]
+    pairs += [(f"Fig 10(a) = 10(b) at g0 {g}, r0 {r0}", grid10a[(g, r0)], curve10b[(1.0, g)])
+              for g in A.FIG10_G0_GIB]
+    unequal = [what for what, x, y in pairs if x != y]
+    log(f"[analysis] batch == single: {len(pairs) - len(unequal)} of {len(pairs)} values equal "
+        f"bit for bit{'; unequal: ' + ', '.join(unequal) if unequal else ''}")
+    if unequal or not pairs:
+        failed.append("batch == single")
+    for alpha in sorted({a for a, _ in curve8b} | {a for a, _ in curve10b}):
+        made = A.zipf_pmf(A.PAPER_N, alpha).cpu().numpy().view(np.int32).astype(np.int64)
+        host = zipf_probs(A.PAPER_N, alpha).astype(np.float32).view(np.int32).astype(np.int64)
+        ulps = np.abs(made - host)
+        log(f"[analysis] pmf at alpha {alpha}, card against numpy in float32: "
+            f"{int((ulps != 0).sum())} of {A.PAPER_N} elements differ, max {int(ulps.max())} ulp")
 
     t0 = time.perf_counter()
     pool = default_pool(scale=4)

@@ -11,11 +11,11 @@ from .classify import classify
 from .decode_attn import flash_decode
 from .replay import replay
 from .segsel import segment_select, segment_select_batch
-from .zipfprob import pr_gc_bit_kernel, pr_user_bit_kernel, zipf_bit_sums
+from .zipfprob import pr_gc_bit_kernel, pr_user_bit_kernel, zipf_bit_sums, zipf_bit_sums_batch
 
-__all__ = ["classify", "flash_decode", "launch_counts", "pr_gc_bit_kernel",
+__all__ = ["classify", "flash_decode", "launch_counts", "point_counts", "pr_gc_bit_kernel",
            "pr_user_bit_kernel", "replay", "reset_launch_counts", "segment_select",
-           "segment_select_batch", "zipf_bit_sums"]
+           "segment_select_batch", "zipf_bit_sums", "zipf_bit_sums_batch"]
 
 _COUNTERS = (_segsel.launches, _classify.launches, _zipfprob.launches, _decode_attn.launches,
              _replay.launches)
@@ -28,7 +28,14 @@ def launch_counts() -> dict:
     return {k: n for counts in _COUNTERS for k, n in counts.items()}
 
 
+def point_counts() -> dict:
+    """Points evaluated by the kernel launches since the last reset: one
+    count, ``zipf_bit_sums``, for the Zipf sums' batches."""
+    return dict(_zipfprob.points)
+
+
 def reset_launch_counts() -> None:
-    for counts in _COUNTERS:
+    """Zero every launch count and the point count."""
+    for counts in (*_COUNTERS, _zipfprob.points):
         for key in counts:
             counts[key] = 0

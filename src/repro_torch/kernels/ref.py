@@ -7,6 +7,8 @@ for bit. ``classify_ref`` evaluates the elementwise classifiers of
 `core.placement.schemes`, the port's one plain version of the class maps.
 ``zipf_bit_sums_ref`` and ``flash_decode_ref`` are float reductions whose
 kernels sum in another order; they are held within a stated tolerance.
+``zipf_bit_sums_batch_ref`` loops over points, so each of its rows is the
+single point's result bit for bit.
 """
 
 from __future__ import annotations
@@ -76,6 +78,16 @@ def zipf_bit_sums_ref(probs, u0, v0, g0, r0):
         torch.sum(p * pow_g0),
         torch.sum(p * (pow_g0 - pow_gr)),
     ])
+
+
+def zipf_bit_sums_batch_ref(probs, exps):
+    """`zipf_bit_sums_ref` at each row (u0, v0, g0, r0) of the (P, 4)
+    exponents ``exps`` (a tensor or nested sequence, taken as float32), one
+    point at a time: (P, 4) float32."""
+    rows = torch.as_tensor(exps, dtype=torch.float32).reshape(-1, 4).tolist()
+    if not rows:
+        return torch.empty(0, 4, dtype=torch.float32, device=probs.device)
+    return torch.stack([zipf_bit_sums_ref(probs, *row) for row in rows])
 
 
 def flash_decode_ref(q, k, v, kv_len):

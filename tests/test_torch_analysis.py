@@ -35,6 +35,107 @@ def test_zipf_bit_sums_matches_pallas_and_jnp(n, alpha):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=1e-6)
 
 
+# (u0, v0, g0, r0) rows as the figures batch them: (u0, v0)-only rows (Fig 8),
+# (g0, r0)-only rows (Fig 10), all-zero pairs, a mixed row and a -0 exponent
+BATCH = ((100.0, 400.0, 0.0, 0.0), (0.0, 0.0, 2000.0, 800.0), (0.0, 0.0, 0.0, 0.0),
+         (3000.0, 0.0, 0.0, 0.0), (0.0, 900.0, 0.0, 0.0), (0.0, 0.0, 0.0, 700.0),
+         (0.0, 0.0, 1500.0, 0.0), EXPONENTS, (-0.0, 50.0, 0.0, -0.0), (0.5, 0.5, 0.5, 0.5))
+
+
+@pytest.mark.parametrize("n", [1000, 1 << 14])
+@pytest.mark.parametrize("alpha", [0.0, 1.0])
+def test_zipf_bit_sums_batch_matches_pallas(n, alpha):
+    """Each row within rtol 2e-4, atol 1e-6 of the Pallas kernel (interpret
+    mode) at its point: float32 sums taken in different orders."""
+    p = traces.zipf_probs(n, alpha).astype(np.float32)
+    got = ops.zipf_bit_sums_batch(torch.from_numpy(p), BATCH)
+    assert got.dtype == torch.float32 and got.shape == (len(BATCH), 4)
+    for row, e in zip(got.numpy(), BATCH):
+        np.testing.assert_allclose(row, np.asarray(jops.zipf_bit_sums(jnp.asarray(p), *e)),
+                                   rtol=2e-4, atol=1e-6, err_msg=str(e))
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.6, 1.0])
+def test_zipf_bit_sums_batch_equals_single_calls_on_the_cpu(alpha):
+    """Bit for bit: the batch on the CPU is its points one at a time, given
+    as tuples or as a (P, 4) tensor of any float dtype."""
+    p = torch.from_numpy(traces.zipf_probs(1 << 12, alpha).astype(np.float32))
+    want = torch.stack([zipfprob.zipf_bit_sums(p, *e) for e in BATCH])
+    assert torch.equal(zipfprob.zipf_bit_sums_batch(p, BATCH), want)
+    assert torch.equal(zipfprob.zipf_bit_sums_batch(p, torch.tensor(BATCH, dtype=torch.float64)),
+                       want)
+    assert torch.equal(tref.zipf_bit_sums_batch_ref(p, BATCH), want)
+    assert torch.equal(zipfprob.zipf_bit_sums_batch(p, BATCH[3:5]), want[3:5])
+
+
+def test_zipf_bit_sums_batch_rounds_exponents_to_float32():
+    """An exponent that float32 cannot hold gives the row of its rounding."""
+    p = torch.from_numpy(traces.zipf_probs(1 << 10, 1.0).astype(np.float32))
+    e = (1638.4, 0.1, 13107.2, 1e7 / 3)
+    rounded = tuple(float(np.float32(x)) for x in e)
+    assert torch.equal(zipfprob.zipf_bit_sums_batch(p, [e]),
+                       zipfprob.zipf_bit_sums_batch(p, [rounded]))
+
+
+def test_zipf_bit_sums_batch_edges_and_limits():
+    """An empty batch is (0, 4); more than MAX_POINTS points, or rows that
+    are not four exponents, raise; the CPU route counts no launch and no
+    point."""
+    ops.reset_launch_counts()
+    p = torch.full((64,), 1 / 64)
+    empty = zipfprob.zipf_bit_sums_batch(p, [])
+    assert empty.shape == (0, 4) and empty.dtype == torch.float32
+    full = zipfprob.zipf_bit_sums_batch(p, [(1.0, 2.0, 3.0, 4.0)] * zipfprob.MAX_POINTS)
+    assert full.shape == (zipfprob.MAX_POINTS, 4)
+    assert torch.equal(full, full[:1].expand_as(full))
+    with pytest.raises(ValueError, match="at most"):
+        zipfprob.zipf_bit_sums_batch(p, [(1.0, 2.0, 3.0, 4.0)] * (zipfprob.MAX_POINTS + 1))
+    with pytest.raises(ValueError, match=r"\(P, 4\)"):
+        zipfprob.zipf_bit_sums_batch(p, torch.zeros(3, 3))
+    with pytest.raises(ValueError, match=r"\(P, 4\)"):
+        zipfprob.zipf_bit_sums_batch(p, torch.zeros(4))
+    assert ops.launch_counts()["zipf_bit_sums"] == 0
+    assert ops.point_counts() == {"zipf_bit_sums": 0}
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1 << 16])
+@pytest.mark.parametrize("alpha", [0.0, 0.2, 0.6, 1.0])
+def test_zipf_pmf_equals_the_numpy_pmf(n, alpha):
+    """The pmf made by torch in float64 and cast to float32 equals
+    `traces.zipf_probs` cast to float32, element for element."""
+    got = analysis.zipf_pmf(n, alpha, "cpu")
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    np.testing.assert_array_equal(got.numpy(), traces.zipf_probs(n, alpha).astype(np.float32))
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.2, 0.6, 1.0])
+def test_zero_exponents_give_powers_of_one(alpha):
+    """The kernel computes no exp for an exponent of ±0 and uses 1: exactly
+    what exp(±0 * log1p(-p)) gives at every element of a Zipf pmf (p < 1,
+    so log1p(-p) is finite), and at a zero p past the pmf's end."""
+    p = torch.cat([analysis.zipf_pmf(1 << 16, alpha, "cpu"), torch.zeros(3)])
+    lg = torch.log1p(-p)
+    assert torch.isfinite(lg).all()
+    for zero in (0.0, -0.0):
+        assert torch.equal(torch.exp(zero * lg), torch.ones_like(p))
+
+
+@pytest.mark.parametrize("ones_at", [(0,), (5,), (1, 700)], ids=["n1", "one", "two"])
+def test_zipf_bit_sums_batch_at_a_p_of_one_matches_pallas(ones_at):
+    """A p of 1 (n = 1, or all the mass on one rank; two 1s too) makes
+    log1p(-p) -inf: a zero exponent gives exp(0 * -inf) = NaN in that row's
+    sums, as in the Pallas kernel (interpret mode), which the card's kernel
+    matches; the finite sums agree within rtol 2e-4, atol 1e-6."""
+    n = 1 if ones_at == (0,) else 1000
+    p = np.zeros(n, np.float32)
+    p[list(ones_at)] = 1.0
+    got = ops.zipf_bit_sums_batch(torch.from_numpy(p), BATCH).numpy()
+    want = np.stack([np.asarray(jops.zipf_bit_sums(jnp.asarray(p), *e)) for e in BATCH])
+    assert np.isnan(want).any() and np.isfinite(want).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-6)
+
+
 @pytest.mark.parametrize("alpha", [0.0, 1.0])
 def test_pr_kernels_match_pallas(alpha):
     """The float32 ratio wrappers; rtol 2e-4 as for the sums."""
@@ -118,6 +219,39 @@ def test_grids_match_the_reference_grids():
         assert list(got) == list(want)
         for key, value in want.items():
             assert got[key] == pytest.approx(value, abs=1e-4), (port.__name__, key)
+
+
+def test_figures_equal_their_points_one_at_a_time():
+    """Each value of the four figures, which batch a pmf's points, equals
+    the same point through `pr_user_bit` / `pr_gc_bit` (a batch of one) bit
+    for bit."""
+    n, s = 1 << 12, (1 << 12) / analysis.PAPER_N
+    w8, g10 = tuple(s * x for x in (0.25, 1, 4)), tuple(s * x for x in (2, 8, 32))
+    for (u0, v0), value in analysis.fig8a_grid(n=n, u0_gib=w8, v0_gib=w8, device="cpu").items():
+        assert value == analysis.pr_user_bit(u0 * G, v0 * G, n=n, device="cpu")
+    for (a, v0), value in analysis.fig8b_curve(n=n, u0_gib=s, v0_gib=w8, alphas=(0.0, 0.6),
+                                               device="cpu").items():
+        assert value == analysis.pr_user_bit(s * G, v0 * G, n=n, alpha=a, device="cpu")
+    for (g0, r0), value in analysis.fig10a_grid(n=n, g0_gib=g10, r0_gib=(s, 8 * s),
+                                                device="cpu").items():
+        assert value == analysis.pr_gc_bit(g0 * G, r0 * G, n=n, device="cpu")
+    for (a, g0), value in analysis.fig10b_curve(n=n, r0_gib=8 * s, g0_gib=g10,
+                                                alphas=(0.2, 1.0), device="cpu").items():
+        assert value == analysis.pr_gc_bit(g0 * G, 8 * s * G, n=n, alpha=a, device="cpu")
+
+
+def test_a_grid_of_more_points_than_one_batch_matches_the_reference():
+    """A Fig 8(a) grid of 17 x 17 = 289 points, more than one batch of the
+    kernel holds (`MAX_POINTS`), keeps every key and value of the reference
+    within abs 1e-4."""
+    n = 1 << 10
+    w = tuple(n / analysis.PAPER_N * 0.25 * (i + 1) for i in range(17))
+    assert len(w) ** 2 > zipfprob.MAX_POINTS
+    got = analysis.fig8a_grid(n=n, u0_gib=w, v0_gib=w, device="cpu")
+    want = janalysis.fig8a_grid(n=n, u0_gib=w, v0_gib=w)
+    assert list(got) == list(want)
+    for key, value in want.items():
+        assert got[key] == pytest.approx(value, abs=1e-4), key
 
 
 def _trace(kind):

@@ -245,6 +245,137 @@ def test_zipf_kernel_matches_plain_and_repeats_bit_identically(card, alpha):
     assert ops.launch_counts()["zipf_bit_sums"] == 6
 
 
+def _zipf_batch(n_points):
+    """(P, 4) exponents cycling through Fig 8 rows (u0, v0 only), Fig 10 rows
+    (g0, r0 only), all-zero rows and a mixed row; the rows that are not
+    all zero are distinct."""
+    G = analysis.BLOCKS_PER_GIB
+    kinds = ((0.25 * G, 4 * G, 0.0, 0.0), (0.0, 0.0, 32 * G, 8 * G), (0.0, 0.0, 0.0, 0.0),
+             (100.0, 400.0, 2e3, 8e2), (0.0, 900.0, 0.0, 0.0), (0.0, 0.0, 1500.0, 0.0))
+    return [tuple(x * (1 + i // len(kinds)) for x in kinds[i % len(kinds)])
+            for i in range(n_points)]
+
+
+@pytest.mark.parametrize("n_of", [lambda chunk: 1000, lambda chunk: 3 * chunk + 17,
+                                  lambda chunk: (1 << 20) + 17], ids=["short", "ragged", "large"])
+@pytest.mark.parametrize("n_points", [1, 6, 40, zipfprob.MAX_POINTS])
+def test_zipf_batch_kernel_matches_plain_and_single_calls(card, n_of, n_points):
+    """A batch of one to `MAX_POINTS` points (more than one group of the
+    kernel's block reductions from 40 on), with zero-exponent rows, over
+    pmfs shorter than a block's chunk and not a multiple of it: within rtol
+    2e-4, atol 1e-6 of the plain version; equal bit for bit to its points
+    launched one at a time; a repeat bit-identical; one launch; the sums an
+    all-zero row leaves at 0 exactly 0."""
+    chunk = zipfprob.batch_grid(1)["chunk"]
+    n = n_of(chunk)
+    assert n % chunk != 0
+    p = torch.from_numpy(zipf_probs(n, 1.0)).to(card).float()
+    exps = _zipf_batch(n_points)
+    ops.reset_launch_counts()
+    got = zipfprob.zipf_bit_sums_batch(p, exps)
+    assert ops.launch_counts()["zipf_bit_sums"] == 1
+    assert ops.point_counts()["zipf_bit_sums"] == n_points
+    assert got.shape == (n_points, 4) and got.dtype == torch.float32
+    torch.testing.assert_close(got, tref.zipf_bit_sums_batch_ref(p, exps), rtol=2e-4, atol=1e-6)
+    assert torch.equal(zipfprob.zipf_bit_sums_batch(p, exps), got)
+    singles = [zipfprob.zipf_bit_sums(p, *e) for e in exps[:12]] + [
+        zipfprob.zipf_bit_sums(p, *exps[-1])]
+    assert torch.equal(torch.stack(singles), torch.cat([got[:12], got[-1:]]))
+    zero = got[[i for i, e in enumerate(exps) if not any(e)]]
+    assert (zero[:, [0, 1, 3]] == 0).all() and (zero[:, 2] > 0).all()
+    no_g0 = got[[i for i, e in enumerate(exps) if e[2] == 0], 2]
+    assert (no_g0 == no_g0[0]).all()            # Σp(1-p)^0 is one sum, whatever u0, v0, r0
+
+
+def test_zipf_batch_kernel_edges(card):
+    """An empty pmf gives zero sums; a batch of no points launches nothing;
+    a batch over the cap raises before any launch; exponents given as a
+    tensor on the card equal the same given as tuples."""
+    ops.reset_launch_counts()
+    empty = torch.zeros(0, device=card)
+    assert torch.equal(zipfprob.zipf_bit_sums_batch(empty, [(1.0, 2.0, 3.0, 4.0)]),
+                       torch.zeros(1, 4, device=card))
+    p = torch.from_numpy(zipf_probs(5000, 0.6)).to(card).float()
+    assert zipfprob.zipf_bit_sums_batch(p, []).shape == (0, 4)
+    with pytest.raises(ValueError, match="at most"):
+        zipfprob.zipf_bit_sums_batch(p, _zipf_batch(zipfprob.MAX_POINTS + 1))
+    assert ops.launch_counts()["zipf_bit_sums"] == 1
+    exps = _zipf_batch(9)
+    assert torch.equal(zipfprob.zipf_bit_sums_batch(p, torch.tensor(exps, device=card)),
+                       zipfprob.zipf_bit_sums_batch(p, exps))
+
+
+@pytest.mark.parametrize("n, ones_at", [(1, (0,)), (1000, (5,)), ((1 << 20) + 17, (3, 700_000))],
+                         ids=["n1", "short", "large"])
+def test_zipf_batch_kernel_at_a_p_of_one(card, n, ones_at):
+    """A p of 1 makes log1p(-p) -inf, so a zero exponent gives NaN sums in
+    the plain version: the kernel skips no zero exponent in a block that
+    holds one, and matches it, NaN for NaN, within rtol 2e-4, atol 1e-6
+    elsewhere (the other blocks keep their skips); a batch equals its
+    single-point launches."""
+    p = torch.from_numpy(zipf_probs(n, 1.0)).to(card).float()
+    p[list(ones_at)] = 1.0
+    exps = _zipf_batch(12)
+    got = zipfprob.zipf_bit_sums_batch(p, exps)
+    want = tref.zipf_bit_sums_batch_ref(p, exps)
+    assert torch.isnan(want).any() and torch.isfinite(want).any()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-6, equal_nan=True)
+    singles = torch.stack([zipfprob.zipf_bit_sums(p, *e) for e in exps])
+    torch.testing.assert_close(singles, got, rtol=0, atol=0, equal_nan=True)
+
+
+def test_zipf_batch_kernel_on_concurrent_streams(card):
+    """Launches on two streams at once, each several batches deep, each
+    with its own scratch and ticket: every row equals the same batch on
+    the default stream bit for bit."""
+    n = (1 << 20) + 17
+    p = torch.from_numpy(zipf_probs(n, 0.6)).to(card).float()
+    exps = [_zipf_batch(k) for k in (40, 7, zipfprob.MAX_POINTS)]
+    want = [zipfprob.zipf_bit_sums_batch(p, e) for e in exps]
+    streams = [torch.cuda.Stream(card), torch.cuda.Stream(card)]
+    torch.cuda.synchronize(card)
+    got = {}
+    for rep in range(4):
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                got[rep, i] = [zipfprob.zipf_bit_sums_batch(p, e) for e in exps]
+    torch.cuda.synchronize(card)
+    keys = {(p.device, s.cuda_stream) for s in streams}
+    assert keys <= set(zipfprob._buffers)
+    for rows in got.values():
+        for a, b in zip(rows, want):
+            assert torch.equal(a, b)
+
+
+def test_figures_launch_once_per_pmf_on_the_card(card):
+    """Each figure launches the kernel once per pmf and reads it once; its
+    values equal the points through `pr_user_bit` / `pr_gc_bit` on the card
+    bit for bit, and the CPU's within abs 1e-5."""
+    n = 1 << 16
+    s = n / analysis.PAPER_N
+    w = tuple(s * x for x in (0.25, 0.5, 1, 2, 4))
+    g = tuple(s * x for x in (2, 4, 8, 16, 32))
+    G = analysis.BLOCKS_PER_GIB
+    for fig, kwargs, pmfs, point in (
+            (analysis.fig8a_grid, dict(u0_gib=w, v0_gib=w), 1,
+             lambda k, kw: analysis.pr_user_bit(k[0] * G, k[1] * G, n=n, device=card)),
+            (analysis.fig8b_curve, dict(u0_gib=s, v0_gib=w), 6,
+             lambda k, kw: analysis.pr_user_bit(s * G, k[1] * G, n=n, alpha=k[0], device=card)),
+            (analysis.fig10a_grid, dict(g0_gib=g, r0_gib=tuple(s * x for x in (1, 2, 4, 8))), 1,
+             lambda k, kw: analysis.pr_gc_bit(k[0] * G, k[1] * G, n=n, device=card)),
+            (analysis.fig10b_curve, dict(r0_gib=8 * s, g0_gib=g), 6,
+             lambda k, kw: analysis.pr_gc_bit(k[1] * G, 8 * s * G, n=n, alpha=k[0],
+                                              device=card))):
+        ops.reset_launch_counts()
+        got = fig(n=n, device=card, **kwargs)
+        assert ops.launch_counts()["zipf_bit_sums"] == pmfs, fig.__name__
+        assert ops.point_counts()["zipf_bit_sums"] == len(got), fig.__name__
+        cpu = fig(n=n, device="cpu", **kwargs)
+        for key, value in got.items():
+            assert value == point(key, kwargs), (fig.__name__, key)
+            assert value == pytest.approx(cpu[key], abs=1e-5), (fig.__name__, key)
+
+
 def _assert_decode_close(got, q, k, v, kl):
     """atol = rtol = 1e-4 in float32, 2e-2 in bfloat16, against the plain
     version with its float32 products in full float32 (TF32 off); and within
