@@ -45,7 +45,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    alone on both inputs;
 8. scale: the replay kernel alone on 32 volumes of 1 GiB, held to the
    state invariants, its time and its victim scans' bytes per user write;
-9. profile: steady windows of both engines under torch.profiler.
+9. profile: steady windows of both engines under torch.profiler;
+10. schemes: the paper's 14-scheme comparison (Exp#1): the 186-volume
+    corpus (16 MiB volumes) under each of the 14 placement schemes, 2,604
+    volumes in one fleet through the step engine on the card (K1 and K3,
+    the nine stateful schemes' branches between them); WA per scheme,
+    ranked; one volume per scheme equal to the step engine on the CPU on
+    every key, the elementwise volumes equal to the replay kernel's replay
+    of them, which refuses the mixed fleet; a profiled steady window.
 
 Before the last line it prints the kernel table as one JSON object; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA it exits 1
@@ -73,6 +80,10 @@ PARITY_N_LBAS = 2048           # the card-against-CPU fleet's volumes
 PROFILE_REPLAY_STEPS = 8192    # the profiled steady windows after the main run, per engine
 PROFILE_STEP_STEPS = 100
 PLAIN_VOLUMES_PER_TILE = 2     # main-run volumes per GC threshold replayed by the CPU step engine
+SCHEMES_VOLUMES_PER_SCHEME = 186   # [schemes]: the corpus, replayed under each of the 14 schemes
+SCHEMES_N_LBAS = 4096          # [schemes]: 16 MiB volumes at 4 KiB blocks
+SCHEMES_GP = 0.15
+SCHEMES_PROFILE_STEPS = 100
 REPLAY_TIMED = 5               # launches of the replay kernel timed, each on a fresh state
 SCALE_N_LBAS = 262144          # [scale]: 1 GiB volumes at 4 KiB blocks
 SCALE_VOLUMES_PER_TILE = 8
@@ -1075,36 +1086,271 @@ def _device_us(event) -> float:
     return 0.0
 
 
-def phase_profile(cfg, st) -> None:
-    """Steady windows after the main run under torch.profiler: random
-    updates per volume replayed by the replay kernel (PROFILE_REPLAY_STEPS)
-    and by the step engine (PROFILE_STEP_STEPS); for each, the device's busy
-    share of the wall time, the kernel launches per step and the kernels by
-    device time. The profiler slows the host, so a busy share is a lower
-    bound of the unprofiled run's."""
+RANGE_PREFIX = "stateful_schemes"   # the stateful branches' record_function ranges
+
+
+def _kernels_under(event) -> int:
+    """Device kernels launched inside a profiler event and its children (the
+    ranges' own device-side annotations are not kernels)."""
+    own = sum(1 for k in event.kernels if not k.name.startswith(RANGE_PREFIX))
+    return own + sum(_kernels_under(c) for c in event.cpu_children)
+
+
+def profile_window(cfg, st, engine: str, steps: int, tag: str) -> dict:
+    """``steps`` steps of random updates per volume replayed on the final
+    state ``st`` by ``engine`` under torch.profiler: the device's busy share
+    of the wall time, the kernel launches per step, those inside the stateful
+    schemes' ranges (``stateful_schemes.*``), and the kernels by device time.
+    The profiler slows the host, so a busy share is a lower bound of the
+    unprofiled run's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import torchsim
     V = st["t"].shape[0]
-    for engine, steps in (("replay", PROFILE_REPLAY_STEPS), ("step", PROFILE_STEP_STEPS)):
-        extra = np.random.default_rng(5).integers(0, cfg.n_lbas, (V, steps), dtype=np.int32)
+    extra = np.random.default_rng(5).integers(0, cfg.n_lbas, (V, steps), dtype=np.int32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        torchsim.run_fleet(cfg, extra, device="cuda", state=st, engine=engine)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            torchsim.run_fleet(cfg, extra, device="cuda", state=st, engine=engine)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = [e for e in prof.key_averages() if _device_us(e) > 0]
-        kernels = [e for e in rows if e.device_type.name == "CUDA"] or rows
-        busy_us = sum(_device_us(e) for e in kernels)
-        launches = sum(e.count for e in kernels)
-        log(f"[profile] engine={engine}: {steps} steady steps x {V} volumes: wall {wall:.3f} s "
-            f"(profiled), device busy {busy_us / 1e6:.4f} s = {100 * busy_us / 1e6 / wall:.2f}% "
-            f"of wall, {launches / steps:.4f} kernel launches per step, "
-            f"{V * steps / wall:.1f} volume-writes/s")
-        for e in sorted(kernels, key=lambda e: -_device_us(e))[:8]:
-            log(f"[profile]   {e.key[:70]:70s} {_device_us(e):12.1f} us x{e.count}")
+        wall = time.perf_counter() - t0
+    # a range's device-side annotation spans its kernels: not a kernel itself
+    rows = [e for e in prof.key_averages() if _device_us(e) > 0
+            and not e.key.startswith(RANGE_PREFIX)]
+    kernels = [e for e in rows if e.device_type.name == "CUDA"] or rows
+    busy_us = sum(_device_us(e) for e in kernels)
+    launches = sum(e.count for e in kernels)
+    branch = sum(_kernels_under(e) for e in prof.events() if e.name.startswith(RANGE_PREFIX))
+    log(f"[{tag}] engine={engine}: {steps} steady steps x {V} volumes: wall {wall:.3f} s "
+        f"(profiled), device busy {busy_us / 1e6:.4f} s = {100 * busy_us / 1e6 / wall:.2f}% "
+        f"of wall, {launches / steps:.4f} kernel launches per step ({branch / steps:.4f} in the "
+        f"stateful schemes' branches, {(launches - branch) / steps:.4f} in the rest), "
+        f"{V * steps / wall:.1f} volume-writes/s")
+    for e in sorted(kernels, key=lambda e: -_device_us(e))[:8]:
+        log(f"[{tag}]   {e.key[:70]:70s} {_device_us(e):12.1f} us x{e.count}")
+    return {"wall": wall, "busy": busy_us / 1e6 / wall, "launches_per_step": launches / steps,
+            "branch_launches_per_step": branch / steps}
+
+
+def phase_profile(cfg, st) -> None:
+    """Steady windows after the main run under torch.profiler: the replay
+    kernel (PROFILE_REPLAY_STEPS) and the step engine (PROFILE_STEP_STEPS)."""
+    for engine, steps in (("replay", PROFILE_REPLAY_STEPS), ("step", PROFILE_STEP_STEPS)):
+        profile_window(cfg, st, engine, steps, "profile")
+
+
+def schemes_config():
+    """The [schemes] volumes: SCHEMES_N_LBAS blocks, segment 128, cost-benefit,
+    GP 0.15, nc window 16, six class slots (the widest scheme)."""
+    from repro_torch.core.config import TorchSimConfig
+    return TorchSimConfig(n_lbas=SCHEMES_N_LBAS, segment_size=MAIN_SEGMENT, class_slots=6,
+                          gp_threshold=SCHEMES_GP)
+
+
+def schemes_policies(cfg, P: int) -> dict:
+    """(14 * P,) policy arrays, cell-major: scheme j's P volumes first."""
+    from repro_torch.core.config import SCHEME_CLASSES, default_policy
+    sch = np.repeat(np.arange(len(SCHEME_CLASSES)), P).astype(np.int32)
+    pol = {k: np.full(len(sch), v) for k, v in default_policy(cfg).items()}
+    pol["p_scheme"] = sch
+    pol["p_classes"] = np.asarray(SCHEME_CLASSES, np.int32)[sch]
+    return pol
+
+
+def _schemes_kernel_rows(rng, V, S, B, counts) -> dict:
+    """K1 and K3 at the [schemes] path's shapes, held bit-equal to their
+    plain versions and timed; by kernel name, with the path's launches."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segsel import segment_select_batch
+    dev = torch.device("cuda")
+    arrays = [torch.from_numpy(x).to(dev) for x in _segsel_inputs(rng, V, S, seg=B)]
+    idx, score = segment_select_batch(*arrays)
+    ridx, rscore = ref.segment_select_batch_ref(*arrays)
+    torch.cuda.synchronize()
+    if not (torch.equal(idx, ridx) and torch.equal(score, rscore)):
+        raise AssertionError("K1 disagrees with its plain version at the [schemes] shape")
+    out = {"segment_select_batch": {
+        "shape": [V, S], "ms": time_ms(lambda: segment_select_batch(*arrays)),
+        "plain_ms": time_ms(lambda: ref.segment_select_batch_ref(*arrays)),
+        "max_abs_err": max_abs_err(score, rscore), **bound(16 * V * S + 16 * V)}}
+    sids = torch.from_numpy((np.arange(V) % 14).astype(np.int32)).to(dev)
+    ell = torch.from_numpy(rng.uniform(1.0, 30_000.0, V).astype(np.float32)).to(dev)
+    for name, site, width in (("classify_gc", "gc", B), ("classify_user", "user", 1)):
+        v, g = (torch.from_numpy(rng.integers(0, 100_000, (V, width), dtype=np.int32)).to(dev)
+                for _ in range(2))
+        flags = torch.from_numpy(rng.integers(0, 2, (V, width), dtype=np.int32)).to(dev)
+        is_gc = torch.full_like(flags, 1 if site == "gc" else 0)
+        row = _classify_row(name, site, v, g, flags, is_gc, ell, sids, "the 14 schemes' ids")
+        out[name] = {k: row[k] for k in ("shape", "ms", "plain_ms", "max_abs_err", "bound_ms",
+                                         "bound_by")}
+    for name, row in out.items():
+        row["launches"] = counts[name]
+        log(f"[schemes] {name} {row['shape']}: {row['ms'] * 1e3:.2f} us (plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.3f} us), launches "
+            f"on this path {row['launches']}")
+    return out
+
+
+def _schemes_on_cpu(trace, policies) -> tuple[dict, float]:
+    """The [schemes] volumes ``trace`` replayed by the step engine on the CPU,
+    in a worker process beside the card run: the final state (numpy) and its
+    wall in s."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import torchsim
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    st = torchsim.run_fleet(schemes_config(), trace, policies, device="cpu", engine="step")
+    return convert.state_to_numpy(st), time.perf_counter() - t0
+
+
+def phase_schemes() -> dict:
+    """The paper's Exp#1 comparison: every one of the 14 schemes replays the
+    main run's 186-volume corpus (at SCHEMES_N_LBAS blocks), 2,604 volumes in
+    one fleet through the step engine on the card (K1 and K3 launched, the
+    stateful schemes' branches between them). Fails unless every volume is
+    within its pool and passes the state invariants, every scheme ran GC, one
+    volume per scheme replayed by the step engine on the CPU equals its row on
+    every key, the elementwise volumes replayed alone by the replay kernel
+    equal their rows (the ``sch_*`` keys at their initial values in both),
+    and the replay kernel refuses the fleet naming its ROADMAP item. The CPU
+    replay runs in a worker process while the card replays (both are bound
+    by one host core each). Returns K1's and K3's rows at this path's
+    shapes, with its launches."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import torchsim
+    from repro_torch.core.config import SCHEME_NAMES, init_state
+    from repro_torch.core.placement.schemes import ELEMENTWISE_IDS
+    from repro_torch.core.tracegen import tiled_fleet
+    from repro_torch.kernels import ops
+    P, n, S = SCHEMES_VOLUMES_PER_SCHEME, SCHEMES_N_LBAS, len(SCHEME_NAMES)
+    t_phase = time.perf_counter()
+    log(f"[schemes] cuts: volumes of {n} blocks ({n * 4 // 1024} MiB at 4 KiB) at 2 * n_lbas "
+        f"updates instead of the main run's 64 MiB, so the step engine's steps fit the smoke's "
+        f"time; ETI's "
+        f"2^15-write and FADaC's 2^16-write decay periods do not elapse in these traces (the "
+        f"CPU tests cover both boundaries)")
+    t0 = time.perf_counter()
+    traces = tiled_fleet("mixed", S, P, n, 2 * n, jitter=0.25, seed=23)
+    cfg = schemes_config()
+    policies = schemes_policies(cfg, P)
+    padded = torchsim.coerce_fleet(traces)
+    V, T = padded.shape
+    log(f"[schemes] {V} volumes ({S} schemes x {P} traces), n_lbas {n}, segment_size "
+        f"{cfg.segment_size}, n_rows {cfg.n_rows}, class slots {cfg.n_class_slots}, "
+        f"sfs_resample {cfg.sfs_resample}, steps {T}, writes {int((padded >= 0).sum())}; traces "
+        f"made in {time.perf_counter() - t0:.1f} s")
+
+    # one volume per scheme (corpus trace 0), by the step engine on the CPU
+    sub = [j * P for j in range(S)]
+    workers = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    with workers:
+        on_cpu = workers.submit(_schemes_on_cpu, np.ascontiguousarray(padded[sub]),
+                                {k: x[sub] for k, x in policies.items()})
+        stats = torchsim.ReplayStats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        st = torchsim.run_fleet(cfg, padded, policies, device="cuda", stats=stats,
+                                engine="step")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu, cpu_wall = on_cpu.result()
+        waited = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    final = convert.state_to_numpy(st)
+    res = torchsim.summarize_fleet(cfg, st, V)
+    writes = res["fleet"]["user_writes"]
+    steps = stats.steps
+    log(f"[schemes] engine=step on the card: wall {wall:.3f} s, steps {steps}, s/step "
+        f"{wall / steps:.9f}, volume-writes {writes}, volume-writes/s {writes / wall:.1f}")
+    log(f"[schemes] tick iterations {stats.tick_iterations} ({stats.tick_iterations / steps:.4f} "
+        f"per step), host syncs {stats.host_syncs} ({stats.host_syncs / steps:.7f} per step), "
+        f"reclaimed {int(final['reclaimed'].sum())}, overflow {res['fleet']['overflow']}, peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    k_launches = sum(counts[k] for k in ("segment_select_batch", "classify_gc", "classify_user"))
+    log(f"[schemes] kernel launches {counts}: K1 + K3 {k_launches / steps:.4f} per step")
+    if counts["replay"] or 0 in (counts["segment_select_batch"], counts["classify_gc"],
+                                 counts["classify_user"]):
+        raise AssertionError("the [schemes] run did not go through K1 and K3 alone")
+
+    # WA per scheme, ranked by fleet WA
+    vols = res["volumes"]
+    table = []
+    for j, name in enumerate(SCHEME_NAMES):
+        mine = vols[j * P:(j + 1) * P]
+        user = sum(v["user_writes"] for v in mine)
+        gc = sum(v["gc_writes"] for v in mine)
+        table.append((name, (user + gc) / user, float(np.median([v["wa"] for v in mine])), gc))
+    for rank, (name, wa, med, gc) in enumerate(sorted(table, key=lambda r: r[1]), 1):
+        log(f"[schemes] rank {rank:2d} {name:7s} fleet WA {wa:.6f}, median WA {med:.6f}, "
+            f"GC writes {gc}")
+    log(f"[schemes] fleet WA over all {V} volumes {res['fleet']['wa']:.6f}")
+    if res["fleet"]["overflow"] != 0 or (final["overflow"] != 0).any():
+        raise AssertionError("a [schemes] volume overflowed its segment pool")
+    if any(gc == 0 for *_, gc in table):
+        raise AssertionError("a scheme never ran GC in [schemes]")
+    check_integrity(cfg, final, traces, "[schemes]")
+
+    bad = [k for k in cpu if not np.array_equal(final[k][sub], cpu[k])
+           or final[k].dtype != cpu[k].dtype]
+    log(f"[schemes] volumes {sub} (one per scheme) by the step engine on the cpu in "
+        f"{cpu_wall:.1f} s, in a worker beside the card run (waited {waited:.1f} s after it): "
+        f"differing keys against the card {bad}, of {len(cpu)} "
+        f"({sum(k.startswith('sch_') for k in cpu)} sch_*)")
+    if bad:
+        raise AssertionError(f"[schemes] card and CPU differ in {bad}")
+
+    # the elementwise volumes alone, by the replay kernel
+    ew = [j * P + i for j in ELEMENTWISE_IDS for i in range(P)]
+    ew_pol = {k: x[ew] for k, x in policies.items()}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = convert.state_to_numpy(torchsim.run_fleet(cfg, np.ascontiguousarray(padded[ew]),
+                                                    ew_pol, device="cuda", engine="replay"))
+    rep_wall = time.perf_counter() - t0
+    rep_launches = ops.launch_counts()["replay"]
+    init = convert.state_to_numpy(init_state(cfg, ew_pol, "cpu"))
+    bad = [k for k in rep if not k.startswith("sch_") and not np.array_equal(final[k][ew], rep[k])]
+    stale = [k for k in rep if k.startswith("sch_") and not (
+        np.array_equal(rep[k], init[k]) and np.array_equal(final[k][ew], init[k]))]
+    log(f"[schemes] the {len(ew)} elementwise volumes alone by the replay kernel ({rep_launches} "
+        f"launch, {rep_wall:.3f} s): differing keys {bad}; sch_* keys off their initial values "
+        f"{stale}")
+    if bad or stale or rep_launches != 1:
+        raise AssertionError(f"[schemes] replay kernel and step engine differ: {bad}, {stale}")
+
+    # the replay kernel refuses the mixed fleet, before any launch
+    ops.reset_launch_counts()
+    try:
+        torchsim.run_fleet(cfg, padded, policies, device="cuda", engine="replay")
+    except NotImplementedError as err:
+        refused = str(err)
+    else:
+        raise AssertionError("the replay kernel took a fleet with stateful schemes")
+    log(f"[schemes] engine=replay on the mixed fleet raises NotImplementedError: {refused}")
+    if "item 4b" not in refused or ops.launch_counts()["replay"] != 0:
+        raise AssertionError("the replay kernel's refusal does not name item 4b, or it launched")
+
+    t0 = time.perf_counter()
+    profile_window(cfg, st, "step", SCHEMES_PROFILE_STEPS, "schemes")
+    log(f"[schemes] profiled window with its analysis {time.perf_counter() - t0:.1f} s")
+    rows = _schemes_kernel_rows(np.random.default_rng(3), V, cfg.n_rows, cfg.segment_size,
+                                counts)
+    log(f"[schemes] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return rows
 
 
 def main() -> int:
@@ -1134,10 +1380,14 @@ def main() -> int:
         raise AssertionError("a kernel was timed at another shape than its path's")
     phase_scale()
     phase_profile(cfg, st)
+    del st
+    schemes_rows = phase_schemes()
     launches = {**counts["step"], "segment_select": k2_launches, **analysis_launches,
                 "flash_decode": decode_launches, "replay": counts["replay"]["replay"]}
     for row in kernels:
         row["launches"] = launches[row["name"]]
+        if row["name"] in schemes_rows:
+            row["schemes_path"] = schemes_rows[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(device["smi"])
     print(json.dumps({"kernels": kernels}))

@@ -26,13 +26,11 @@ def config_from_jax(jax_cfg_fields: dict) -> TorchSimConfig:
 
 def state_from_numpy(np_state: dict, device) -> dict:
     """The port's state from a JAX state given as numpy arrays, one volume
-    (no leading axis) or a fleet (leading volume axis). The ``sch_*`` slices
-    of the stateful schemes are dropped."""
+    (no leading axis) or a fleet (leading volume axis), the stateful schemes'
+    ``sch_*`` slices included."""
     batched = np.ndim(np_state["t"]) == 1
     out = {}
     for key, x in np_state.items():
-        if key.startswith("sch_"):
-            continue
         x = np.array(x, copy=True)
         out[key] = torch.from_numpy(x if batched else x[None]).to(device)
     return out

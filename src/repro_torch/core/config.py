@@ -4,12 +4,13 @@
 ``JaxSimConfig`` apart from ``use_kernels`` and ``kernels_interpret``: on the
 port the device of the tensors decides whether a kernel or its plain
 version runs. Values that a later slice of the port brings (the timing
-model, GC scheduling, the legacy engine, grouped dispatch, the stateful
-schemes) raise `NotImplementedError` naming their ROADMAP item.
+model, GC scheduling, the legacy engine, grouped dispatch) raise
+`NotImplementedError` naming their ROADMAP item.
 
-The state is a dict of tensors with the JAX state's keys, minus the
-``sch_<name>_*`` slices of the stateful schemes, and a leading volume axis
-V (one volume is V = 1). Each key keeps the JAX dtype and initial value.
+The state is a dict of tensors with the JAX state's keys, the stateful
+schemes' ``sch_<name>_*`` slices included (every volume carries all of
+them), and a leading volume axis V (one volume is V = 1). Each key keeps
+the JAX dtype and initial value.
 """
 
 from __future__ import annotations
@@ -17,13 +18,15 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
+from .placement import stateful
 from .placement.schemes import (  # noqa: F401  (SCHEME_NAMES: part of the id tables)
     SCHEME_CLASSES,
     SCHEME_IDS,
     SCHEME_NAMES,
-    require_elementwise,
+    check_ids,
     scheme_id,
 )
 
@@ -74,7 +77,7 @@ class TorchSimConfig:
             raise ValueError(f"unknown gc_sched {self.gc_sched!r}; choices: {GCSCHED_NAMES}")
         if self.gc_engine not in ("tick", "legacy"):
             raise ValueError(f"unknown gc_engine {self.gc_engine!r}; choices: tick, legacy")
-        require_elementwise([scheme_id(self.scheme)])
+        scheme_id(self.scheme)
         if self.timing:
             raise NotImplementedError(
                 "timing=True is not ported yet; see ROADMAP.md Queue 1 item 6")
@@ -136,17 +139,18 @@ def default_policy(cfg: TorchSimConfig) -> dict:
 
 def _policy_tensors(cfg: TorchSimConfig, policy: dict | None, device) -> dict:
     """``policy`` (scalars or (V,) arrays per key; None = ``cfg``'s knobs) as
-    (V,) tensors of the state's dtypes, checked against what this slice runs."""
+    (V,) tensors of the state's dtypes, checked against what the port runs."""
     if policy is None:
         policy = default_policy(cfg)
     out = {}
     for key, dtype in POLICY_DTYPES.items():
-        x = torch.as_tensor(policy[key])
+        x = policy[key]
+        x = torch.as_tensor(np.array(x) if isinstance(x, np.ndarray) else x)
         out[key] = x.to(device=device, dtype=dtype).reshape(-1)
     sizes = {x.numel() for x in out.values()}
     if len(sizes) != 1:
         raise ValueError(f"policy arrays differ in length: {sorted(sizes)}")
-    require_elementwise(torch.unique(out["p_scheme"]).tolist())
+    check_ids(torch.unique(out["p_scheme"]).tolist())
     if bool((out["p_gcsched"] != GCSCHED_IDS["greedy"]).any()):
         raise NotImplementedError(
             "GC scheduling policies other than greedy are not ported yet; "
@@ -180,6 +184,8 @@ def state_spec(cfg: TorchSimConfig) -> dict:
                 "lat_max"):
         spec[key] = ((), f32)
     spec["lat_hist"] = ((cfg.lat_buckets,), i32)
+    spec.update({key: (shape, dtype) for key, (shape, dtype, _) in
+                 stateful.state_spec(cfg).items()})
     spec.update({key: ((), dtype) for key, dtype in POLICY_DTYPES.items()})
     return spec
 
@@ -197,12 +203,15 @@ def init_state(cfg: TorchSimConfig, policy: dict | None = None, device="cuda") -
     class; padded class slots leave their row in the free pool."""
     pol = _policy_tensors(cfg, policy, device)
     V = pol["p_scheme"].numel()
+    fill = {**_FILL, **{key: f for key, (_, _, f) in stateful.state_spec(cfg).items()}}
     state = {}
     for key, (shape, dtype) in state_spec(cfg).items():
         if key in pol:
             state[key] = pol[key]
+        elif isinstance(fill.get(key), tuple):     # a per-slot initial vector
+            state[key] = torch.tensor(fill[key], dtype=dtype, device=device).repeat(V, 1)
         else:
-            state[key] = torch.full((V,) + shape, _FILL.get(key, 0), dtype=dtype,
+            state[key] = torch.full((V,) + shape, fill.get(key, 0), dtype=dtype,
                                     device=device)
     C = cfg.n_class_slots
     slot = torch.arange(C, dtype=torch.int32, device=device)

@@ -6,30 +6,35 @@ transition is the JAX engine's, in the same order, so final states match it
 bit for bit:
 
 - `_user_write` invalidates the predecessor, classifies the block (the
-  classify kernel with is_gc = 0), appends it to the class's open segment
-  and seals a full segment;
+  classify kernel with is_gc = 0, then the stateful schemes' branches for
+  their volumes), appends it to the class's open segment and seals a full
+  segment;
 - `fleet_gc_tick` runs GC ticks while any volume's garbage proportion
   exceeds its threshold: the victims come from the segsel kernel
   (`segment_select_batch`; `segment_select` for one volume), the classes of
-  the victims' live blocks from the classify kernel, and `_gc_once` moves
-  them with one segmented scatter over (class, rank) keys. Volumes that do
-  not trigger are left exactly as they were.
+  the victims' live blocks from the classify kernel and the stateful
+  branches, and `_gc_once` moves them with one segmented scatter over
+  (class, rank) keys. Volumes that do not trigger are left exactly as they
+  were.
 
-The engine updates its state in place (JAX's arrays are immutable; here a
-fleet's segment arrays run to hundreds of MB) on a private copy made by
-`own_state`. Each tensor of that copy has one spare element past its end:
-a scatter aims every entry that JAX would drop (``mode="drop"``) at that
-element, so a masked write changes nothing and costs no host sync.
+Every registered scheme runs here: the five elementwise schemes through the
+classify kernel, the nine stateful ones (fk, dac, ml, sfs, eti, mq, sfr,
+fadac, warcip) through `placement.stateful`, each on its own volumes and
+its own ``sch_<name>_*`` keys. fk reads a (V, T) int32 ``nxt`` stream beside
+the trace, the index of each write's next write to its LBA (`annotate`).
 
-The GC loop asks the host whether any volume still needs GC before each
-tick iteration: one host sync per iteration, plus the one per step that
-finds none. `ReplayStats` counts steps, iterations and host syncs.
+The engine updates its state in place on a private copy (`inplace`). The GC
+loop asks the host whether any volume still needs GC before each tick
+iteration: one host sync per iteration, plus the one per step that finds
+none. `ReplayStats` counts steps, iterations and host syncs.
 
 That is the step engine (``engine="step"``). By default (``engine="replay"``)
 `run` and `run_fleet` hand a state on the card to the replay kernel
 (`kernels.replay`): one launch replays every volume, with no host sync per
-step. For a state on the CPU they run the kernel's plain version, the step
-engine (`step_replay`).
+step; it takes the elementwise schemes only, and refuses a stateful one
+(ROADMAP Queue 1 item 4b) rather than hand it to the step engine. For a
+state on the CPU they run the kernel's plain version, the step engine
+(`step_replay`).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from ..convert import state_to_numpy
 from ..kernels.classify import classify
 from ..kernels.replay import replay as replay_kernel
 from ..kernels.segsel import segment_select, segment_select_batch
+from .annotate import coerce_fleet_annotations, fleet_annotations
 from .config import (
     GCSCHED_NAMES,
     SCHEME_NAMES,
@@ -52,7 +58,11 @@ from .config import (
     default_policy,
     init_state,
 )
-from .placement.schemes import require_elementwise
+from .inplace import Consts, own_state
+from .inplace import add as _add
+from .inplace import put as _put
+from .placement import stateful
+from .placement.schemes import SCHEME_IDS, SCHEME_REQUIRES_FUTURE
 
 ENGINES = ("replay", "step")
 
@@ -72,65 +82,6 @@ class ReplayStats:
     host_syncs: int = 0
 
 
-def own_state(state: dict) -> dict:
-    """A copy of ``state`` that the engine may update in place: each tensor
-    contiguous, with one spare element past its end (see `_put`)."""
-    out = {}
-    for key, x in state.items():
-        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-        out[key] = buf[:-1].view(x.shape)
-        out[key].copy_(x)
-    return out
-
-
-class Consts:
-    """Device constants of one replay over V volumes, made once: rebuilding
-    index bases every step would cost launches, and a tensor made from a
-    host value would cost a host-to-device copy each time."""
-
-    def __init__(self, cfg: TorchSimConfig, V: int, device):
-        R, s, C, n = cfg.n_rows, cfg.segment_size, cfg.n_class_slots, cfg.n_lbas
-        i32 = {"dtype": torch.int32, "device": device}
-        vol = torch.arange(V, device=device)
-        self.device = device
-        self.row0 = vol * R             # each volume's first flat row of a (V, R) array
-        self.lba0 = vol * n             # ... of a (V, n_lbas) array
-        self.cls0 = vol * C             # ... of a (V, C) array
-        self.cls_ids = torch.arange(C, **i32)
-        self.slots = torch.arange(s, device=device)
-        self.rank1 = torch.ones((V, 1), **i32)          # free-row ranks for one row
-        self.rankC = torch.arange(1, C + 1, **i32).expand(V, C).contiguous()
-        self.zeros_v1 = torch.zeros((V, 1), **i32)
-        self.zeros_vs = torch.zeros((V, s), **i32)
-        self.ones_vs = torch.ones((V, s), **i32)
-        self.ones_v = torch.ones(V, **i32)
-        self.true = torch.ones((), dtype=torch.bool, device=device)
-        self.false = torch.zeros((), dtype=torch.bool, device=device)
-        self.i32 = {c: torch.full((), c, **i32) for c in (-1, 0, 1, 2, 3)}
-        self.zero_f = torch.zeros((), dtype=torch.float32, device=device)
-        self._spare: dict[int, torch.Tensor] = {}
-
-    def kept(self, x, flat, keep):
-        """``flat`` where ``keep``, else the index of ``x``'s spare element."""
-        n = x.numel()
-        if n not in self._spare:
-            self._spare[n] = torch.full((), n, dtype=torch.int64, device=self.device)
-        return torch.where(keep, flat, self._spare[n])
-
-
-def _put(x, idx, values):
-    """``x.view(-1)[idx] = values``, where ``idx`` may name the spare element
-    past the end of ``x`` (see `own_state`, `Consts.kept`): entries aimed
-    there leave ``x`` as it was — JAX's ``mode="drop"``. Among the other
-    entries, a repeated index keeps one of its values, as in JAX."""
-    x.as_strided((x.numel() + 1,), (1,)).index_put_((idx,), values)
-
-
-def _add(x, flat, values):
-    """``x.view(-1)[flat] += values``, repeated indices accumulating."""
-    x.view(-1).scatter_add_(0, flat.reshape(-1), values.reshape(-1))
-
-
 def _gp(st):
     """Garbage proportion per volume."""
     occ = torch.clamp(st["total_occ"], min=1).to(torch.float32)
@@ -148,10 +99,14 @@ def _alloc_free_ids(cfg: TorchSimConfig, seg_state, ranks):
     return torch.searchsorted(cum, ranks).clamp_(max=cfg.pad_row)
 
 
-def _user_write(cfg: TorchSimConfig, st: dict, lbas, active, k: Consts):
+def _user_write(cfg: TorchSimConfig, st: dict, lbas, active, k: Consts, nxt=None,
+                sfs_refresh=None):
     """One user write per volume, in place. ``lbas`` is (V,) int64. With
     ``active`` (V,) bool, the masked write: volumes where it is False (the
-    -1 pad steps of a shorter trace) are left as they were."""
+    -1 pad steps of a shorter trace) are left as they were, ``sch_*`` keys
+    included. ``nxt`` (V,) int32 is the write's next-write index, read by
+    fk (None: none known); ``sfs_refresh`` says whether some sfs volume
+    refreshes its bounds at this step (see `stateful.UserWrite`)."""
     s, pad = cfg.segment_size, cfg.pad_row
     t = st["t"]
     if active is None:
@@ -175,6 +130,10 @@ def _user_write(cfg: TorchSimConfig, st: dict, lbas, active, k: Consts):
     # the block's class: the classify kernel with is_gc = 0
     cls = classify(v[:, None], k.zeros_v1, k.zeros_v1, k.zeros_v1, st["ell"],
                    st["p_scheme"], site="user")[:, 0]
+    if k.stateful:
+        # the stateful volumes' classes, from their schemes' tables
+        cls = stateful.user_classes(cfg, st, stateful.UserWrite(lba, t, nxt, act, k,
+                                                                sfs_refresh), cls)
     cls_flat = k.cls0 + cls
     sid = st["open_sid"].view(-1)[cls_flat]
     sid_row = k.row0 + sid
@@ -241,10 +200,11 @@ def _gc_bookkeeping(st, vrow, do, k: Consts):
 
 def _gc_once(cfg: TorchSimConfig, st: dict, victims, do, k: Consts):
     """Rewrite each volume's victim segment where ``do`` (in place): the live
-    blocks get their GC classes from the classify kernel and move, with one
-    scatter per array, to their class's open segment, spilling into a fresh
-    free segment once it is full. Volumes where ``do`` is False are left as
-    they were."""
+    blocks get their GC classes from the classify kernel (a stateful
+    volume's from its scheme, after the ℓ update, as in JAX) and move, with
+    one scatter per array, to their class's open segment, spilling into a
+    fresh free segment once it is full. Volumes where ``do`` is False are
+    left as they were."""
     s, C, pad = cfg.segment_size, cfg.n_class_slots, cfg.pad_row
     V = victims.shape[0]
     doc = do[:, None]
@@ -262,6 +222,9 @@ def _gc_once(cfg: TorchSimConfig, st: dict, victims, do, k: Consts):
     g = st["t"][:, None] - utime_v
     from_c1 = is_c1.to(torch.int32)[:, None].expand(V, s).contiguous()
     gc_cls = classify(k.zeros_vs, g, from_c1, k.ones_vs, ell, st["p_scheme"])
+    if k.stateful:
+        gc_cls = stateful.gc_classes(cfg, st, stateful.GcVictims(
+            lba_v.long(), valid_v, st["t"], do, k), gc_cls)
     classes = torch.where(valid_v, gc_cls, k.i32[-1])
     free_ids = _alloc_free_ids(cfg, st["seg_state"], k.rankC)
 
@@ -378,26 +341,54 @@ def fleet_gc_tick(cfg: TorchSimConfig, st: dict, k: Consts, step_active=None, se
 
 
 def fleet_step(cfg: TorchSimConfig, st: dict, lbas, masked: bool, k: Consts, select=None,
-               stats: ReplayStats | None = None):
+               stats: ReplayStats | None = None, nxt=None, sfs_refresh=None):
     """One user write per volume, then the fleet's GC ticks (in place).
-    With ``masked``, pad entries (-1) of ``lbas`` are exact no-ops."""
+    With ``masked``, pad entries (-1) of ``lbas`` are exact no-ops. ``nxt``
+    and ``sfs_refresh``: see `_user_write`."""
     active = lbas >= 0 if masked else None
-    _user_write(cfg, st, lbas, active, k)
+    _user_write(cfg, st, lbas, active, k, nxt, sfs_refresh)
     fleet_gc_tick(cfg, st, k, active, select, stats)
     if stats is not None:
         stats.steps += 1
 
 
+def _sfs_refresh_steps(cfg: TorchSimConfig, st: dict, trace, k: Consts) -> set:
+    """The steps at which some sfs volume's write counter reaches
+    ``cfg.sfs_resample`` (its quantile bounds may refresh), known on the host
+    from the counters at the start and the trace's real writes, so the step
+    engine needs no host sync per step to skip the refresh elsewhere."""
+    sid = SCHEME_IDS["sfs"]
+    if sid not in k.stateful:
+        return set()
+    vols = torch.nonzero(k.member[sid])[:, 0]
+    real = (trace[vols] >= 0).cpu().numpy()
+    writes = np.cumsum(real, axis=1)
+    since0 = st["sch_sfs_since"][vols].cpu().numpy().astype(np.int64)
+    # the first tick after max(R - since0, 1) writes, then one every R
+    first = np.maximum(cfg.sfs_resample - since0, 1)[:, None]
+    tick = real & (writes >= first) & ((writes - first) % max(cfg.sfs_resample, 1) == 0)
+    return set(np.nonzero(tick.any(axis=0))[0].tolist())
+
+
 def step_replay(cfg: TorchSimConfig, st: dict, trace, stats: ReplayStats | None = None,
-                select=None):
+                select=None, nxt=None):
     """The step engine: replay the (V, T) int32 ``trace`` (-1: a pad step)
     through ``st`` in place, one lockstep step at a time. The plain version of
-    the replay kernel (`kernels.replay`)."""
+    the replay kernel (`kernels.replay`). ``nxt`` is fk's (V, T) int32
+    next-write stream; None makes it from the trace (`annotate`)."""
+    V, T = trace.shape
     masked = bool((trace < 0).any())
     lbas_tv = trace.t().contiguous().to(torch.int64)
-    k = Consts(cfg, st["t"].shape[0], st["t"].device)
-    for i in range(lbas_tv.shape[0]):
-        fleet_step(cfg, st, lbas_tv[i], masked, k, select, stats)
+    k = Consts(cfg, V, st["t"].device, st["p_scheme"])
+    nxt_tv = None
+    if any(SCHEME_REQUIRES_FUTURE[sid] for sid in k.stateful):
+        if nxt is None:
+            nxt = fleet_annotations(trace.cpu().numpy(), st["p_scheme"].cpu().numpy())
+        nxt_tv = coerce_fleet_annotations(nxt, (V, T), trace.device).t().contiguous()
+    refresh = _sfs_refresh_steps(cfg, st, trace, k)
+    for i in range(T):
+        fleet_step(cfg, st, lbas_tv[i], masked, k, select, stats,
+                   None if nxt_tv is None else nxt_tv[i], i in refresh)
     return st
 
 
@@ -406,25 +397,26 @@ def _check_engine(engine: str) -> None:
         raise ValueError(f"unknown engine {engine!r}; choices: {ENGINES}")
 
 
-def _replay(cfg, st, trace, stats, engine, select):
-    """The replay kernel for a state on the card under ``engine="replay"``;
-    else its plain version, the step engine (the only one on the CPU)."""
+def _replay(cfg, st, trace, stats, engine, select, nxt=None):
+    """The replay kernel for a state on the card under ``engine="replay"``
+    (which refuses the stateful schemes); else its plain version, the step
+    engine (the only one on the CPU)."""
     if engine == "replay" and trace.is_cuda:
         replay_kernel(cfg, st, trace, stats)
     else:
-        require_elementwise(torch.unique(st["p_scheme"]).tolist())
-        step_replay(cfg, st, trace, stats, select)
+        step_replay(cfg, st, trace, stats, select, nxt)
     return st
 
 
 def run(cfg: TorchSimConfig, trace, policy: dict | None = None, device="cuda",
         state: dict | None = None, stats: ReplayStats | None = None,
-        engine: str = "replay") -> dict:
+        engine: str = "replay", nxt=None) -> dict:
     """Replay one volume's trace (the counterpart of ``jaxsim._run``),
     starting from ``init_state`` or from ``state``; returns the final state
     with a leading volume axis of 1. ``engine="replay"`` runs the replay
     kernel with one volume; ``engine="step"`` the step engine, with victims
-    from `segment_select`."""
+    from `segment_select`. ``nxt``: fk's next-write indices of the trace's
+    writes (None: made from the trace)."""
     _check_engine(engine)
     dev = resolve_device(device)
     trace = np.asarray(trace, dtype=np.int32)
@@ -434,12 +426,13 @@ def run(cfg: TorchSimConfig, trace, policy: dict | None = None, device="cuda",
     if st["t"].shape != (1,):
         raise ValueError("a single-volume state has a leading volume axis of 1")
     return _replay(cfg, st, torch.from_numpy(trace[None]).to(dev), stats, engine,
-                   _select_victim_single)
+                   _select_victim_single, None if nxt is None else np.asarray(nxt)[None])
 
 
-def simulate(trace, cfg: TorchSimConfig, policy: dict | None = None, device="cuda") -> dict:
+def simulate(trace, cfg: TorchSimConfig, policy: dict | None = None, device="cuda",
+             engine: str = "replay") -> dict:
     """Replay ``trace`` on one volume; returns the summary of ``jaxsim.simulate_jax``."""
-    st = state_to_numpy(run(cfg, trace, policy, device))
+    st = state_to_numpy(run(cfg, trace, policy, device, engine=engine))
     return _summary(cfg, {k: x[0] for k, x in st.items()})
 
 
@@ -472,13 +465,15 @@ def broadcast_policies(cfg: TorchSimConfig, n_volumes: int) -> dict:
 
 def run_fleet(cfg: TorchSimConfig, traces, policies: dict | None = None, device="cuda",
               state: dict | None = None, stats: ReplayStats | None = None,
-              engine: str = "replay") -> dict:
+              engine: str = "replay", nxts=None) -> dict:
     """Replay V volumes in lockstep (the counterpart of ``jaxsim._run_fleet``)
     and return the final batched state. ``traces`` is a list of 1-D traces
     (unequal lengths are padded with -1) or a padded (V, T) matrix;
     ``policies`` optionally gives (V,) arrays per policy key. ``engine``:
     ``"replay"`` (the replay kernel) or ``"step"`` (the step engine, victims
-    from `segment_select_batch`)."""
+    from `segment_select_batch`). ``nxts``: fk's (V, T) next-write indices
+    (None: made from the traces, as ``jaxsim.fleet_annotations`` makes
+    them)."""
     _check_engine(engine)
     dev = resolve_device(device)
     padded = coerce_fleet(traces)
@@ -494,7 +489,7 @@ def run_fleet(cfg: TorchSimConfig, traces, policies: dict | None = None, device=
     if st["t"].shape != (V,):
         raise ValueError(f"state holds {st['t'].shape[0]} volumes, traces {V}")
     return _replay(cfg, st, torch.from_numpy(np.ascontiguousarray(padded)).to(dev), stats,
-                   engine, _select_victims_fleet)
+                   engine, _select_victims_fleet, nxts)
 
 
 def _summary(cfg: TorchSimConfig, st: dict) -> dict:
@@ -540,10 +535,10 @@ def summarize_fleet(cfg: TorchSimConfig, st: dict, n_volumes: int) -> dict:
 
 
 def simulate_fleet(traces, cfg: TorchSimConfig, policies: dict | None = None,
-                   device="cuda") -> dict:
+                   device="cuda", engine: str = "replay") -> dict:
     """Replay N independent volumes in lockstep; returns
     ``{"volumes": [per-volume summary, ...], "fleet": aggregate}``, each
     volume's result equal to a single-volume run of its trace."""
     padded = coerce_fleet(traces)
-    st = run_fleet(cfg, padded, policies, device)
+    st = run_fleet(cfg, padded, policies, device, engine=engine)
     return summarize_fleet(cfg, st, padded.shape[0])

@@ -6,7 +6,10 @@ with victim selection and GC classification inside). The kernel's plain
 version is the step engine of `core.torchsim` (`_user_write` and
 `fleet_gc_tick` once per lockstep step), which `torchsim` runs for a state
 on the CPU; this wrapper takes only CUDA tensors and raises on any other.
-There is no fallback from one to the other. ``launches`` counts the
+There is no fallback from one to the other. The kernel takes the five
+elementwise schemes; a fleet with a stateful one is refused
+(`NotImplementedError` naming ROADMAP Queue 1 item 4b), never handed to the
+step engine, which runs it under ``engine="step"``. ``launches`` counts the
 kernel's launches.
 """
 
@@ -24,7 +27,8 @@ from . import build
 launches = {"replay": 0}
 
 # the state keys the kernel reads or writes, in the order of ReplayArgs in
-# csrc/replay.cu; the other keys (the timing model's, p_gcsched) it leaves alone
+# csrc/replay.cu; the other keys (the timing model's, p_gcsched, the stateful
+# schemes' sch_*) it leaves alone
 STATE_FIELDS = ("seg_lba", "seg_utime", "seg_valid", "seg_n", "seg_nvalid", "seg_cls",
                 "seg_state", "seg_ctime", "seg_stime", "open_sid", "loc_seg", "loc_off",
                 "last_uw", "t", "total_occ", "total_valid", "user_writes", "gc_writes",

@@ -71,8 +71,7 @@ def test_init_state_matches_jax(name, policy):
     tcfg = tconfig.TorchSimConfig(**CONFIGS[name])
     jpol = None if policy is None else {
         k: np.asarray(v, np.float32 if k == "p_gp" else np.int32) for k, v in policy.items()}
-    ref = {k: np.asarray(v) for k, v in jaxsim.init_state(jcfg, jpol).items()
-           if not k.startswith("sch_")}
+    ref = {k: np.asarray(v) for k, v in jaxsim.init_state(jcfg, jpol).items()}
     got = convert.state_to_numpy(tconfig.init_state(tcfg, policy, device="cpu"))
     assert set(got) == set(ref)
     spec = tconfig.state_spec(tcfg)
@@ -122,7 +121,7 @@ def test_config_and_state_convert_both_ways():
     assert tcfg == tconfig.TorchSimConfig(n_lbas=128, segment_size=8, class_slots=6)
     jst = {k: np.asarray(v) for k, v in jaxsim.init_state(jcfg).items()}
     st = convert.state_from_numpy(jst, "cpu")
-    assert not any(k.startswith("sch_") for k in st)
+    assert sum(k.startswith("sch_") for k in st) == 22 and set(st) == set(jst)
     assert st["t"].shape == (1,) and st["seg_lba"].shape == (1, jcfg.n_rows, 8)
     back = convert.state_to_numpy(st)
     for key, x in back.items():

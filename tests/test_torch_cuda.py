@@ -1,8 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version (bit-equal for the replay engine's kernels, within a stated
 tolerance for the float reductions), a fleet replayed through the kernels
-bit-equal to the same fleet replayed on the CPU, and the §3 analysis on the
-card against the CPU. Imports no JAX (the machine with the card has none);
+bit-equal to the same fleet replayed on the CPU (the stateful schemes on the
+step engine too), and the §3 analysis on the card against the CPU. Imports no JAX (the machine with the card has none);
 every test skips where ``torch.cuda.is_available()`` is false."""
 
 import dataclasses
@@ -462,3 +462,68 @@ def test_analysis_on_the_card_matches_the_cpu(card):
         assert a == b or (np.isnan(a) and np.isnan(b))
     assert (analysis.trace_conditional_gc(tr, 400, 2000, device=card)
             == analysis.trace_conditional_gc(tr, 400, 2000, device="cpu"))
+
+
+STATEFUL = ["fk", "dac", "ml", "sfs", "eti", "mq", "sfr", "fadac", "warcip"]
+
+
+def _all_schemes_fleet(n=512, seed=19):
+    """One volume per scheme (all 14), unequal lengths, mixed selectors and
+    GC thresholds, six class slots; sfs refreshes every 64 writes."""
+    from repro_torch.core.config import SCHEME_CLASSES
+    V = len(SCHEME_CLASSES)
+    traces = make_fleet("mixed", V, n, 3 * n, jitter=0.3, seed=seed)
+    sch = np.arange(V)
+    pol = {"p_scheme": sch, "p_selector": sch % 2,
+           "p_gp": np.asarray([0.08, 0.12, 0.16, 0.22, 0.1, 0.15, 0.2] * 2, np.float32),
+           "p_ncw": np.full(V, 16), "p_classes": np.asarray(SCHEME_CLASSES)[sch],
+           "p_gcsched": np.zeros(V)}
+    sized = TorchSimConfig(n_lbas=n, segment_size=16, class_slots=6, gp_threshold=0.22)
+    cfg = TorchSimConfig(n_lbas=n, segment_size=16, class_slots=6, n_segments=sized.s_max,
+                         sfs_resample=64)
+    return cfg, traces, pol
+
+
+@pytest.mark.parametrize("scheme", STATEFUL)
+def test_stateful_scheme_single_volume_on_the_card_matches_cpu(card, scheme):
+    """`run(..., engine="step")` of one volume on the card (victims from
+    K2) equals the CPU on every key, ``sch_*`` included."""
+    cfg = TorchSimConfig(n_lbas=512, segment_size=16, scheme=scheme, sfs_resample=64)
+    tr = mixed_trace(512, 3 * 512, seed=23)
+    ops.reset_launch_counts()
+    got = convert.state_to_numpy(torchsim.run(cfg, tr, device=card, engine="step"))
+    counts = ops.launch_counts()
+    want = convert.state_to_numpy(torchsim.run(cfg, tr, device="cpu"))
+    assert int(want["reclaimed"][0]) > 0
+    _assert_same_state(got, want)
+    assert counts["segment_select"] > 0 and counts["replay"] == 0
+
+
+def test_all_schemes_fleet_on_the_card_matches_cpu(card):
+    """The 14-scheme fleet through the step engine on the card (K1, K3)
+    equals the CPU on every key; the elementwise volumes alone under the
+    replay kernel equal their rows."""
+    cfg, traces, pol = _all_schemes_fleet()
+    ops.reset_launch_counts()
+    got = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device=card,
+                                                    engine="step"))
+    counts = ops.launch_counts()
+    want = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device="cpu"))
+    assert (want["reclaimed"] > 0).all()
+    _assert_same_state(got, want)
+    assert counts["segment_select_batch"] > 0 and counts["classify_gc"] > 0
+    assert counts["classify_user"] > 0 and counts["replay"] == 0
+    ew = [0, 1, 2, 7, 8]
+    alone = convert.state_to_numpy(torchsim.run_fleet(
+        cfg, [traces[i] for i in ew], {k: np.asarray(v)[ew] for k, v in pol.items()},
+        device=card))
+    for key in alone:
+        np.testing.assert_array_equal(alone[key], want[key][ew], err_msg=key)
+
+
+def test_replay_kernel_refuses_a_stateful_fleet(card):
+    cfg, traces, pol = _all_schemes_fleet()
+    ops.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="item 4b"):
+        torchsim.run_fleet(cfg, traces, pol, device=card)
+    assert ops.launch_counts()["replay"] == 0

@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import jaxsim
 from repro.core.jaxsim import JaxSimConfig
@@ -17,6 +18,7 @@ from repro_torch import convert
 from repro_torch.core import torchsim
 from repro_torch.core.config import TorchSimConfig, init_state
 from repro_torch.kernels import ops
+from repro_torch.kernels import replay as treplay
 
 N, SEG = 128, 8
 ELEMENTWISE = ["nosep", "sepgc", "sepbit", "uw", "gw"]
@@ -32,10 +34,10 @@ def _port_cfg(jcfg: JaxSimConfig) -> TorchSimConfig:
 
 
 def _assert_states_equal(got: dict, want: dict, volume=None):
-    """Every non-``sch_*`` key equal in shape, dtype and value; ``got`` keeps
-    the port's leading volume axis, whose row ``volume`` (all rows when None)
-    is compared."""
-    want = {k: np.asarray(v) for k, v in want.items() if not k.startswith("sch_")}
+    """Every key, the stateful schemes' ``sch_*`` included, equal in shape,
+    dtype and value; ``got`` keeps the port's leading volume axis, whose row
+    ``volume`` (all rows when None) is compared."""
+    want = {k: np.asarray(v) for k, v in want.items()}
     assert set(got) == set(want)
     for key, ref in want.items():
         mine = got[key] if volume is None else got[key][volume]
@@ -180,12 +182,21 @@ def test_exhaustion_corner_matches_jax_and_keeps_its_envelope():
     (dict(gc_sched="rate_limited"), "item 6"),
     (dict(gc_engine="legacy"), "item 7"),
     (dict(scheme_group=("sepbit",)), "item 5"),
-    (dict(scheme="fk"), "item 4"),
-    (dict(scheme="warcip"), "item 4"),
+    (dict(scheme="fk"), "item 4b"),
+    (dict(scheme="warcip"), "item 4b"),
 ])
 def test_unported_config_values_raise(change, item):
+    """Knobs of later slices raise when the config is made; the stateful
+    schemes make a config and run on the step engine, and only the replay
+    kernel refuses them (before any launch, naming its ROADMAP item)."""
+    if "scheme" not in change:
+        with pytest.raises(NotImplementedError, match=item):
+            TorchSimConfig(n_lbas=N, segment_size=SEG, **change)
+        return
+    cfg = TorchSimConfig(n_lbas=N, segment_size=SEG, **change)
+    st = torchsim.own_state(init_state(cfg, device="cpu"))
     with pytest.raises(NotImplementedError, match=item):
-        TorchSimConfig(n_lbas=N, segment_size=SEG, **change)
+        treplay.check_inputs(cfg, st, torch.from_numpy(TRACES["zipf"][None]))
 
 
 @pytest.mark.parametrize("engine", ["kernel", "Step", ""])
@@ -201,7 +212,7 @@ def test_unported_policies_raise():
     cfg = TorchSimConfig(n_lbas=N, segment_size=SEG, class_slots=6)
     pol = {"p_scheme": [2, 4], "p_selector": [0, 0], "p_gp": [0.1, 0.1], "p_ncw": [16, 16],
            "p_classes": [6, 6], "p_gcsched": [0, 0]}
-    with pytest.raises(NotImplementedError, match="dac"):
-        init_state(cfg, pol, device="cpu")
+    st = init_state(cfg, pol, device="cpu")       # dac runs: its slice is in the state
+    assert st["sch_dac_region"].shape == (2, N) and not st["sch_dac_region"].any()
     with pytest.raises(NotImplementedError, match="item 6"):
         init_state(cfg, dict(pol, p_scheme=[2, 2], p_gcsched=[0, 2]), device="cpu")

@@ -228,7 +228,7 @@ def _replay_inputs(V=2, T=12, n=64):
     (lambda cfg, st, tr: (st, torch.full_like(tr, -2)), ValueError, "-1"),
     (lambda cfg, st, tr: (st, tr + cfg.n_lbas), ValueError, "LBAs"),
     (lambda cfg, st, tr: (dict(st, p_scheme=torch.full_like(st["p_scheme"], 3)), tr),
-     NotImplementedError, "fk"),
+     NotImplementedError, "4b"),
     (lambda cfg, st, tr: ({k: v for k, v in st.items() if k != "last_uw"}, tr), TypeError,
      "last_uw"),
     (lambda cfg, st, tr: (st, tr), ValueError, "CUDA"),
