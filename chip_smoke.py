@@ -52,7 +52,21 @@ Phases, in order; any failure raises and the script exits non-zero:
     the nine stateful schemes' branches between them); WA per scheme,
     ranked; one volume per scheme equal to the step engine on the CPU on
     every key, the elementwise volumes equal to the replay kernel's replay
-    of them, which refuses the mixed fleet; a profiled steady window.
+    of them, which refuses the mixed fleet; a profiled steady window;
+11. sweep: the heterogeneous sweep of ``core/fleetshard.py`` at full width,
+    the main run's corpus under 5 elementwise schemes x 2 selectors x GP
+    0.10 / 0.15 / 0.20 (5,580 volumes of 64 MiB), timing model on, through
+    the replay kernel's timing instance: grouped (one launch per scheme)
+    equal to ungrouped (one launch) on every key, one volume of each
+    (scheme, selector) pair equal to the step engine on the CPU (run in a
+    worker beside the card), the accounting conserved; per cell WA, mean
+    +- CI and p50 / p99; the kernel timed alone with timing on and off;
+12. latency: the committed ``BENCH_gc_latency.json`` reproduced on every
+    field (nosep / sepgc / sepbit on the replay kernel, fk on the step
+    engine), then greedy / rate_limited / idle_window x nosep / sepgc /
+    sepbit at full width (1,674 volumes): overflow 0, rate_limited's GC
+    writes equal to greedy's, the accounting conserved, one volume per cell
+    equal to the CPU on every key.
 
 Before the last line it prints the kernel table as one JSON object; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA it exits 1
@@ -61,10 +75,13 @@ before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -857,13 +874,17 @@ def phase_parity() -> tuple[int, int]:
     return cfg.n_rows, k2_launches
 
 
-def replay_bound(st: dict, trace) -> dict:
+def replay_bound(st: dict, trace, timing: bool = False, defer: bool = False) -> dict:
     """The replay kernel's bound: the trace and every state key the kernel
-    takes read once, every key it writes (all but the policy's ``p_*``) and
-    its (T,) iteration counts written once."""
-    from repro_torch.kernels.replay import STATE_FIELDS
-    n_bytes = (trace.nbytes + sum(st[k].nbytes for k in STATE_FIELDS)
-               + sum(st[k].nbytes for k in STATE_FIELDS if not k.startswith("p_"))
+    instance takes read once, every key it writes (all but the policy's
+    ``p_*``) and its (T,) iteration counts written once. The timing model's
+    keys count only for the timing instance, ``p_gcsched`` only for it or
+    the deferring one."""
+    from repro_torch.kernels.replay import STATE_FIELDS, TIMING_FIELDS
+    fields = [k for k in STATE_FIELDS if (timing or k not in TIMING_FIELDS)
+              and (timing or defer or k != "p_gcsched")]
+    n_bytes = (trace.nbytes + sum(st[k].nbytes for k in fields)
+               + sum(st[k].nbytes for k in fields if not k.startswith("p_"))
                + 4 * trace.shape[1])
     return {**bound(n_bytes), "bytes": n_bytes}
 
@@ -889,12 +910,12 @@ def time_replay(cfg, policies, trace, want: dict, reps: int = REPLAY_TIMED) -> f
     times = []
     for _ in range(reps):
         st = torchsim.own_state(init_state(cfg, policies, "cuda"))
-        kreplay.check_inputs(cfg, st, trace)
+        defer = kreplay.check_inputs(cfg, st, trace)
         iterations = torch.zeros(trace.shape[1], dtype=torch.int32, device="cuda")
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        kreplay.launch(cfg, st, trace, iterations)
+        kreplay.launch(cfg, st, trace, iterations, defer)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
@@ -1049,12 +1070,12 @@ def phase_scale() -> None:
     V, T = padded.shape
     trace = torch.from_numpy(np.ascontiguousarray(padded)).cuda()
     st = torchsim.own_state(init_state(cfg, policies, "cuda"))
-    kreplay.check_inputs(cfg, st, trace)
+    defer = kreplay.check_inputs(cfg, st, trace)
     iterations = torch.zeros(T, dtype=torch.int32, device="cuda")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    kreplay.launch(cfg, st, trace, iterations)
+    kreplay.launch(cfg, st, trace, iterations, defer)
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end)
@@ -1221,9 +1242,6 @@ def phase_schemes() -> dict:
     replay runs in a worker process while the card replays (both are bound
     by one host core each). Returns K1's and K3's rows at this path's
     shapes, with its launches."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
     import torch
 
     from repro_torch import convert
@@ -1353,6 +1371,306 @@ def phase_schemes() -> dict:
     return rows
 
 
+SWEEP_SCHEMES = ("nosep", "sepgc", "sepbit", "uw", "gw")   # [sweep]: the elementwise schemes
+SWEEP_SELECTORS = ("greedy", "cost_benefit")
+SWEEP_GPS = (0.10, 0.15, 0.20)
+SWEEP_TIMED = 3                # launches of the sweep's replay timed, timing on and off each
+LATENCY_SCHEMES = ("nosep", "sepgc", "sepbit")
+LATENCY_SCHEDULES = ("greedy", "rate_limited", "idle_window")
+LATENCY_GP = 0.15              # benchmarks/run.py latbench's threshold
+
+
+def _replay_on_cpu(cfg, trace, policies) -> tuple[dict, float]:
+    """``trace`` replayed by the step engine on the CPU, in a worker process
+    beside the card run: the final state (numpy) and its wall in s."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import torchsim
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    st = torchsim.run_fleet(cfg, trace, policies, device="cpu", engine="step")
+    return convert.state_to_numpy(st), time.perf_counter() - t0
+
+
+def _full_width_traces(cells: int):
+    """The main run's corpus (186 volumes of 64 MiB, 2 * n_lbas updates,
+    jitter 0.25, seed 23) tiled once per policy cell, padded."""
+    from repro_torch.core import torchsim
+    from repro_torch.core.tracegen import tiled_fleet
+    return torchsim.coerce_fleet(tiled_fleet("mixed", cells, MAIN_VOLUMES_PER_TILE, MAIN_N_LBAS,
+                                             2 * MAIN_N_LBAS, jitter=0.25, seed=23))
+
+
+def _sweep_setup():
+    """[sweep]'s fleet: the policy grid, its shared config (timing on) and
+    the padded traces; the CPU subset: one volume of each (scheme, selector)
+    pair, its GC threshold rotating over the grid."""
+    from repro_torch.core import fleetshard
+    from repro_torch.core.config import TorchSimConfig
+    P = MAIN_VOLUMES_PER_TILE
+    policy, cells = fleetshard.policy_grid(SWEEP_SCHEMES, SWEEP_SELECTORS, SWEEP_GPS,
+                                           volumes_per_cell=P)
+    base = TorchSimConfig(n_lbas=MAIN_N_LBAS, segment_size=MAIN_SEGMENT, timing=True)
+    padded = _full_width_traces(len(cells))
+    pairs = len(SWEEP_SCHEMES) * len(SWEEP_SELECTORS)
+    sub = [(j * len(SWEEP_GPS) + j % len(SWEEP_GPS)) * P + j for j in range(pairs)]
+    return base, policy, cells, padded, sub
+
+
+def _latency_setup():
+    """[latency] (b)'s fleet: {greedy, rate_limited, idle_window} x {nosep,
+    sepgc, sepbit}, cell-major, cost-benefit at GP 0.15, timing on; the CPU
+    subset: one volume per cell."""
+    from repro_torch.core import fleetshard
+    from repro_torch.core.config import TorchSimConfig
+    P = MAIN_VOLUMES_PER_TILE
+    cells = [(g, sch) for g in LATENCY_SCHEDULES for sch in LATENCY_SCHEMES]
+    policy = fleetshard.encode_policies(
+        len(cells) * P, schemes=[sch for _, sch in cells for _ in range(P)],
+        selectors="cost_benefit", gp_thresholds=LATENCY_GP,
+        gcscheds=[g for g, _ in cells for _ in range(P)])
+    base = TorchSimConfig(n_lbas=MAIN_N_LBAS, segment_size=MAIN_SEGMENT, timing=True)
+    padded = _full_width_traces(len(cells))
+    sub = [c * P + c for c in range(len(cells))]
+    return base, policy, cells, padded, sub
+
+
+def _submit_cpu(pool, setup):
+    """Submit a setup's CPU subset to ``pool``; returns the future."""
+    from repro_torch.core import fleetshard
+    base, policy, _, padded, sub = setup
+    cfg = fleetshard.hetero_config(base, policy)
+    pol = {k: v[sub] for k, v in policy.as_state_arrays().items()}
+    return pool.submit(_replay_on_cpu, cfg, np.ascontiguousarray(padded[sub]), pol)
+
+
+def _check_subset(tag, final, sub, on_cpu) -> tuple[float, float]:
+    """The card's rows ``sub`` of ``final`` against the CPU worker's result,
+    every key; returns the CPU's wall and the time waited for it."""
+    t0 = time.perf_counter()
+    cpu, cpu_wall = on_cpu.result()
+    waited = time.perf_counter() - t0
+    bad = [k for k in cpu if not np.array_equal(final[k][sub], cpu[k])
+           or final[k].dtype != cpu[k].dtype]
+    log(f"[{tag}] volumes {sub} by the step engine on the cpu in {cpu_wall:.1f} s (a worker "
+        f"beside the card run; waited {waited:.1f} s): differing keys against the card {bad}, "
+        f"of {len(cpu)}")
+    if bad:
+        raise AssertionError(f"[{tag}] card and CPU differ in {bad}")
+    return cpu_wall, waited
+
+
+def _check_conservation(tag, final, cfg) -> None:
+    """lat_charged + lat_debt == gc_writes * gc_block_cost on every volume,
+    and the histogram counts every user write."""
+    ok = ((final["lat_charged"] + final["lat_debt"]
+           == final["gc_writes"].astype(np.float32) * np.float32(cfg.gc_block_cost)).all()
+          and (final["lat_hist"].sum(1) == final["user_writes"]).all())
+    log(f"[{tag}] conservation lat_charged + lat_debt == gc_writes * gc_block_cost and the "
+        f"histogram's count on all {len(final['t'])} volumes: {bool(ok)}")
+    if not ok:
+        raise AssertionError(f"[{tag}] the timing model's accounting is not conserved")
+
+
+def phase_sweep(setup, on_cpu) -> dict:
+    """The heterogeneous sweep at full width: SWEEP_SCHEMES x SWEEP_SELECTORS
+    x SWEEP_GPS, the main run's corpus under each of the 30 cells (5,580
+    volumes of 64 MiB), timing on, greedy GC, through
+    ``fleetshard.simulate_fleet_hetero`` on the replay kernel, grouped (one
+    launch per scheme) and ungrouped (one launch), every key equal; the CPU
+    subset equal on every key; the kernel timed alone with timing on and
+    off (the off instance equal on every other key). Returns the kernel's
+    ``replay_timing`` row."""
+    import torch
+
+    from repro_torch.core import fleetshard, torchsim
+    from repro_torch.core.config import init_state
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.replay import TIMING_FIELDS
+    base, policy, cells, padded, sub = setup
+    cfg = fleetshard.hetero_config(base, policy)
+    V, T = padded.shape
+    t_phase = time.perf_counter()
+    log(f"[sweep] cut: volumes of {MAIN_N_LBAS} blocks (64 MiB at 4 KiB) at 2 * n_lbas "
+        f"updates, as [main]: the CPU step engine replays the subset's steps in sequence, and "
+        f"the replay kernel's victim scan grows with the volume")
+    log(f"[sweep] {len(cells)} cells ({len(SWEEP_SCHEMES)} schemes x {len(SWEEP_SELECTORS)} "
+        f"selectors x GP {SWEEP_GPS}) x {MAIN_VOLUMES_PER_TILE} = {V} volumes, n_rows "
+        f"{cfg.n_rows}, class slots {cfg.n_class_slots}, steps {T}, writes "
+        f"{int((padded >= 0).sum())}, timing on, greedy GC")
+    runs = {}
+    for group in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, st = fleetshard.simulate_fleet_hetero(padded, cfg, policy, group=group,
+                                                   return_state=True, device="cuda")
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        res["sweep"] = fleetshard.sweep_summary(res, policy, cells)
+        runs[group] = (res, st, wall, counts)
+        writes = res["fleet"]["user_writes"]
+        log(f"[sweep] group={group}: wall {wall:.3f} s (states made, replayed and read back), "
+            f"volume-writes {writes}, volume-writes/s {writes / wall:.1f}, scheme groups "
+            f"{res['fleet']['n_scheme_groups']}, devices {res['fleet']['n_devices']}, launches "
+            f"{counts}, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if counts["replay_timing"] != res["fleet"]["n_scheme_groups"] or any(
+                counts[k] for k in ("replay", "segment_select_batch", "classify_gc")):
+            raise AssertionError("[sweep] did not go through the replay kernel's timing instance")
+        if res["fleet"]["overflow"] != 0:
+            raise AssertionError("[sweep] a volume overflowed its segment pool")
+    (res, final, wall_g, counts), (res_u, final_u, wall_u, _) = runs[True], runs[False]
+    for row in res["sweep"]:
+        log(f"[sweep] {row['scheme']:6s} {row['selector']:12s} gp {row['gp_threshold']:.2f}: WA "
+            f"{row['wa']:.6f}, mean {row['wa_mean']:.6f} +- {row['wa_ci95']:.6f}, p50 "
+            f"{row['lat_p50']:.3f}, p99 {row['lat_p99']:.3f}, max {row['lat_max']:.1f}")
+    bad = _differing_keys(final_u, final)
+    same = res_u["sweep"] == res["sweep"] and res_u["volumes"] == res["volumes"]
+    log(f"[sweep] grouped vs ungrouped: differing keys {bad}, rows equal {same}; walls "
+        f"{wall_g:.3f} s grouped ({counts['replay_timing']} launches), {wall_u:.3f} s ungrouped "
+        f"(1 launch)")
+    if bad or not same:
+        raise AssertionError(f"[sweep] grouped and ungrouped differ: {bad}")
+    check_integrity(cfg, final, [padded[i] for i in range(V)], "[sweep]")
+    _check_conservation("sweep", final, cfg)
+    del runs, res_u, final_u
+    cpu_wall, _ = _check_subset("sweep", final, sub, on_cpu)
+
+    trace = torch.from_numpy(np.ascontiguousarray(padded)).cuda()
+    pol = policy.as_state_arrays()
+    ms = time_replay(cfg, pol, trace, final, reps=SWEEP_TIMED)
+    off = dataclasses.replace(cfg, timing=False)
+    ms_off = time_replay(off, pol, trace, {k: x for k, x in final.items()
+                                            if k not in TIMING_FIELDS}, reps=SWEEP_TIMED)
+    st0 = torchsim.own_state(init_state(cfg, pol, "cuda"))
+    limit = replay_bound(st0, trace, timing=True)
+    limit_off = replay_bound(st0, trace)
+    del st0
+    log(f"[kernels] replay_timing ({V}, {T}): {ms:.3f} ms per replay (median of "
+        f"{SWEEP_TIMED}, fresh states, checks outside), {1e3 * ms / T:.4f} us per step; bound "
+        f"{limit['bound_ms']:.3f} ms ({limit['bound_by']}, {limit['bytes']} bytes) = "
+        f"{ms / limit['bound_ms']:.1f}x; timing off on the same inputs {ms_off:.3f} ms (bound "
+        f"{limit_off['bound_ms']:.3f} ms), on/off {ms / ms_off:.4f}; every other key equal")
+    log(f"[sweep] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"name": "replay_timing", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/replay.cu",
+            "replaces": "src/repro/kernels/segsel.py:150; src/repro/kernels/classify.py:49",
+            "shape": [V, T], "steps": T, "max_abs_err": 0.0, "ms": ms, "ms_per_step": ms / T,
+            "ms_timing_off": ms_off, "plain_ms": 1e3 * cpu_wall, "plain_volumes": sub, **limit,
+            "launches": counts["replay_timing"],
+            "tolerance": "bit-equal on every state key: grouped to ungrouped over all volumes, "
+                         "to the step engine on the CPU (the plain version; plain_ms) over "
+                         "plain_volumes; the timing-off instance on every key but lat_*",
+            "library_ms": None}
+
+
+def _log_latency_rows(part: str, rows) -> None:
+    for r in rows:
+        log(f"[latency] {part} {r['gcsched']:12s} {r['scheme']:6s} WA {r['wa']:.6f} p50 "
+            f"{r['p50']:.3f} p99 {r['p99']:.3f} max {r['max']:.1f} mean {r['mean']:.6f} debt "
+            f"{r['gc_debt']:.1f}")
+
+
+def phase_latency(setup, on_cpu) -> dict:
+    """(a) The committed latency bench (``BENCH_gc_latency.json``: 24
+    volumes, n_lbas 256, segment 32, seed 47, cost-benefit, GP 0.15):
+    nosep / sepgc / sepbit on the replay kernel and fk on the step engine,
+    two calls whose volumes go back in input order; every field of the 12
+    cells and the slo row reproduced. (b) At full width: LATENCY_SCHEDULES x
+    LATENCY_SCHEMES x 186 volumes of 64 MiB on the replay kernel: overflow
+    0, rate_limited's GC writes equal to greedy's volume by volume, the
+    accounting conserved, one volume per cell equal to the CPU on every
+    key. Returns the launches and the kernel's time of (b)."""
+    import torch
+
+    from repro_torch.core import fleetshard
+    from repro_torch.core.config import TorchSimConfig
+    from repro_torch.core.tracegen import tiled_fleet
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    bench = json.loads((Path(__file__).resolve().parent / "BENCH_gc_latency.json").read_text())
+    cells = [(g, sch) for g in bench["gcscheds"] for sch in bench["schemes"]]
+    per, n = bench["volumes_per_cell"], bench["n_lbas"]
+    traces = tiled_fleet(bench["workload"], len(cells), per, n, bench["n_updates"],
+                         jitter=0.25, seed=47)
+    policy = fleetshard.encode_policies(
+        len(cells) * per, schemes=[sch for _, sch in cells for _ in range(per)],
+        selectors=bench["selector"], gp_thresholds=bench["gp_threshold"],
+        gcscheds=[g for g, _ in cells for _ in range(per)])
+    cfg = fleetshard.hetero_config(
+        TorchSimConfig(n_lbas=n, segment_size=bench["segment_size"], timing=True), policy)
+    is_fk = np.asarray([sch == "fk" for _, sch in cells for _ in range(per)])
+    vols = [None] * len(is_fk)
+    ops.reset_launch_counts()
+    for engine, idx in (("replay", np.nonzero(~is_fk)[0]), ("step", np.nonzero(is_fk)[0])):
+        t0 = time.perf_counter()
+        res = fleetshard.simulate_fleet_hetero([traces[i] for i in idx], cfg,
+                                               fleetshard._policy_rows(policy, idx),
+                                               engine=engine, device="cuda")
+        for i, vol in zip(idx, res["volumes"]):
+            vols[i] = vol
+        log(f"[latency] (a) {len(idx)} volumes on engine={engine}: "
+            f"{time.perf_counter() - t0:.2f} s")
+    counts = ops.launch_counts()
+    rows, slo = fleetshard.latency_cells(vols, cells, per, cfg.write_cost)
+    bad = [(r["gcsched"], r["scheme"]) for r, want in zip(rows, bench["cells"]) if r != want]
+    log(f"[latency] (a) the committed latency bench's 12 cells: differing cells {bad}; slo row "
+        f"equal {slo == bench['slo']} ({slo['gcsched']}/{slo['scheme']} p99 {slo['p99']} against "
+        f"{slo['p99_greedy']}); launches {counts}")
+    _log_latency_rows("(a)", rows)
+    if bad or slo != bench["slo"] or 0 in (counts["replay_timing"],
+                                           counts["segment_select_batch"], counts["classify_gc"]):
+        raise AssertionError(f"[latency] (a) the committed cells are not reproduced: {bad}")
+
+    base, policy, cells, padded, sub = setup
+    cfg = fleetshard.hetero_config(base, policy)
+    V, T = padded.shape
+    log(f"[latency] (b) cut: volumes of {MAIN_N_LBAS} blocks (64 MiB at 4 KiB), as [main]")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, final = fleetshard.simulate_fleet_hetero(padded, cfg, policy, return_state=True,
+                                                  device="cuda")
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    writes = res["fleet"]["user_writes"]
+    log(f"[latency] (b) {V} volumes ({len(cells)} cells x {MAIN_VOLUMES_PER_TILE}), n_rows "
+        f"{cfg.n_rows}, steps {T}: wall {wall:.3f} s, volume-writes {writes}, volume-writes/s "
+        f"{writes / wall:.1f}, overflow {res['fleet']['overflow']}, launches {counts}")
+    rows, _ = fleetshard.latency_cells(res["volumes"], cells, MAIN_VOLUMES_PER_TILE,
+                                       cfg.write_cost)
+    _log_latency_rows("(b)", rows)
+    if res["fleet"]["overflow"] != 0 or counts["replay_timing"] != len(LATENCY_SCHEMES):
+        raise AssertionError("[latency] (b) overflowed, or skipped the replay kernel")
+    P = MAIN_VOLUMES_PER_TILE
+    s = len(LATENCY_SCHEMES)
+    same = all(np.array_equal(final["gc_writes"][j * P:(j + 1) * P],
+                              final["gc_writes"][(s + j) * P:(s + j + 1) * P]) for j in range(s))
+    log(f"[latency] (b) rate_limited's GC writes equal greedy's, volume by volume: {same}")
+    if not same:
+        raise AssertionError("[latency] (b) rate_limited made other GC decisions than greedy")
+    check_integrity(cfg, final, [padded[i] for i in range(V)], "[latency]")
+    _check_conservation("latency", final, cfg)
+    _check_subset("latency", final, sub, on_cpu)
+    log(f"[latency] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": counts["replay_timing"], "wall": wall}
+
+
+def phase_sweep_and_latency() -> dict:
+    """[sweep] then [latency], with both CPU subsets replayed from the start
+    in two worker processes beside the card runs. Returns the kernel table's
+    ``replay_timing`` row."""
+    sweep_setup, latency_setup = _sweep_setup(), _latency_setup()
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        sweep_cpu, latency_cpu = _submit_cpu(pool, sweep_setup), _submit_cpu(pool, latency_setup)
+        row = phase_sweep(sweep_setup, sweep_cpu)
+        del sweep_setup
+        row["latency_path"] = phase_latency(latency_setup, latency_cpu)
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1382,10 +1700,11 @@ def main() -> int:
     phase_profile(cfg, st)
     del st
     schemes_rows = phase_schemes()
+    kernels.append(phase_sweep_and_latency())
     launches = {**counts["step"], "segment_select": k2_launches, **analysis_launches,
                 "flash_decode": decode_launches, "replay": counts["replay"]["replay"]}
     for row in kernels:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = row.get("launches", launches.get(row["name"]))
         if row["name"] in schemes_rows:
             row["schemes_path"] = schemes_rows[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -3,9 +3,13 @@
 `TorchSimConfig` has the fields and defaults of the JAX package's
 ``JaxSimConfig`` apart from ``use_kernels`` and ``kernels_interpret``: on the
 port the device of the tensors decides whether a kernel or its plain
-version runs. Values that a later slice of the port brings (the timing
-model, GC scheduling, the legacy engine, grouped dispatch) raise
-`NotImplementedError` naming their ROADMAP item.
+version runs. The legacy GC engine, which a later slice of the port brings,
+raises `NotImplementedError` naming its ROADMAP item.
+
+``scheme_group`` names the schemes a fleet's volumes may run, as in JAX
+(whose grouped dispatch prunes its branch stack to them); a volume outside
+the group is refused. The port dispatches per volume anyway, so the group
+changes no result.
 
 The state is a dict of tensors with the JAX state's keys, the stateful
 schemes' ``sch_<name>_*`` slices included (every volume carries all of
@@ -35,6 +39,9 @@ SELECTOR_IDS = {"greedy": 0, "cost_benefit": 1}
 SELECTOR_NAMES = tuple(SELECTOR_IDS)
 GCSCHED_IDS = {"greedy": 0, "rate_limited": 1, "idle_window": 2}
 GCSCHED_NAMES = tuple(GCSCHED_IDS)
+# latency histogram: quarter-octave log2 buckets of latency / write_cost;
+# bucket b covers [2^(b/4), 2^((b+1)/4)) and quantiles report its lower edge
+LAT_BUCKETS_PER_OCTAVE = 4
 
 POLICY_DTYPES = {
     "p_scheme": torch.int32,
@@ -78,18 +85,14 @@ class TorchSimConfig:
         if self.gc_engine not in ("tick", "legacy"):
             raise ValueError(f"unknown gc_engine {self.gc_engine!r}; choices: tick, legacy")
         scheme_id(self.scheme)
-        if self.timing:
-            raise NotImplementedError(
-                "timing=True is not ported yet; see ROADMAP.md Queue 1 item 6")
-        if self.gc_sched != "greedy":
-            raise NotImplementedError(
-                f"gc_sched={self.gc_sched!r} is not ported yet; see ROADMAP.md Queue 1 item 6")
+        for name in self.scheme_group or ():
+            scheme_id(name)
+        if self.gc_engine == "legacy" and self.gc_sched != "greedy":
+            raise ValueError("GC scheduling policies require the tick engine; "
+                             "the legacy engine is the greedy parity oracle")
         if self.gc_engine == "legacy":
             raise NotImplementedError(
                 "gc_engine='legacy' is not ported yet; see ROADMAP.md Queue 1 item 7")
-        if self.scheme_group is not None:
-            raise NotImplementedError(
-                "scheme_group is not ported yet; see ROADMAP.md Queue 1 item 5")
 
     @property
     def n_classes(self) -> int:
@@ -127,6 +130,9 @@ class TorchSimConfig:
 
 def default_policy(cfg: TorchSimConfig) -> dict:
     """Per-volume policy values equivalent to the knobs in ``cfg``."""
+    if cfg.scheme_group is not None and cfg.scheme not in cfg.scheme_group:
+        raise ValueError(f"scheme {cfg.scheme!r} is outside this config's "
+                         f"dispatch group {cfg.scheme_group}")
     return {
         "p_scheme": SCHEME_IDS[cfg.scheme],
         "p_selector": SELECTOR_IDS[cfg.selector],
@@ -150,11 +156,15 @@ def _policy_tensors(cfg: TorchSimConfig, policy: dict | None, device) -> dict:
     sizes = {x.numel() for x in out.values()}
     if len(sizes) != 1:
         raise ValueError(f"policy arrays differ in length: {sorted(sizes)}")
-    check_ids(torch.unique(out["p_scheme"]).tolist())
-    if bool((out["p_gcsched"] != GCSCHED_IDS["greedy"]).any()):
-        raise NotImplementedError(
-            "GC scheduling policies other than greedy are not ported yet; "
-            "see ROADMAP.md Queue 1 item 6")
+    ids = torch.unique(out["p_scheme"]).tolist()
+    check_ids(ids)
+    outside = [SCHEME_NAMES[i] for i in ids
+               if cfg.scheme_group is not None and SCHEME_NAMES[i] not in cfg.scheme_group]
+    if outside:
+        raise ValueError(f"policy schemes {outside} are outside this config's "
+                         f"dispatch group {cfg.scheme_group}")
+    if not set(torch.unique(out["p_gcsched"]).tolist()) <= set(range(len(GCSCHED_NAMES))):
+        raise ValueError(f"unknown GC scheduling policy id; choices: {GCSCHED_NAMES}")
     if bool((out["p_classes"] > cfg.n_class_slots).any()):
         raise ValueError(f"a policy uses more classes than cfg.n_class_slots "
                          f"= {cfg.n_class_slots}; set class_slots")

@@ -10,9 +10,14 @@ no host sync.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from .placement.schemes import SCHEMES
+
+IDLE_WINDOW = 2     # config.GCSCHED_IDS["idle_window"]
 
 
 def own_state(state: dict) -> dict:
@@ -46,9 +51,16 @@ class Consts:
 
     ``p_scheme`` (the state's (V,) scheme ids) is read once, to learn which
     stateful schemes the fleet runs (``stateful``, their ids in table
-    order) and which volumes run each (``member[sid]``, (V,) bool)."""
+    order) and which volumes run each (``member[sid]``, (V,) bool).
+    ``p_gcsched`` is read once, to learn whether some volume runs
+    idle_window (``idle_window``), whose defer predicate the GC loop then
+    evaluates.
 
-    def __init__(self, cfg, V: int, device, p_scheme=None):
+    ``f32`` holds the timing model's float32 constants as tensors, so that
+    the card divides by a tensor as the CPU does (CUDA divides by a Python
+    number through its reciprocal)."""
+
+    def __init__(self, cfg, V: int, device, p_scheme=None, p_gcsched=None):
         R, s, C, n = cfg.n_rows, cfg.segment_size, cfg.n_class_slots, cfg.n_lbas
         i32 = {"dtype": torch.int32, "device": device}
         self.vol = torch.arange(V, device=device)
@@ -73,6 +85,11 @@ class Consts:
         ids = [] if p_scheme is None else sorted(int(i) for i in torch.unique(p_scheme).tolist())
         self.stateful = tuple(i for i in ids if SCHEMES[i].elementwise is None)
         self.member = {i: p_scheme == i for i in self.stateful}
+        self.idle_window = p_gcsched is not None and bool((p_gcsched == IDLE_WINDOW).any())
+        self.f32 = {name: torch.tensor(np.float32(x), device=device) for name, x in (
+            ("write_cost", cfg.write_cost), ("gc_block_cost", cfg.gc_block_cost),
+            ("charge_cap", cfg.gc_rate * cfg.gc_block_cost), ("idle_density", cfg.idle_density),
+            ("ln2", math.log(2.0)))}
 
     def kept(self, x, flat, keep):
         """``flat`` where ``keep``, else the index of ``x``'s spare element."""

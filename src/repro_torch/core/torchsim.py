@@ -17,6 +17,15 @@ bit for bit:
   (class, rank) keys. Volumes that do not trigger are left exactly as they
   were.
 
+With ``cfg.timing`` the timing model of ``jaxsim`` runs beside it: each
+user write's latency (`_user_write`) into the ``lat_*`` keys, each rewrite's
+GC time booked as debt (`_gc_once`), and the debt charged to the device's
+busy horizon after the step's GC (`_charge_gc`). The per-volume GC schedule
+``p_gcsched`` decides when: greedy and idle_window charge it all at once,
+rate_limited at most ``gc_rate`` blocks' worth per step; idle_window also
+defers GC while the write density is high and the free pool above its
+watermark (`_gc_deferred`), with timing on or off, as in JAX.
+
 Every registered scheme runs here: the five elementwise schemes through the
 classify kernel, the nine stateful ones (fk, dac, ml, sfs, eti, mq, sfr,
 fadac, warcip) through `placement.stateful`, each on its own volumes and
@@ -51,7 +60,9 @@ from ..kernels.replay import replay as replay_kernel
 from ..kernels.segsel import segment_select, segment_select_batch
 from .annotate import coerce_fleet_annotations, fleet_annotations
 from .config import (
+    GCSCHED_IDS,
     GCSCHED_NAMES,
+    LAT_BUCKETS_PER_OCTAVE,
     SCHEME_NAMES,
     SELECTOR_NAMES,
     TorchSimConfig,
@@ -171,12 +182,35 @@ def _user_write(cfg: TorchSimConfig, st: dict, lbas, active, k: Consts, nxt=None
     a = np.float32(1.0 / cfg.density_window)
     dens = st["lat_dens"] * float(np.float32(1.0) - a) + float(a)
     st["lat_dens"] = dens if active is None else torch.where(active, dens, st["lat_dens"])
+    if cfg.timing:
+        _user_latency(cfg, st, active, one, k)
     st["t"] = t + one
     st["total_occ"] = st["total_occ"] + one
     st["total_valid"] = st["total_valid"] + (one - had_old_i)
     st["user_writes"] = st["user_writes"] + one
     st["overflow"] = st["overflow"] + (sealed & (fresh == pad)).to(torch.int32)
     _add(st["class_user"], cls_flat, one)
+
+
+def _keep(new, old, active):
+    return new if active is None else torch.where(active, new, old)
+
+
+def _user_latency(cfg: TorchSimConfig, st: dict, active, one, k: Consts):
+    """The timing model's part of a user write (closed loop): the write
+    arrives when the previous one completed (``lat_now``), waits for any
+    charged GC work still on the device (``lat_busy``), then takes
+    ``write_cost``; its latency goes into the sums and the histogram. The
+    bucket's log2 is ``log(x) / log(2)`` in float32, as JAX computes it."""
+    wc = k.f32["write_cost"]
+    arrive = st["lat_now"]
+    latency = torch.clamp(st["lat_busy"] - arrive, min=0.0) + wc
+    log2 = torch.log(latency / wc) / k.f32["ln2"]
+    bucket = torch.clamp(torch.floor(LAT_BUCKETS_PER_OCTAVE * log2), 0, cfg.lat_buckets - 1)
+    st["lat_now"] = _keep(arrive + latency, arrive, active)
+    st["lat_sum"] = _keep(st["lat_sum"] + latency, st["lat_sum"], active)
+    st["lat_max"] = _keep(torch.maximum(st["lat_max"], latency), st["lat_max"], active)
+    _add(st["lat_hist"], k.base(cfg.lat_buckets) + bucket.to(torch.int64), one)
 
 
 def _gc_bookkeeping(st, vrow, do, k: Consts):
@@ -300,6 +334,36 @@ def _gc_once(cfg: TorchSimConfig, st: dict, victims, do, k: Consts):
     st["gc_writes"] = st["gc_writes"] + k_total * do
     st["reclaimed"] = st["reclaimed"] + do.to(torch.int32)
     st["class_gc"] = st["class_gc"] + per_cls * doc
+    if cfg.timing:
+        # the rewrite's device time, booked as debt (charged after the step)
+        debt = st["lat_debt"] + k_total.to(torch.float32) * k.f32["gc_block_cost"]
+        st["lat_debt"] = torch.where(do, debt, st["lat_debt"])
+
+
+def _gc_deferred(cfg: TorchSimConfig, st: dict, k: Consts):
+    """idle_window's defer predicate per volume, evaluated on every GC
+    iteration: skip GC while the write-density EWMA is above
+    ``idle_density``, unless the free rows have fallen below the watermark.
+    False for the other schedules."""
+    idle = st["p_gcsched"] == GCSCHED_IDS["idle_window"]
+    hot = st["lat_dens"] > k.f32["idle_density"]
+    free_rows = (st["seg_state"] == 0).sum(1, dtype=torch.int32)
+    return idle & hot & (free_rows >= cfg.watermark_rows)
+
+
+def _charge_gc(cfg: TorchSimConfig, st: dict, active, k: Consts):
+    """Move the GC debt onto the busy horizon at the end of a step (in
+    place): all of it, or for rate_limited volumes at most ``gc_rate *
+    gc_block_cost``, the rest carried. A volume on a pad step (``active``
+    False) is left as it was. Conservation: ``lat_charged + lat_debt ==
+    gc_writes * gc_block_cost``."""
+    debt = st["lat_debt"]
+    limited = st["p_gcsched"] == GCSCHED_IDS["rate_limited"]
+    charge = torch.where(limited, torch.minimum(debt, k.f32["charge_cap"]), debt)
+    busy = torch.maximum(st["lat_busy"], st["lat_now"]) + charge
+    st["lat_busy"] = _keep(busy, st["lat_busy"], active)
+    st["lat_debt"] = _keep(debt - charge, debt, active)
+    st["lat_charged"] = _keep(st["lat_charged"] + charge, st["lat_charged"], active)
 
 
 def _select_victims_fleet(st):
@@ -320,12 +384,15 @@ def fleet_gc_tick(cfg: TorchSimConfig, st: dict, k: Consts, step_active=None, se
     Each tick selects a victim per volume (``select``; the batched segsel
     kernel by default) and rewrites it where the volume triggers; volumes
     below threshold, stalled (no eligible victim) or on a pad step
-    (``step_active`` False) are left as they were. Per volume this is the
-    single-volume GC loop's iteration sequence, so fleets match single runs."""
+    (``step_active`` False) are left as they were, and so are idle_window
+    volumes while `_gc_deferred`. Per volume this is the single-volume GC
+    loop's iteration sequence, so fleets match single runs."""
     select = select or _select_victims_fleet
     stalled = torch.zeros_like(st["t"], dtype=torch.bool)
     for i in range(cfg.max_gc_per_step):
         need = (_gp(st) > st["p_gp"]) & ~stalled
+        if k.idle_window:
+            need = need & ~_gc_deferred(cfg, st, k)
         if step_active is not None:
             need = need & step_active
         if stats is not None:
@@ -342,12 +409,15 @@ def fleet_gc_tick(cfg: TorchSimConfig, st: dict, k: Consts, step_active=None, se
 
 def fleet_step(cfg: TorchSimConfig, st: dict, lbas, masked: bool, k: Consts, select=None,
                stats: ReplayStats | None = None, nxt=None, sfs_refresh=None):
-    """One user write per volume, then the fleet's GC ticks (in place).
-    With ``masked``, pad entries (-1) of ``lbas`` are exact no-ops. ``nxt``
-    and ``sfs_refresh``: see `_user_write`."""
+    """One user write per volume, then the fleet's GC ticks and, with the
+    timing model, the GC time's charge (in place). With ``masked``, pad
+    entries (-1) of ``lbas`` are exact no-ops. ``nxt`` and ``sfs_refresh``:
+    see `_user_write`."""
     active = lbas >= 0 if masked else None
     _user_write(cfg, st, lbas, active, k, nxt, sfs_refresh)
     fleet_gc_tick(cfg, st, k, active, select, stats)
+    if cfg.timing:
+        _charge_gc(cfg, st, active, k)
     if stats is not None:
         stats.steps += 1
 
@@ -379,7 +449,7 @@ def step_replay(cfg: TorchSimConfig, st: dict, trace, stats: ReplayStats | None 
     V, T = trace.shape
     masked = bool((trace < 0).any())
     lbas_tv = trace.t().contiguous().to(torch.int64)
-    k = Consts(cfg, V, st["t"].device, st["p_scheme"])
+    k = Consts(cfg, V, st["t"].device, st["p_scheme"], st["p_gcsched"])
     nxt_tv = None
     if any(SCHEME_REQUIRES_FUTURE[sid] for sid in k.stateful):
         if nxt is None:
@@ -492,12 +562,41 @@ def run_fleet(cfg: TorchSimConfig, traces, policies: dict | None = None, device=
                    engine, _select_victims_fleet, nxts)
 
 
+def hist_quantile(hist, q: float, write_cost: float = 1.0) -> float:
+    """The q-quantile latency of a quarter-octave histogram: its bucket's
+    lower edge, so an all-bucket-0 histogram gives ``write_cost`` exactly."""
+    hist = np.asarray(hist)
+    total = int(hist.sum())
+    if total == 0:
+        return 0.0
+    target = int(np.ceil(q * total))
+    idx = int(np.searchsorted(np.cumsum(hist), target))
+    return float(write_cost * 2.0 ** (idx / LAT_BUCKETS_PER_OCTAVE))
+
+
+def latency_summary(cfg: TorchSimConfig, st: dict) -> dict:
+    """Foreground-latency figures of one volume's final state (numpy)."""
+    user = int(st["user_writes"])
+    hist = np.asarray(st["lat_hist"])
+    return {
+        "p50": hist_quantile(hist, 0.50, cfg.write_cost),
+        "p99": hist_quantile(hist, 0.99, cfg.write_cost),
+        "max": float(st["lat_max"]),
+        "mean": float(st["lat_sum"]) / max(user, 1),
+        "total": float(st["lat_sum"]),
+        "gc_time_charged": float(st["lat_charged"]),
+        "gc_debt": float(st["lat_debt"]),
+        "write_cost": cfg.write_cost,
+        "hist": hist.tolist(),
+    }
+
+
 def _summary(cfg: TorchSimConfig, st: dict) -> dict:
     """Summary of one volume's final state (numpy arrays, no volume axis)."""
     user = int(st["user_writes"])
     gc_writes = int(st["gc_writes"])
     overflow = int(st["overflow"])
-    return {
+    out = {
         "scheme": SCHEME_NAMES[int(st["p_scheme"])],
         "selector": SELECTOR_NAMES[int(st["p_selector"])],
         "gp_threshold": float(st["p_gp"]),
@@ -513,16 +612,21 @@ def _summary(cfg: TorchSimConfig, st: dict) -> dict:
         "class_user_writes": np.asarray(st["class_user"]).tolist(),
         "class_gc_writes": np.asarray(st["class_gc"]).tolist(),
     }
+    if cfg.timing:
+        out["latency"] = latency_summary(cfg, st)
+    return out
 
 
 def summarize_fleet(cfg: TorchSimConfig, st: dict, n_volumes: int) -> dict:
-    """Per-volume summaries and the fleet aggregate from a batched state."""
-    st = state_to_numpy(st)
+    """Per-volume summaries and the fleet aggregate from a batched state
+    (tensors, or numpy arrays)."""
+    if isinstance(st["t"], torch.Tensor):
+        st = state_to_numpy(st)
     vols = [_summary(cfg, {k: x[i] for k, x in st.items()}) for i in range(n_volumes)]
     user = sum(r["user_writes"] for r in vols)
     gc = sum(r["gc_writes"] for r in vols)
     overflow = sum(r["overflow"] for r in vols)
-    return {"volumes": vols, "fleet": {
+    fleet = {
         "n_volumes": n_volumes,
         "user_writes": user,
         "gc_writes": gc,
@@ -531,7 +635,18 @@ def summarize_fleet(cfg: TorchSimConfig, st: dict, n_volumes: int) -> dict:
         "free_exhausted": overflow,
         "degraded": overflow > 0,
         "per_volume_wa": [r["wa"] for r in vols],
-    }}
+    }
+    if cfg.timing:
+        # fleet quantiles from the merged histogram (per-volume p99s do not average)
+        hist = np.asarray(st["lat_hist"])[:n_volumes].sum(axis=0)
+        fleet["latency"] = {
+            "p50": hist_quantile(hist, 0.50, cfg.write_cost),
+            "p99": hist_quantile(hist, 0.99, cfg.write_cost),
+            "max": max((r["latency"]["max"] for r in vols), default=0.0),
+            "mean": sum(r["latency"]["total"] for r in vols) / max(user, 1),
+            "gc_debt": sum(r["latency"]["gc_debt"] for r in vols),
+        }
+    return {"volumes": vols, "fleet": fleet}
 
 
 def simulate_fleet(traces, cfg: TorchSimConfig, policies: dict | None = None,

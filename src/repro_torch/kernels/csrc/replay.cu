@@ -59,6 +59,25 @@
 // is read 32 steps at a time by the warp; the per-step GC iteration count
 // goes to a (T,) buffer with atomicMax, so the host learns the tick counts
 // with one read after the launch.
+//
+// The timing model and the GC schedules (jaxsim's cfg.timing and p_gcsched;
+// torchsim._user_latency, _gc_deferred, _charge_gc) come in two template
+// flags, so that the instance with both off is the code above:
+//   kTiming: per user write, the latency (closed loop: wait for the charged
+//     GC work, then write_cost) into lat_now, lat_sum, lat_max and the
+//     histogram, whose bucket is floor(4 * logf(x) / ln 2) as the plain
+//     version computes it; per rewrite, k_total * gc_block_cost added to the
+//     debt; after each real step's GC loop, the charge (all of the debt, or
+//     at most charge_cap for rate_limited volumes);
+//   kDefer (some volume runs idle_window): for idle_window volumes, the
+//     defer predicate (write density above idle_density and free rows at or
+//     above the watermark) joins the GC loop's guard. The free rows are a
+//     per-warp count, made once at the start and kept as rows are promoted
+//     and released, not a scan per GC iteration.
+// Every float op is a round-to-nearest intrinsic and the build has no fused
+// multiply-add, so the lat_* keys equal the plain version's bit for bit
+// (logf can differ from the CPU's log by an ulp: only a latency within an
+// ulp of a bucket edge would see it).
 
 #include <cuda_runtime.h>
 
@@ -96,11 +115,19 @@ struct ReplayArgs {
   int* class_user;
   int* class_gc;
   float* lat_dens;
+  float* lat_now;
+  float* lat_busy;
+  float* lat_debt;
+  float* lat_charged;
+  float* lat_sum;
+  float* lat_max;
+  int* lat_hist;        // (V, lat_buckets)
   const int* p_scheme;
   const int* p_selector;
   const float* p_gp;
   const int* p_ncw;
   const int* p_classes;
+  const int* p_gcsched;
   const int* trace;     // (V, T), -1 = pad step
   int* iterations;      // (T,), zeroed by the caller
   int n_volumes;
@@ -112,6 +139,15 @@ struct ReplayArgs {
   int max_gc;
   float dens_keep;      // 1 - 1/density_window, float32
   float dens_add;       // 1/density_window, float32
+  int timing;           // cfg.timing: the kTiming instance
+  int defer;            // some volume runs idle_window: the kDefer instance
+  float write_cost;     // the timing model's float32 constants
+  float gc_block_cost;
+  float charge_cap;     // float32(gc_rate * gc_block_cost)
+  float idle_density;
+  float ln2;            // float32(log 2)
+  int watermark_rows;
+  int lat_buckets;
 };
 
 namespace {
@@ -119,6 +155,8 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxClasses = 32;   // one lane per class slot
 constexpr int kScanRows = 4;      // rows each lane loads per round of a free-row scan
+constexpr int kRateLimited = 1;   // config.GCSCHED_IDS
+constexpr int kIdleWindow = 2;
 
 // One volume's arrays.
 struct Volume {
@@ -201,6 +239,16 @@ __device__ __forceinline__ int select_victim(const Volume& vol, int n_rows, int 
   return best == -INFINITY ? -1 : best_i;
 }
 
+// Rows with state 0 (free) of one volume, summed across the warp.
+__device__ __forceinline__ int count_free_rows(const int* state, int n_rows) {
+  int count = 0;
+  for (int j = threadIdx.x; j < n_rows; j += 32) count += state[j] == 0 ? 1 : 0;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) count += __shfl_xor_sync(kFull, count, off);
+  return count;
+}
+
+template <bool kTiming, bool kDefer>
 __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
   extern __shared__ int smem[];
   const int s = a.seg_size, R = a.n_rows, C = a.n_classes, pad = R - 1;
@@ -226,6 +274,21 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
   const int scheme = a.p_scheme[v], selector = a.p_selector[v], ncw = a.p_ncw[v];
   const int live_classes = a.p_classes[v];
   const float gp_limit = a.p_gp[v];
+  // the timing model's per-volume scalars and the GC schedule
+  const int sched = (kTiming || kDefer) ? a.p_gcsched[v] : 0;
+  float lat_now = 0.0f, lat_busy = 0.0f, lat_debt = 0.0f, lat_charged = 0.0f;
+  float lat_sum = 0.0f, lat_max = 0.0f;
+  int* const lat_hist = a.lat_hist + static_cast<long long>(v) * a.lat_buckets;
+  if (kTiming) {
+    lat_now = a.lat_now[v];
+    lat_busy = a.lat_busy[v];
+    lat_debt = a.lat_debt[v];
+    lat_charged = a.lat_charged[v];
+    lat_sum = a.lat_sum[v];
+    lat_max = a.lat_max[v];
+  }
+  const bool deferring = kDefer && sched == kIdleWindow;
+  int free_rows = deferring ? count_free_rows(vol.state, R) : 0;
   // lane c holds class slot c's open segment and counters
   const long long cls0 = static_cast<long long>(v) * C;
   const bool has_class = lane < C;
@@ -279,8 +342,24 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
         }
         if (lane == cls) open_sid = fresh;
         overflow += fresh == pad ? 1 : 0;
+        if (deferring) free_rows -= fresh == pad ? 0 : 1;
       }
       lat_dens = __fadd_rn(__fmul_rn(lat_dens, a.dens_keep), a.dens_add);
+      if (kTiming) {   // torchsim._user_latency
+        const float arrive = lat_now;
+        const float latency = __fadd_rn(fmaxf(__fsub_rn(lat_busy, arrive), 0.0f), a.write_cost);
+        // a write that waited for nothing has the ratio 1 and bucket 0
+        // (logf(1) is exactly 0): most writes skip the logarithm
+        float b = 0.0f;
+        if (latency != a.write_cost) {
+          const float log2 = __fdiv_rn(logf(__fdiv_rn(latency, a.write_cost)), a.ln2);
+          b = fminf(fmaxf(floorf(__fmul_rn(4.0f, log2)), 0.0f), __int2float_rn(a.lat_buckets - 1));
+        }
+        lat_now = __fadd_rn(arrive, latency);
+        lat_sum = __fadd_rn(lat_sum, latency);
+        lat_max = fmaxf(lat_max, latency);
+        if (lane == 0) atomicAdd(&lat_hist[__float2int_rz(b)], 1);
+      }
       t += 1;
       total_occ += 1;
       total_valid += had_old ? 0 : 1;
@@ -294,6 +373,7 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
         const float occ = __int2float_rn(max(total_occ, 1));
         const float gp = __fsub_rn(1.0f, __fdiv_rn(__int2float_rn(total_valid), occ));
         if (!(gp > gp_limit)) break;
+        if (deferring && lat_dens > a.idle_density && free_rows >= a.watermark_rows) break;
         ++iters;
         const int victim = select_victim(vol, R, t, selector, lane);
         if (victim < 0) break;    // stalled for the rest of this step
@@ -391,6 +471,10 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
                                             (free_row == pad && took2 > 0));
         overflow += __popc(
             __ballot_sync(kFull, has_class && free_row == pad && (took2 > 0 || sealed)));
+        if (deferring) {   // the free rows promoted, and the victim released below
+          free_rows -= __popc(__ballot_sync(kFull, sealed && free_row != pad));
+          free_rows += victim == pad ? 0 : 1;
+        }
         if (sealed) open_sid = free_row;
         const bool cap_pad = __any_sync(kFull, pad_fill);
         __syncwarp();
@@ -409,8 +493,17 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
         gc_writes += k_total;
         reclaimed += 1;
         class_gc += per_cls;
+        if (kTiming) {   // the rewrite's device time, booked as debt
+          lat_debt = __fadd_rn(lat_debt, __fmul_rn(__int2float_rn(k_total), a.gc_block_cost));
+        }
       }
       if (lane == 0 && iters > 0) atomicMax(&a.iterations[base + k], iters);
+      if (kTiming) {   // torchsim._charge_gc, after the step's GC loop
+        const float charge = sched == kRateLimited ? fminf(lat_debt, a.charge_cap) : lat_debt;
+        lat_busy = __fadd_rn(fmaxf(lat_busy, lat_now), charge);
+        lat_debt = __fsub_rn(lat_debt, charge);
+        lat_charged = __fadd_rn(lat_charged, charge);
+      }
     }
   }
 
@@ -426,6 +519,14 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
     a.ell[v] = ell;
     a.ell_tot[v] = ell_tot;
     a.lat_dens[v] = lat_dens;
+    if (kTiming) {
+      a.lat_now[v] = lat_now;
+      a.lat_busy[v] = lat_busy;
+      a.lat_debt[v] = lat_debt;
+      a.lat_charged[v] = lat_charged;
+      a.lat_sum[v] = lat_sum;
+      a.lat_max[v] = lat_max;
+    }
   }
   if (has_class) {
     a.open_sid[cls0 + lane] = open_sid;
@@ -450,7 +551,16 @@ extern "C" int replay_limits(int* max_seg_size, int* max_classes) {
 extern "C" int replay_launch(const ReplayArgs* args, void* stream) {
   if (args->n_volumes > 0) {
     const size_t smem = sizeof(int) * (kMaxClasses + 2 * args->seg_size) + args->seg_size;
-    replay_kernel<<<args->n_volumes, 32, smem, static_cast<cudaStream_t>(stream)>>>(*args);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (args->timing && args->defer) {
+      replay_kernel<true, true><<<args->n_volumes, 32, smem, st>>>(*args);
+    } else if (args->timing) {
+      replay_kernel<true, false><<<args->n_volumes, 32, smem, st>>>(*args);
+    } else if (args->defer) {
+      replay_kernel<false, true><<<args->n_volumes, 32, smem, st>>>(*args);
+    } else {
+      replay_kernel<false, false><<<args->n_volumes, 32, smem, st>>>(*args);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,8 +23,9 @@ _COUNTERS = (_segsel.launches, _classify.launches, _zipfprob.launches, _decode_a
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset: per entry point for segsel, per
-    call site for classify (``classify_gc``, ``classify_user``), and one
-    count each for ``zipf_bit_sums``, ``flash_decode`` and ``replay``."""
+    call site for classify (``classify_gc``, ``classify_user``), one count
+    each for ``zipf_bit_sums`` and ``flash_decode``, and for the replay
+    kernel ``replay`` (timing model off) and ``replay_timing`` (on)."""
     return {k: n for counts in _COUNTERS for k, n in counts.items()}
 
 

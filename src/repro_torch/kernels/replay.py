@@ -6,34 +6,44 @@ with victim selection and GC classification inside). The kernel's plain
 version is the step engine of `core.torchsim` (`_user_write` and
 `fleet_gc_tick` once per lockstep step), which `torchsim` runs for a state
 on the CPU; this wrapper takes only CUDA tensors and raises on any other.
-There is no fallback from one to the other. The kernel takes the five
-elementwise schemes; a fleet with a stateful one is refused
+There is no fallback from one to the other. With ``cfg.timing`` the kernel
+runs the timing model (its ``lat_*`` keys), and for idle_window volumes the
+GC schedule's deferral, as the step engine does; each is an instance of the
+kernel of its own, so the instance with both off runs none of it. The kernel
+takes the five elementwise schemes; a fleet with a stateful one is refused
 (`NotImplementedError` naming ROADMAP Queue 1 item 4b), never handed to the
 step engine, which runs it under ``engine="step"``. ``launches`` counts the
-kernel's launches.
+kernel's launches: ``replay`` with the timing model off, ``replay_timing``
+with it on.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
 
-from ..core.config import TorchSimConfig, state_spec
+from ..core.config import GCSCHED_IDS, TorchSimConfig, state_spec
 from ..core.placement.schemes import require_elementwise
 from . import build
 
-launches = {"replay": 0}
+launches = {"replay": 0, "replay_timing": 0}   # the timing model's instances apart
 
 # the state keys the kernel reads or writes, in the order of ReplayArgs in
-# csrc/replay.cu; the other keys (the timing model's, p_gcsched, the stateful
-# schemes' sch_*) it leaves alone
+# csrc/replay.cu; the stateful schemes' sch_* keys it leaves alone. The
+# timing model's keys (TIMING_FIELDS) it touches only with cfg.timing, and
+# p_gcsched only then or when some volume runs idle_window
+TIMING_FIELDS = ("lat_now", "lat_busy", "lat_debt", "lat_charged", "lat_sum", "lat_max",
+                 "lat_hist")
 STATE_FIELDS = ("seg_lba", "seg_utime", "seg_valid", "seg_n", "seg_nvalid", "seg_cls",
                 "seg_state", "seg_ctime", "seg_stime", "open_sid", "loc_seg", "loc_off",
                 "last_uw", "t", "total_occ", "total_valid", "user_writes", "gc_writes",
                 "reclaimed", "overflow", "ell", "ell_tot", "nc", "class_user", "class_gc",
-                "lat_dens", "p_scheme", "p_selector", "p_gp", "p_ncw", "p_classes")
+                "lat_dens", *TIMING_FIELDS, "p_scheme", "p_selector", "p_gp", "p_ncw",
+                "p_classes", "p_gcsched")
+IDLE_WINDOW = GCSCHED_IDS["idle_window"]
 
 
 class ReplayArgs(ctypes.Structure):
@@ -42,19 +52,25 @@ class ReplayArgs(ctypes.Structure):
                 + [(name, ctypes.c_int) for name in ("n_volumes", "n_steps", "n_rows",
                                                      "seg_size", "n_classes", "n_lbas",
                                                      "max_gc")]
-                + [("dens_keep", ctypes.c_float), ("dens_add", ctypes.c_float)])
+                + [("dens_keep", ctypes.c_float), ("dens_add", ctypes.c_float),
+                   ("timing", ctypes.c_int), ("defer", ctypes.c_int)]
+                + [(name, ctypes.c_float) for name in ("write_cost", "gc_block_cost",
+                                                       "charge_cap", "idle_density", "ln2")]
+                + [("watermark_rows", ctypes.c_int), ("lat_buckets", ctypes.c_int)])
 
 
 _SIGNATURES = {"replay_launch": [ctypes.POINTER(ReplayArgs), ctypes.c_void_p],
                "replay_limits": [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]}
 
 
-def check_inputs(cfg: TorchSimConfig, st: dict, trace) -> None:
+def check_inputs(cfg: TorchSimConfig, st: dict, trace) -> bool:
     """Raise unless every state key is a contiguous tensor of its dtype and
     shape for ``cfg`` with one leading volume axis, ``trace`` a contiguous
     (V, T) int32 tensor of LBAs in [-1, n_lbas) (-1: a pad step) on the same
     device, every volume's scheme elementwise, that device CUDA, and the
-    segment size and class slots within the kernel's limits."""
+    segment size and class slots within the kernel's limits. Returns whether
+    some volume runs idle_window (`launch`'s ``defer``), read here with the
+    other checks so that the launch itself makes no host sync."""
     if not isinstance(trace, torch.Tensor) or trace.dtype != torch.int32 or trace.dim() != 2:
         raise TypeError("trace must be a (V, T) int32 tensor")
     V = trace.shape[0]
@@ -86,25 +102,32 @@ def check_inputs(cfg: TorchSimConfig, st: dict, trace) -> None:
     if cfg.segment_size > max_seg.value or cfg.n_class_slots > max_cls.value:
         raise ValueError(f"the replay kernel takes segment_size <= {max_seg.value} and at most "
                          f"{max_cls.value} class slots")
+    return bool((st["p_gcsched"] == IDLE_WINDOW).any())
 
 
-def launch(cfg: TorchSimConfig, st: dict, trace, iterations) -> None:
+def launch(cfg: TorchSimConfig, st: dict, trace, iterations, defer: bool) -> None:
     """One launch of the kernel on inputs that passed `check_inputs`, with a
     zeroed (T,) int32 ``iterations`` buffer on the card that receives, per
-    step, the most GC iterations any volume ran. No host sync."""
+    step, the most GC iterations any volume ran, and ``defer`` as
+    `check_inputs` returned it. No host sync."""
     V, T = trace.shape
     device = trace.device
     a = np.float32(1.0 / cfg.density_window)
+    f32 = [float(np.float32(x)) for x in (cfg.write_cost, cfg.gc_block_cost,
+                                          cfg.gc_rate * cfg.gc_block_cost, cfg.idle_density,
+                                          math.log(2.0))]
     args = ReplayArgs(*(st[key].data_ptr() for key in STATE_FIELDS), trace.data_ptr(),
                       iterations.data_ptr(), V, T, cfg.n_rows, cfg.segment_size,
                       cfg.n_class_slots, cfg.n_lbas, cfg.max_gc_per_step,
-                      float(np.float32(1.0) - a), float(a))
+                      float(np.float32(1.0) - a), float(a), int(cfg.timing), int(defer),
+                      *f32, cfg.watermark_rows, cfg.lat_buckets)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = build.library("replay", _SIGNATURES).replay_launch(ctypes.byref(args), stream)
     if err != 0:
         raise RuntimeError(f"replay kernel launch failed with CUDA error {err}")
-    launches["replay"] += 1 if V else 0     # the C side launches nothing for no volumes
+    # the C side launches nothing for no volumes
+    launches["replay_timing" if cfg.timing else "replay"] += 1 if V else 0
 
 
 def replay(cfg: TorchSimConfig, st: dict, trace, stats=None) -> None:
@@ -115,9 +138,9 @@ def replay(cfg: TorchSimConfig, st: dict, trace, stats=None) -> None:
     loop ran and the fleet's tick iterations (per step, the most any volume
     ran), as the step engine counts them; they come back with one read after
     the launch, the replay's only host sync."""
-    check_inputs(cfg, st, trace)
+    defer = check_inputs(cfg, st, trace)
     iterations = torch.zeros(trace.shape[1], dtype=torch.int32, device=trace.device)
-    launch(cfg, st, trace, iterations)
+    launch(cfg, st, trace, iterations, defer)
     if stats is not None:
         per_step = iterations.cpu()
         stats.steps += trace.shape[1]

@@ -83,7 +83,8 @@ def test_cuda_kernels_match_plain_versions(card):
                        tref.classify_ref(uv, z, z, z, uell, usids))
     assert ops.launch_counts() == {"segment_select_batch": 1, "segment_select": 1,
                                    "classify_gc": 1, "classify_user": 1,
-                                   "zipf_bit_sums": 0, "flash_decode": 0, "replay": 0}
+                                   "zipf_bit_sums": 0, "flash_decode": 0, "replay": 0,
+                                   "replay_timing": 0}
 
 
 def test_card_fleet_matches_cpu_fleet(card):
@@ -527,3 +528,87 @@ def test_replay_kernel_refuses_a_stateful_fleet(card):
     with pytest.raises(NotImplementedError, match="item 4b"):
         torchsim.run_fleet(cfg, traces, pol, device=card)
     assert ops.launch_counts()["replay"] == 0
+
+
+# -- the timing model and the GC schedules (replay kernel, step engine) ---------
+
+SCHEDULES = {"greedy": [0] * 7, "rate_limited": [1] * 7, "idle_window": [2] * 7,
+             "mixed": [0, 1, 2, 0, 1, 2, 2]}
+
+
+@pytest.mark.parametrize("costs", [(1.0, 1.0), (0.7, 1.3)])
+@pytest.mark.parametrize("sched", list(SCHEDULES))
+def test_replay_kernel_timing_matches_step_engine_and_cpu(card, sched, costs):
+    """With the timing model on, each GC schedule (and a fleet mixing them),
+    unequal lengths with pad steps, a stalling volume and non-unit costs:
+    the replay kernel, the step engine on the card and the step engine on
+    the CPU end bit-equal on every key, lat_* included, with one launch."""
+    cfg, traces, pol = _hetero_fleet(16, n=512, seed=37)
+    cfg = dataclasses.replace(cfg, timing=True, write_cost=costs[0], gc_block_cost=costs[1])
+    pol = dict(pol, p_gcsched=np.asarray(SCHEDULES[sched]))
+    (rep, rstats, rcounts), (step, sstats, _) = _replay_both(cfg, traces, pol, card)
+    cpu = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device="cpu"))
+    assert (cpu["reclaimed"][:6] > 0).any() and cpu["overflow"].sum() == 0
+    assert (cpu["lat_hist"].sum(1) == cpu["user_writes"]).all()
+    np.testing.assert_allclose(cpu["lat_charged"] + cpu["lat_debt"],
+                               cpu["gc_writes"] * np.float32(costs[1]), rtol=1e-3)
+    _assert_same_state(rep, cpu)
+    _assert_same_state(step, cpu)
+    assert (rstats.steps, rstats.gc_ticks, rstats.tick_iterations) == \
+        (sstats.steps, sstats.gc_ticks, sstats.tick_iterations)
+    assert rcounts["replay_timing"] == 1 and rcounts["replay"] == 0
+
+
+def test_replay_kernel_timing_off_leaves_lat_keys_and_decisions(card):
+    """Timing off: every lat_* key but the density EWMA stays at its initial
+    value, and the other keys equal the timing-on greedy replay's (timing
+    only observes greedy and rate_limited GC)."""
+    cfg, traces, pol = _hetero_fleet(16, n=512)
+    off = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device=card))
+    on = convert.state_to_numpy(torchsim.run_fleet(dataclasses.replace(cfg, timing=True),
+                                                   traces, pol, device=card))
+    lat = ("lat_now", "lat_busy", "lat_debt", "lat_charged", "lat_sum", "lat_max", "lat_hist")
+    for key in off:
+        if key in lat:
+            assert not off[key].any(), key
+        else:
+            np.testing.assert_array_equal(off[key], on[key], err_msg=key)
+    assert on["lat_hist"].sum() == on["user_writes"].sum()
+    rate = dict(pol, p_gcsched=np.ones(7))
+    limited = convert.state_to_numpy(torchsim.run_fleet(dataclasses.replace(cfg, timing=True),
+                                                        traces, rate, device=card))
+    assert (limited["gc_writes"] == on["gc_writes"]).all()
+
+
+def test_grouped_sweep_equals_ungrouped_on_the_card(card):
+    """A timing sweep of the elementwise schemes through the replay kernel:
+    grouped (one launch per scheme) equals ungrouped (one launch) and the
+    CPU on every key and every sweep row."""
+    from repro_torch.core import fleetshard
+    from repro_torch.core.tracegen import tiled_fleet
+    args = dict(schemes=["nosep", "sepgc", "sepbit", "uw", "gw"], selectors=["greedy"],
+                gp_thresholds=[0.1, 0.2], gcsched="rate_limited")
+    traces = tiled_fleet("mixed", 10, 2, 512, 3 * 512, jitter=0.25, seed=53)
+    cfg = TorchSimConfig(n_lbas=512, segment_size=16, timing=True)
+    out = {}
+    for name, group, device in (("grouped", True, card), ("ungrouped", False, card),
+                                ("cpu", True, "cpu")):
+        ops.reset_launch_counts()
+        res = fleetshard.simulate_fleet_sweep(traces, cfg, group=group, device=device, **args)
+        out[name] = (res, ops.launch_counts()["replay_timing"])
+    assert out["grouped"][1] == 5 and out["ungrouped"][1] == 1 and out["cpu"][1] == 0
+    for name in ("ungrouped", "cpu"):
+        assert out[name][0]["volumes"] == out["grouped"][0]["volumes"]
+        assert out[name][0]["sweep"] == out["grouped"][0]["sweep"]
+
+
+def test_hetero_replay_refuses_a_stateful_group(card):
+    from repro_torch.core import fleetshard
+    traces = make_fleet("mixed", 4, 256, 512, seed=3)
+    pol = fleetshard.encode_policies(4, schemes=["sepbit", "fk", "sepbit", "nosep"])
+    cfg = TorchSimConfig(n_lbas=256, segment_size=16, timing=True)
+    with pytest.raises(NotImplementedError, match="item 4b"):
+        fleetshard.simulate_fleet_hetero(traces, cfg, pol, device=card)
+    res = fleetshard.simulate_fleet_hetero(traces, cfg, pol, device=card, engine="step")
+    want = fleetshard.simulate_fleet_hetero(traces, cfg, pol, device="cpu")
+    assert res["volumes"] == want["volumes"]

@@ -186,12 +186,22 @@ def test_exhaustion_corner_matches_jax_and_keeps_its_envelope():
     (dict(scheme="warcip"), "item 4b"),
 ])
 def test_unported_config_values_raise(change, item):
-    """Knobs of later slices raise when the config is made; the stateful
-    schemes make a config and run on the step engine, and only the replay
-    kernel refuses them (before any launch, naming its ROADMAP item)."""
-    if "scheme" not in change:
+    """The knobs of items 5 and 6 (timing, GC schedules, scheme groups) make
+    a config that replays equal to JAX; the legacy engine (item 7) still
+    raises when the config is made; the stateful schemes make a config and
+    run on the step engine, and only the replay kernel refuses them (before
+    any launch, naming its ROADMAP item)."""
+    if item == "item 7":
         with pytest.raises(NotImplementedError, match=item):
             TorchSimConfig(n_lbas=N, segment_size=SEG, **change)
+        return
+    if item in ("item 5", "item 6"):
+        jcfg = JaxSimConfig(n_lbas=N, segment_size=SEG, **change)
+        tr = TRACES["hotcold"]
+        ref = jax.device_get(jaxsim._run(jcfg, jnp.asarray(tr), jaxsim.default_policy(jcfg)))
+        got = convert.state_to_numpy(torchsim.run(_port_cfg(jcfg), tr, device="cpu"))
+        assert int(ref["reclaimed"]) > 0
+        _assert_states_equal(got, ref, volume=0)
         return
     cfg = TorchSimConfig(n_lbas=N, segment_size=SEG, **change)
     st = torchsim.own_state(init_state(cfg, device="cpu"))
@@ -209,10 +219,25 @@ def test_unknown_engines_raise(engine):
 
 
 def test_unported_policies_raise():
+    """A fleet with a stateful scheme beside an elementwise one builds its
+    state; per-volume GC schedules (item 6) replay equal to JAX; an unknown
+    schedule id and a scheme outside the config's group raise."""
     cfg = TorchSimConfig(n_lbas=N, segment_size=SEG, class_slots=6)
     pol = {"p_scheme": [2, 4], "p_selector": [0, 0], "p_gp": [0.1, 0.1], "p_ncw": [16, 16],
            "p_classes": [6, 6], "p_gcsched": [0, 0]}
     st = init_state(cfg, pol, device="cpu")       # dac runs: its slice is in the state
     assert st["sch_dac_region"].shape == (2, N) and not st["sch_dac_region"].any()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        init_state(cfg, dict(pol, p_scheme=[2, 2], p_gcsched=[0, 2]), device="cpu")
+    sched = dict(pol, p_scheme=[2, 2], p_classes=[6, 6], p_gcsched=[0, 2])
+    jcfg = JaxSimConfig(n_lbas=N, segment_size=SEG, class_slots=6)
+    traces = np.stack([TRACES["zipf"], TRACES["hotcold"]])
+    ref = jax.device_get(jaxsim._run_fleet(
+        jcfg, jnp.asarray(traces), jnp.full(traces.shape, jaxsim.NOBIT, jnp.int32), False,
+        {k: jnp.asarray(np.asarray(v, np.float32 if k == "p_gp" else np.int32))
+         for k, v in sched.items()}))
+    got = torchsim.run_fleet(_port_cfg(jcfg), traces, sched, device="cpu")
+    _assert_states_equal(convert.state_to_numpy(got), ref)
+    with pytest.raises(ValueError, match="GC scheduling"):
+        init_state(cfg, dict(sched, p_gcsched=[0, 3]), device="cpu")
+    grouped = TorchSimConfig(n_lbas=N, segment_size=SEG, class_slots=6, scheme_group=("dac",))
+    with pytest.raises(ValueError, match="dispatch group"):
+        init_state(grouped, pol, device="cpu")

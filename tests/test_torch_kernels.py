@@ -167,7 +167,8 @@ def test_wrappers_route_cpu_tensors_to_the_plain_versions():
                        tref.classify_ref(v, g, c1, gc, ell, sids))
     assert ops.launch_counts() == {"segment_select_batch": 0, "segment_select": 0,
                                    "classify_gc": 0, "classify_user": 0,
-                                   "zipf_bit_sums": 0, "flash_decode": 0, "replay": 0}
+                                   "zipf_bit_sums": 0, "flash_decode": 0, "replay": 0,
+                                   "replay_timing": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -188,7 +189,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def _port_sources():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "fleet_sim_torch.py"]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -206,6 +208,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                     bad.append(f"{path.relative_to(ROOT)}:{node.lineno} imports {name}")
     assert len(_port_sources()) > 10
     assert ROOT / "src" / "repro_torch" / "kernels" / "replay.py" in _port_sources()
+    assert ROOT / "src" / "repro_torch" / "core" / "fleetshard.py" in _port_sources()
+    assert all(path.exists() for path in _port_sources())
     assert not bad, bad
 
 
