@@ -66,7 +66,20 @@ Phases, in order; any failure raises and the script exits non-zero:
     engine), then greedy / rate_limited / idle_window x nosep / sepgc /
     sepbit at full width (1,674 volumes): overflow 0, rate_limited's GC
     writes equal to greedy's, the accounting conserved, one volume per cell
-    equal to the CPU on every key.
+    equal to the CPU on every key;
+13. gcbench: the JAX package's gcbench fleet (16 volumes of 1 MiB, segment
+    32, sepbit, cost-benefit, GC thresholds 0.08-0.22) under the legacy GC
+    engine on the step engine and the tick engine on the replay kernel, each
+    reproducing ``BENCH_fleet_gc.json``'s per-volume reclaimed counts, WA and
+    GC writes, equal to each other on every key, with each engine's steady
+    volumes/s; one volume alone under legacy (K2) equal to its fleet row;
+14. legacy: the main run's 744 volumes through a prefix of their steps
+    under the legacy GC engine on the card's step engine (K1 at loop entry on
+    every write, K3 on every rewrite), equal on every key to the replay
+    kernel on the same prefix and, on eight volumes, to the legacy engine on
+    the CPU; overflow 0 and every volume past its first GC; a closing window
+    timed under both GC engines on the step engine; K1, K2 and K3 timed at
+    this path's shapes.
 
 Before the last line it prints the kernel table as one JSON object; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA it exits 1
@@ -1179,24 +1192,38 @@ def schemes_policies(cfg, P: int) -> dict:
     return pol
 
 
-def _schemes_kernel_rows(rng, V, S, B, counts) -> dict:
-    """K1 and K3 at the [schemes] path's shapes, held bit-equal to their
-    plain versions and timed; by kernel name, with the path's launches."""
+def _path_kernel_rows(tag, rng, V, S, B, counts, single_rows=None) -> dict:
+    """K1 and K3 (and K2 at ``single_rows`` segments, when given) at a path's
+    shapes, held bit-equal to their plain versions and timed; by kernel
+    name, with the path's launches from ``counts``."""
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.segsel import segment_select_batch
+    from repro_torch.kernels.segsel import segment_select, segment_select_batch
     dev = torch.device("cuda")
     arrays = [torch.from_numpy(x).to(dev) for x in _segsel_inputs(rng, V, S, seg=B)]
     idx, score = segment_select_batch(*arrays)
     ridx, rscore = ref.segment_select_batch_ref(*arrays)
     torch.cuda.synchronize()
     if not (torch.equal(idx, ridx) and torch.equal(score, rscore)):
-        raise AssertionError("K1 disagrees with its plain version at the [schemes] shape")
+        raise AssertionError(f"K1 disagrees with its plain version at the [{tag}] shape")
     out = {"segment_select_batch": {
         "shape": [V, S], "ms": time_ms(lambda: segment_select_batch(*arrays)),
         "plain_ms": time_ms(lambda: ref.segment_select_batch_ref(*arrays)),
         "max_abs_err": max_abs_err(score, rscore), **bound(16 * V * S + 16 * V)}}
+    if single_rows is not None:
+        one = [torch.from_numpy(x).to(dev) for x in _segsel_inputs(rng, 1, single_rows, seg=B)]
+        args1 = (one[0][0], one[1][0], one[2][0], one[3][0], one[4].reshape(()),
+                 one[5].reshape(()))
+        i1, s1 = segment_select(*args1)
+        ri1, rs1 = ref.segment_select_ref(*args1)
+        torch.cuda.synchronize()
+        if not (torch.equal(i1, ri1) and torch.equal(s1, rs1)):
+            raise AssertionError(f"K2 disagrees with its plain version at the [{tag}] shape")
+        out["segment_select"] = {
+            "shape": [single_rows], "ms": time_ms(lambda: segment_select(*args1)),
+            "plain_ms": time_ms(lambda: ref.segment_select_ref(*args1)),
+            "max_abs_err": max_abs_err(s1, rs1), **bound(16 * single_rows + 16)}
     sids = torch.from_numpy((np.arange(V) % 14).astype(np.int32)).to(dev)
     ell = torch.from_numpy(rng.uniform(1.0, 30_000.0, V).astype(np.float32)).to(dev)
     for name, site, width in (("classify_gc", "gc", B), ("classify_user", "user", 1)):
@@ -1209,7 +1236,7 @@ def _schemes_kernel_rows(rng, V, S, B, counts) -> dict:
                                          "bound_by")}
     for name, row in out.items():
         row["launches"] = counts[name]
-        log(f"[schemes] {name} {row['shape']}: {row['ms'] * 1e3:.2f} us (plain "
+        log(f"[{tag}] {name} {row['shape']}: {row['ms'] * 1e3:.2f} us (plain "
             f"{row['plain_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.3f} us), launches "
             f"on this path {row['launches']}")
     return out
@@ -1365,8 +1392,8 @@ def phase_schemes() -> dict:
     t0 = time.perf_counter()
     profile_window(cfg, st, "step", SCHEMES_PROFILE_STEPS, "schemes")
     log(f"[schemes] profiled window with its analysis {time.perf_counter() - t0:.1f} s")
-    rows = _schemes_kernel_rows(np.random.default_rng(3), V, cfg.n_rows, cfg.segment_size,
-                                counts)
+    rows = _path_kernel_rows("schemes", np.random.default_rng(3), V, cfg.n_rows,
+                             cfg.segment_size, counts)
     log(f"[schemes] phase wall {time.perf_counter() - t_phase:.1f} s")
     return rows
 
@@ -1671,6 +1698,209 @@ def phase_sweep_and_latency() -> dict:
     return row
 
 
+LEGACY_PREFIX = 24576          # [legacy]: 1.5 * n_lbas steps, past every threshold's first GC
+LEGACY_WINDOW = 512            # [legacy]: the closing window both engines replay on the step engine
+
+
+def phase_gcbench(smi: str) -> dict:
+    """The JAX package's gcbench on the card: its 16 volumes under the legacy
+    engine on the step engine (ungrouped, as the bench runs it) and under
+    the tick engine on the replay kernel (grouped), each run twice (cold,
+    then steady); each must reproduce ``BENCH_fleet_gc.json``'s per-volume
+    reclaimed counts, WA and GC writes, and the two end equal on every key.
+    Then volume 1 alone under legacy (the single-volume path: K2 at loop
+    entry on every write) equal to its fleet row. Returns K2's launches
+    there and its segment count."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import fleetshard, torchsim
+    from repro_torch.core.config import TorchSimConfig
+    from repro_torch.core.tracegen import make_fleet
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    bench = json.loads((Path(__file__).resolve().parent / "BENCH_fleet_gc.json").read_text())
+    V, n = bench["n_volumes"], bench["n_lbas"]
+    traces = make_fleet(bench["workload"], V, n, 4 * n, jitter=0.25, seed=23)
+    policy = fleetshard.encode_policies(V, schemes=bench["scheme"], selectors=bench["selector"],
+                                        gp_thresholds=bench["gp_thresholds"])
+    base = TorchSimConfig(n_lbas=n, segment_size=bench["segment_size"])
+    want = [(v["reclaimed"], v["wa"], v["gc_writes"]) for v in bench["per_volume"]]
+    runs = {}
+    for gc_engine, engine, group in (("legacy", "step", False), ("tick", "replay", True)):
+        cfg = dataclasses.replace(base, gc_engine=gc_engine)
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res, st = fleetshard.simulate_fleet_hetero(traces, cfg, policy, group=group,
+                                                       return_state=True, device="cuda",
+                                                       engine=engine)
+            walls.append(time.perf_counter() - t0)
+        counts = ops.launch_counts()
+        got = [(v["reclaimed"], v["wa"], v["gc_writes"]) for v in res["volumes"]]
+        runs[gc_engine] = {"st": st, "cold_s": walls[0], "steady_s": walls[1],
+                           "volumes_per_s": V / walls[1], "counts": counts}
+        log(f"[gcbench] gc_engine={gc_engine} engine={engine} group={group}: cold "
+            f"{walls[0]:.3f} s, steady {walls[1]:.3f} s = {V / walls[1]:.2f} volumes/s; reclaimed "
+            f"{sum(g[0] for g in got)}, per volume as BENCH_fleet_gc.json (reclaimed, WA, GC "
+            f"writes): {got == want}; launches {counts}")
+        if got != want:
+            raise AssertionError(f"[gcbench] gc_engine={gc_engine} does not reproduce the bench")
+    bad = _differing_keys(runs["legacy"]["st"], runs["tick"]["st"])
+    ratio = runs["tick"]["volumes_per_s"] / runs["legacy"]["volumes_per_s"]
+    log(f"[gcbench] legacy vs tick: differing keys {bad}")
+    log(f"[gcbench] steady volumes/s: legacy (step engine) {runs['legacy']['volumes_per_s']:.2f}, "
+        f"tick (replay kernel) {runs['tick']['volumes_per_s']:.2f}, tick / legacy {ratio:.2f}, "
+        f"on {smi}")
+    lc = runs["legacy"]["counts"]
+    if bad or runs["tick"]["counts"]["replay"] != 1 or 0 in (
+            lc["segment_select_batch"], lc["classify_gc"], lc["classify_user"]):
+        raise AssertionError(f"[gcbench] legacy and tick differ in {bad}, or skipped kernels")
+
+    i = 1
+    cfg = fleetshard.matching_single_config(dataclasses.replace(base, gc_engine="legacy"),
+                                            policy, i)
+    ops.reset_launch_counts()
+    alone = convert.state_to_numpy(torchsim.run(cfg, traces[i], device="cuda", engine="step"))
+    counts = ops.launch_counts()
+    bad = [k for k in alone if not np.array_equal(alone[k][0], runs["legacy"]["st"][k][i])]
+    log(f"[gcbench] volume {i} alone under legacy (K2 at loop entry, {len(traces[i])} writes): "
+        f"differing keys against its fleet row {bad}; launches {counts}")
+    if bad or counts["segment_select"] < len(traces[i]):
+        raise AssertionError("[gcbench] the single-volume legacy path disagrees or skipped K2")
+    log(f"[gcbench] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"k2_launches": counts["segment_select"], "k2_rows": cfg.n_rows,
+            "legacy_volumes_per_s": runs["legacy"]["volumes_per_s"],
+            "tick_volumes_per_s": runs["tick"]["volumes_per_s"]}
+
+
+def _step_window(cfg, start: dict, trace, tag: str):
+    """``trace`` replayed on the card's step engine from the numpy state
+    ``start``: the final state (numpy) and its counts."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import ops
+    state = convert.state_from_numpy(start, "cuda")
+    stats = torchsim.ReplayStats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = torchsim.run_fleet(cfg, trace, device="cuda", state=state, stats=stats, engine="step")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    T = stats.steps
+    log(f"[legacy] window gc_engine={tag}: {T} steps, {wall / T:.6f} s/step, "
+        f"{sum(counts.values()) / T:.2f} kernel launches of K1/K3 per step ({counts}), host "
+        f"syncs {stats.host_syncs / T:.4f} per step, tick iterations "
+        f"{stats.tick_iterations / T:.4f} per step")
+    return convert.state_to_numpy(st), wall / T
+
+
+def phase_legacy() -> dict:
+    """The legacy GC engine at full width: the main run's fleet (744 volumes
+    of 64 MiB, segment 128, gcbench's four GC thresholds) through its first
+    LEGACY_PREFIX steps under ``gc_engine="legacy"`` on the card's step
+    engine (K1 at loop entry on every write and after each rewrite, K3 on
+    every rewrite and user write), against the replay kernel's tick engine
+    on the same prefix (every key equal), eight of its volumes by the legacy
+    engine on the CPU (in a worker; every key equal), overflow 0 and every
+    volume past its first GC. Then the closing LEGACY_WINDOW steps again on
+    the card's step engine under both GC engines from the replay kernel's
+    state, timed side by side. Returns the path's launches."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    P, n = MAIN_VOLUMES_PER_TILE, MAIN_N_LBAS
+    V = P * len(MAIN_GPS)
+    full = _full_width_traces(len(MAIN_GPS))
+    padded = np.ascontiguousarray(full[:, :LEGACY_PREFIX])
+    tick = fleet_config(n)
+    cfg = dataclasses.replace(tick, gc_engine="legacy")
+    policies = fleet_policies(cfg, np.repeat(MAIN_GPS, P))
+    sub = [j * P + i * (P // PLAIN_VOLUMES_PER_TILE) for j in range(len(MAIN_GPS))
+           for i in range(PLAIN_VOLUMES_PER_TILE)]
+    log(f"[legacy] cut: the first {LEGACY_PREFIX} of the main run's {full.shape[1]} steps "
+        f"(1.5 x n_lbas: the fill ends at {n} and the thresholds' first GC falls between "
+        f"steps 17,809 and 21,006), because the legacy engine's wall grows with the steps and "
+        f"adds a victim selection and a host sync to every one of them")
+    workers = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    with workers:
+        on_cpu = workers.submit(_replay_on_cpu, cfg, np.ascontiguousarray(padded[sub]),
+                                {k: x[sub] for k, x in policies.items()})
+        stats = torchsim.ReplayStats()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        st = torchsim.run_fleet(cfg, padded, policies, device="cuda", stats=stats, engine="step")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        final = convert.state_to_numpy(st)
+        del st
+        T = stats.steps
+        k_launches = sum(counts[k] for k in ("segment_select_batch", "classify_gc",
+                                             "classify_user"))
+        log(f"[legacy] {V} volumes, n_rows {cfg.n_rows}, {T} steps on the card's step engine: "
+            f"wall {wall:.3f} s, s/step {wall / T:.6f}, volume-writes/s {V * T / wall:.1f}")
+        log(f"[legacy] tick iterations {stats.tick_iterations} "
+            f"({stats.tick_iterations / T:.4f} per step), host syncs {stats.host_syncs} "
+            f"({stats.host_syncs / T:.4f} per step), kernel launches {counts}: K1 + K3 "
+            f"{k_launches / T:.4f} per step; reclaimed {int(final['reclaimed'].sum())}, overflow "
+            f"{int(final['overflow'].sum())}")
+        if (counts["replay"] or counts["segment_select_batch"] != T + stats.tick_iterations
+                or counts["classify_gc"] != stats.tick_iterations):
+            raise AssertionError("[legacy] K1 was not launched at loop entry on every write and "
+                                 "after every rewrite, or K3 not on every rewrite")
+        if final["overflow"].any() or not (final["reclaimed"] > 0).all():
+            raise AssertionError("[legacy] a volume overflowed, or one never ran GC")
+        check_integrity(cfg, final, list(padded), "[legacy]")
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = convert.state_to_numpy(torchsim.run_fleet(tick, padded, policies, device="cuda"))
+        rep_wall = time.perf_counter() - t0
+        rep_counts = ops.launch_counts()
+        bad = _differing_keys(final, rep)
+        log(f"[legacy] the replay kernel (tick engine) on the same prefix ({rep_counts['replay']} "
+            f"launch, {rep_wall:.3f} s): differing keys against legacy {bad}")
+        if bad or rep_counts["replay"] != 1:
+            raise AssertionError(f"[legacy] legacy and the replay kernel differ in {bad}")
+        t0 = time.perf_counter()
+        cpu, cpu_wall = on_cpu.result()
+        waited = time.perf_counter() - t0
+    bad = [k for k in cpu if not np.array_equal(final[k][sub], cpu[k])
+           or final[k].dtype != cpu[k].dtype]
+    log(f"[legacy] volumes {sub} by the legacy engine on the cpu in {cpu_wall:.1f} s (a worker "
+        f"beside the card run; waited {waited:.1f} s): differing keys against the card {bad}, of "
+        f"{len(cpu)}")
+    if bad:
+        raise AssertionError(f"[legacy] card and CPU differ in {bad}")
+
+    # the closing window again from the replay kernel's state at its start,
+    # on the card's step engine under each GC engine, timed side by side
+    head = padded[:, :LEGACY_PREFIX - LEGACY_WINDOW]
+    start = convert.state_to_numpy(torchsim.run_fleet(tick, np.ascontiguousarray(head),
+                                                      policies, device="cuda"))
+    window = np.ascontiguousarray(padded[:, LEGACY_PREFIX - LEGACY_WINDOW:])
+    w_legacy, s_legacy = _step_window(cfg, start, window, "legacy")
+    w_tick, s_tick = _step_window(tick, start, window, "tick")
+    bad = _differing_keys(w_legacy, final) + _differing_keys(w_tick, final)
+    log(f"[legacy] window: legacy / tick s/step {s_legacy / s_tick:.2f}; both end equal to the "
+        f"whole prefix's state: differing keys {bad}")
+    if bad:
+        raise AssertionError(f"[legacy] the window's replays differ in {bad}")
+    log(f"[legacy] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts, "steps": T, "wall": wall, "rows": cfg.n_rows, "V": V}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1701,12 +1931,22 @@ def main() -> int:
     del st
     schemes_rows = phase_schemes()
     kernels.append(phase_sweep_and_latency())
+    gcbench = phase_gcbench(device["smi"])
+    legacy = phase_legacy()
+    legacy_rows = _path_kernel_rows(
+        "legacy", np.random.default_rng(4), legacy["V"], legacy["rows"], MAIN_SEGMENT,
+        {**legacy["counts"], "segment_select": gcbench["k2_launches"]},
+        single_rows=legacy["rows"])
+    legacy_rows["segment_select"]["launches_from"] = (
+        f"[gcbench] volume 1 alone ({gcbench['k2_rows']} rows); [legacy] is a fleet")
     launches = {**counts["step"], "segment_select": k2_launches, **analysis_launches,
                 "flash_decode": decode_launches, "replay": counts["replay"]["replay"]}
     for row in kernels:
         row["launches"] = row.get("launches", launches.get(row["name"]))
         if row["name"] in schemes_rows:
             row["schemes_path"] = schemes_rows[row["name"]]
+        if row["name"] in legacy_rows:
+            row["legacy_path"] = legacy_rows[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(device["smi"])
     print(json.dumps({"kernels": kernels}))

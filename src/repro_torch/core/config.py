@@ -3,8 +3,8 @@
 `TorchSimConfig` has the fields and defaults of the JAX package's
 ``JaxSimConfig`` apart from ``use_kernels`` and ``kernels_interpret``: on the
 port the device of the tensors decides whether a kernel or its plain
-version runs. The legacy GC engine, which a later slice of the port brings,
-raises `NotImplementedError` naming its ROADMAP item.
+version runs. ``gc_engine="legacy"`` (the fused GC rewrite's oracle, greedy
+GC schedule only) runs on the step engine (`torchsim.legacy_gc`).
 
 ``scheme_group`` names the schemes a fleet's volumes may run, as in JAX
 (whose grouped dispatch prunes its branch stack to them); a volume outside
@@ -90,9 +90,6 @@ class TorchSimConfig:
         if self.gc_engine == "legacy" and self.gc_sched != "greedy":
             raise ValueError("GC scheduling policies require the tick engine; "
                              "the legacy engine is the greedy parity oracle")
-        if self.gc_engine == "legacy":
-            raise NotImplementedError(
-                "gc_engine='legacy' is not ported yet; see ROADMAP.md Queue 1 item 7")
 
     @property
     def n_classes(self) -> int:

@@ -235,6 +235,9 @@ def simulate_fleet_hetero(traces, cfg: TorchSimConfig, policy: FleetPolicy, *,
     V = padded.shape[0]
     if policy.n_volumes != V:
         raise ValueError(f"policy covers {policy.n_volumes} volumes, traces cover {V}")
+    if cfg.gc_engine == "legacy" and np.any(policy.gcsched_id != 0):
+        raise ValueError("GC scheduling policies require the tick engine; "
+                         "the legacy engine is the greedy parity oracle")
     cfg_h = hetero_config(cfg, policy)
     devs = _devices(devices, device, shard)
 

@@ -15,11 +15,17 @@ bit for bit:
   the victims' live blocks from the classify kernel and the stateful
   branches, and `_gc_once` moves them with one segmented scatter over
   (class, rank) keys. Volumes that do not trigger are left exactly as they
-  were.
+  were;
+- under ``cfg.gc_engine="legacy"``, `legacy_gc` instead: JAX's pre-tick
+  loop, the fused rewrite's oracle. A victim is selected at loop entry on
+  every user write, and `_gc_once_legacy` rewrites it class slot by class
+  slot, one scatter per JAX ``.at[...]``. Both rewrites share their head
+  (`_gc_bookkeeping`: ℓ, the classes, the fresh rows) and their tail
+  (`_gc_release`).
 
 With ``cfg.timing`` the timing model of ``jaxsim`` runs beside it: each
 user write's latency (`_user_write`) into the ``lat_*`` keys, each rewrite's
-GC time booked as debt (`_gc_once`), and the debt charged to the device's
+GC time booked as debt (`_gc_release`), and the debt charged to the device's
 busy horizon after the step's GC (`_charge_gc`). The per-volume GC schedule
 ``p_gcsched`` decides when: greedy and idle_window charge it all at once,
 rate_limited at most ``gc_rate`` blocks' worth per step; idle_window also
@@ -40,15 +46,16 @@ none. `ReplayStats` counts steps, iterations and host syncs.
 That is the step engine (``engine="step"``). By default (``engine="replay"``)
 `run` and `run_fleet` hand a state on the card to the replay kernel
 (`kernels.replay`): one launch replays every volume, with no host sync per
-step; it takes the elementwise schemes only, and refuses a stateful one
-(ROADMAP Queue 1 item 4b) rather than hand it to the step engine. For a
-state on the CPU they run the kernel's plain version, the step engine
-(`step_replay`).
+step; it takes the elementwise schemes and the tick engine only, and
+refuses a stateful scheme (ROADMAP Queue 1 item 4b) and the legacy engine
+rather than hand them to the step engine. For a state on the CPU they run
+the kernel's plain version, the step engine (`step_replay`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -213,12 +220,41 @@ def _user_latency(cfg: TorchSimConfig, st: dict, active, one, k: Consts):
     _add(st["lat_hist"], k.base(cfg.lat_buckets) + bucket.to(torch.int64), one)
 
 
-def _gc_bookkeeping(st, vrow, do, k: Consts):
-    """ℓ estimation (Algorithm 1 lines 4-9): Class-1 victims feed the running
-    lifespan total; every ``p_ncw`` of them ℓ becomes their mean. Returns the
-    victims' class and the updated (ell, ell_tot, nc), stored where ``do``."""
-    victim_cls = st["seg_cls"].view(-1)[vrow]
-    is_c1 = victim_cls == 0
+class GcHead(NamedTuple):
+    """What both GC engines read of each volume's victim before they rewrite
+    it: its index (clamped to 0 where there is none) and flat row, its live
+    block count and fill, its slots' LBAs and write times, each slot's GC
+    class (-1 for a dead slot) and the C candidate fresh rows (int64)."""
+
+    victim: torch.Tensor
+    vrow: torch.Tensor
+    k_total: torch.Tensor
+    victim_n: torch.Tensor
+    lba_v: torch.Tensor
+    utime_v: torch.Tensor
+    classes: torch.Tensor
+    free_ids: torch.Tensor
+
+
+def _gc_bookkeeping(cfg: TorchSimConfig, st: dict, victims, do, k: Consts) -> GcHead:
+    """The shared head of both GC engines (JAX's ``_gc_bookkeeping``), in
+    place where ``do``: ℓ estimation (Algorithm 1 lines 4-9: Class-1 victims
+    feed the running lifespan total; every ``p_ncw`` of them ℓ becomes their
+    mean), then the live blocks' GC classes from the classify kernel with
+    is_gc = 1, v = 0, g the block's age and from_c1 the victim's class (a
+    stateful volume's from its scheme, which may update its tables under the
+    refreshed ℓ), then the fresh-row candidates."""
+    s = cfg.segment_size
+    V = victims.shape[0]
+    victim = torch.clamp(victims, min=0)             # do implies victims >= 0
+    vrow = k.row0 + victim
+    k_total = st["seg_nvalid"].view(-1)[vrow]
+    victim_n = st["seg_n"].view(-1)[vrow]
+    lba_v = st["seg_lba"].view(-1, s)[vrow]
+    utime_v = st["seg_utime"].view(-1, s)[vrow]
+    valid_v = st["seg_valid"].view(-1, s)[vrow]
+
+    is_c1 = st["seg_cls"].view(-1)[vrow] == 0
     nc = st["nc"] + is_c1.to(torch.int32)
     life = (st["t"] - st["seg_ctime"].view(-1)[vrow]).to(torch.float32)
     ell_tot = st["ell_tot"] + torch.where(is_c1, life, k.zero_f)
@@ -229,30 +265,7 @@ def _gc_bookkeeping(st, vrow, do, k: Consts):
     st["ell"] = torch.where(do, ell, st["ell"])
     st["ell_tot"] = torch.where(do, ell_tot, st["ell_tot"])
     st["nc"] = torch.where(do, nc, st["nc"])
-    return is_c1, ell
 
-
-def _gc_once(cfg: TorchSimConfig, st: dict, victims, do, k: Consts):
-    """Rewrite each volume's victim segment where ``do`` (in place): the live
-    blocks get their GC classes from the classify kernel (a stateful
-    volume's from its scheme, after the ℓ update, as in JAX) and move, with
-    one scatter per array, to their class's open segment, spilling into a
-    fresh free segment once it is full. Volumes where ``do`` is False are
-    left as they were."""
-    s, C, pad = cfg.segment_size, cfg.n_class_slots, cfg.pad_row
-    V = victims.shape[0]
-    doc = do[:, None]
-    victim = torch.clamp(victims, min=0)             # do implies victims >= 0
-    vrow = k.row0 + victim
-    k_total = st["seg_nvalid"].view(-1)[vrow]
-    victim_n = st["seg_n"].view(-1)[vrow]
-    lba_v = st["seg_lba"].view(-1, s)[vrow]
-    utime_v = st["seg_utime"].view(-1, s)[vrow]
-    valid_v = st["seg_valid"].view(-1, s)[vrow]
-    is_c1, ell = _gc_bookkeeping(st, vrow, do, k)
-
-    # the live blocks' classes: the classify kernel with is_gc = 1, v = 0,
-    # g the block's age and from_c1 the victim's class
     g = st["t"][:, None] - utime_v
     from_c1 = is_c1.to(torch.int32)[:, None].expand(V, s).contiguous()
     gc_cls = classify(k.zeros_vs, g, from_c1, k.ones_vs, ell, st["p_scheme"])
@@ -261,6 +274,44 @@ def _gc_once(cfg: TorchSimConfig, st: dict, victims, do, k: Consts):
             lba_v.long(), valid_v, st["t"], do, k), gc_cls)
     classes = torch.where(valid_v, gc_cls, k.i32[-1])
     free_ids = _alloc_free_ids(cfg, st["seg_state"], k.rankC)
+    return GcHead(victim, vrow, k_total, victim_n, lba_v, utime_v, classes, free_ids)
+
+
+def _gc_release(cfg: TorchSimConfig, st: dict, h: GcHead, do, k: Consts):
+    """The shared tail of both GC engines, in place where ``do``: cap the
+    pad row's fill count (over-capacity appends to it were dropped; it never
+    exceeds s otherwise, so volumes without GC stay as they were), release
+    the victim (the pad row, a victim only after exhaustion promoted it,
+    returns to reserved state 3, never to the free pool), and count the
+    rewrite: occupancy, GC writes, reclaimed segments and, with the timing
+    model, its device time booked as debt (charged after the step)."""
+    s, pad = cfg.segment_size, cfg.pad_row
+    st["seg_n"][:, pad].clamp_(max=s)
+    at = k.kept(st["seg_state"], h.vrow, do)
+    _put(st["seg_state"], at, torch.where(h.victim == pad, k.i32[3], k.i32[0]))
+    _put(st["seg_n"], at, k.i32[0])
+    _put(st["seg_nvalid"], at, k.i32[0])
+    _put(st["seg_valid"], k.kept(st["seg_valid"], h.vrow[:, None] * s + k.slots, do[:, None]),
+         k.false)
+    # total_valid is untouched: GC moves valid blocks, never creates them
+    st["total_occ"] = torch.where(do, st["total_occ"] - h.victim_n + h.k_total, st["total_occ"])
+    st["gc_writes"] = st["gc_writes"] + h.k_total * do
+    st["reclaimed"] = st["reclaimed"] + do.to(torch.int32)
+    if cfg.timing:
+        debt = st["lat_debt"] + h.k_total.to(torch.float32) * k.f32["gc_block_cost"]
+        st["lat_debt"] = torch.where(do, debt, st["lat_debt"])
+
+
+def _gc_once(cfg: TorchSimConfig, st: dict, victims, do, k: Consts):
+    """Rewrite each volume's victim segment where ``do`` (in place): the live
+    blocks, classed by `_gc_bookkeeping`, move with one scatter per array to
+    their class's open segment, spilling into a fresh free segment once it
+    is full. Volumes where ``do`` is False are left as they were."""
+    s, C, pad = cfg.segment_size, cfg.n_class_slots, cfg.pad_row
+    V = victims.shape[0]
+    doc = do[:, None]
+    h = _gc_bookkeeping(cfg, st, victims, do, k)
+    classes, free_ids, lba_v = h.classes, h.free_ids, h.lba_v
 
     # per-slot (class, rank) keys: rank = position among same-class live slots
     slot_cls = torch.clamp(classes, 0, C - 1).to(torch.int64)
@@ -289,7 +340,7 @@ def _gc_once(cfg: TorchSimConfig, st: dict, victims, do, k: Consts):
     at = k.kept(st["seg_lba"], (k.row0[:, None] + dst_sid) * s + dst_off,
                 moved & (dst_off < s))
     _put(st["seg_lba"], at, lba_v)
-    _put(st["seg_utime"], at, utime_v)
+    _put(st["seg_utime"], at, h.utime_v)
     _put(st["seg_valid"], at, k.true)
     at = k.kept(st["loc_seg"], k.lba0[:, None] + lba_v, moved)
     _put(st["loc_seg"], at, dst_sid.to(torch.int32))
@@ -316,28 +367,67 @@ def _gc_once(cfg: TorchSimConfig, st: dict, victims, do, k: Consts):
     st["open_sid"].copy_(torch.where(doc & sealed, free_ids, sids))
     used_pad = (free_ids == pad) & ((took2 > 0) | sealed)
     st["overflow"] = st["overflow"] + used_pad.sum(1, dtype=torch.int32) * do
-
-    # over-capacity appends to the pad row were dropped; cap its fill count
-    # (it never exceeds s, so this leaves volumes without GC as they were)
-    st["seg_n"][:, pad].clamp_(max=s)
-
-    # release the victim; the pad row (a victim only after exhaustion
-    # promoted it) returns to reserved state 3, never to the free pool
-    at = k.kept(st["seg_state"], vrow, do)
-    _put(st["seg_state"], at, torch.where(victim == pad, k.i32[3], k.i32[0]))
-    _put(st["seg_n"], at, k.i32[0])
-    _put(st["seg_nvalid"], at, k.i32[0])
-    _put(st["seg_valid"], k.kept(st["seg_valid"], vrow[:, None] * s + k.slots, doc), k.false)
-
-    # total_valid is untouched: GC moves valid blocks, never creates them
-    st["total_occ"] = torch.where(do, st["total_occ"] - victim_n + k_total, st["total_occ"])
-    st["gc_writes"] = st["gc_writes"] + k_total * do
-    st["reclaimed"] = st["reclaimed"] + do.to(torch.int32)
     st["class_gc"] = st["class_gc"] + per_cls * doc
-    if cfg.timing:
-        # the rewrite's device time, booked as debt (charged after the step)
-        debt = st["lat_debt"] + k_total.to(torch.float32) * k.f32["gc_block_cost"]
-        st["lat_debt"] = torch.where(do, debt, st["lat_debt"])
+    _gc_release(cfg, st, h, do, k)
+
+
+def _gc_once_legacy(cfg: TorchSimConfig, st: dict, victims, do, k: Consts):
+    """JAX's ``_gc_once_legacy``, in place where ``do``: after the shared
+    head, an unrolled rewrite per class slot. Each class's live blocks are
+    appended as a batch to its open segment and then to its fresh row, one
+    scatter per JAX ``.at[...]`` and in JAX's order, each class reading the
+    fill counts and open rows that the classes before it left. A padded class
+    slot (>= ``p_classes``) moves no block and never seals or promotes.
+    Unlike `_gc_once`, whose single scatter reads every class's fill up
+    front, this stays defined when several classes' fresh row is the pad
+    row: the fused rewrite's oracle, and its difference in that corner."""
+    s, C, pad = cfg.segment_size, cfg.n_class_slots, cfg.pad_row
+    doc = do[:, None]
+    t = st["t"]
+    h = _gc_bookkeeping(cfg, st, victims, do, k)
+    at_lba = k.lba0[:, None] + h.lba_v
+    for c in range(C):
+        cls_active = st["p_classes"] > c
+        mask = h.classes == c
+        ranks = torch.cumsum(mask, dim=1, dtype=torch.int32) - 1
+        count = mask.sum(1, dtype=torch.int32)
+        sid = st["open_sid"][:, c].clone()
+        srow = k.row0 + sid
+        n0 = st["seg_n"].view(-1)[srow]
+        room = torch.clamp(s - n0, min=0)
+        _put(st["seg_ctime"], k.kept(st["seg_ctime"], srow, do & (n0 == 0) & (count > 0)), t)
+        first = ranks < room[:, None]
+        fresh = h.free_ids[:, c]
+        frow = k.row0 + fresh
+        for row, part, off, dst in ((srow, mask & first & doc, n0[:, None] + ranks, sid),
+                                    (frow, mask & ~first & doc, ranks - room[:, None],
+                                     fresh.to(torch.int32))):
+            at = k.kept(st["seg_lba"], row[:, None] * s + off, part & (off < s))
+            _put(st["seg_lba"], at, h.lba_v)
+            _put(st["seg_utime"], at, h.utime_v)
+            _put(st["seg_valid"], at, k.true)
+            at = k.kept(st["loc_seg"], at_lba, part)
+            _put(st["loc_seg"], at, dst[:, None].expand_as(at))
+            _put(st["loc_off"], at, off)
+        took1 = torch.minimum(count, room) * do
+        took2 = count * do - took1
+        _add(st["seg_n"], srow, took1)
+        _add(st["seg_nvalid"], srow, took1)
+        _add(st["seg_n"], frow, took2)
+        _add(st["seg_nvalid"], frow, took2)
+        _add(st["class_gc"], k.cls0 + c, count * do)
+        sealed = cls_active & (st["seg_n"].view(-1)[srow] >= s) & do
+        at = k.kept(st["seg_state"], srow, sealed)
+        _put(st["seg_state"], at, k.i32[2])
+        _put(st["seg_stime"], at, t)
+        at = k.kept(st["seg_state"], frow, sealed)
+        _put(st["seg_state"], at, k.i32[1])
+        _put(st["seg_cls"], at, k.cls_ids[c])
+        _put(st["seg_ctime"], at, t)
+        st["open_sid"][:, c] = torch.where(sealed, fresh.to(torch.int32), sid)
+        used_pad = (fresh == pad) & ((took2 > 0) | sealed)
+        st["overflow"] = st["overflow"] + used_pad.to(torch.int32)
+    _gc_release(cfg, st, h, do, k)
 
 
 def _gc_deferred(cfg: TorchSimConfig, st: dict, k: Consts):
@@ -407,15 +497,46 @@ def fleet_gc_tick(cfg: TorchSimConfig, st: dict, k: Consts, step_active=None, se
         stalled = stalled | (need & (victims < 0))
 
 
+def legacy_gc(cfg: TorchSimConfig, st: dict, k: Consts, step_active=None, select=None,
+              stats: ReplayStats | None = None):
+    """The legacy GC loop (JAX's ``_maybe_gc_legacy``, vmapped over the
+    fleet), in place: a victim per volume is selected at loop entry on every
+    user write, GC or not (``select``; the batched segsel kernel by default),
+    and a volume runs while its garbage proportion exceeds its ``p_gp``, it
+    has a victim and it has run fewer than ``cfg.max_gc_per_step`` rewrites;
+    after each rewrite its victim is selected again. A volume that stops
+    (``running`` only goes from True to False) keeps its state, and so does
+    one on a pad step (``step_active`` False). One host sync per iteration,
+    for ``running.any()``."""
+    select = select or _select_victims_fleet
+    victims = select(st)
+    running = (_gp(st) > st["p_gp"]) & (victims >= 0)
+    if step_active is not None:
+        running = running & step_active
+    for i in range(cfg.max_gc_per_step):
+        if stats is not None:
+            stats.host_syncs += 1
+        if not bool(running.any()):   # the host sync of this iteration
+            break
+        if stats is not None:
+            stats.tick_iterations += 1
+            stats.gc_ticks += 1 if i == 0 else 0
+        _gc_once_legacy(cfg, st, victims, running, k)
+        victims = select(st)
+        running = running & (_gp(st) > st["p_gp"]) & (victims >= 0)
+
+
 def fleet_step(cfg: TorchSimConfig, st: dict, lbas, masked: bool, k: Consts, select=None,
                stats: ReplayStats | None = None, nxt=None, sfs_refresh=None):
-    """One user write per volume, then the fleet's GC ticks and, with the
-    timing model, the GC time's charge (in place). With ``masked``, pad
-    entries (-1) of ``lbas`` are exact no-ops. ``nxt`` and ``sfs_refresh``:
-    see `_user_write`."""
+    """One user write per volume, then the fleet's GC (the tick engine's
+    `fleet_gc_tick`, or `legacy_gc` under ``cfg.gc_engine="legacy"``) and,
+    with the timing model, the GC time's charge (in place). With
+    ``masked``, pad entries (-1) of ``lbas`` are exact no-ops, the charge
+    included. ``nxt`` and ``sfs_refresh``: see `_user_write`."""
     active = lbas >= 0 if masked else None
     _user_write(cfg, st, lbas, active, k, nxt, sfs_refresh)
-    fleet_gc_tick(cfg, st, k, active, select, stats)
+    gc = legacy_gc if cfg.gc_engine == "legacy" else fleet_gc_tick
+    gc(cfg, st, k, active, select, stats)
     if cfg.timing:
         _charge_gc(cfg, st, active, k)
     if stats is not None:

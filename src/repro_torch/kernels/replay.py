@@ -11,8 +11,9 @@ runs the timing model (its ``lat_*`` keys), and for idle_window volumes the
 GC schedule's deferral, as the step engine does; each is an instance of the
 kernel of its own, so the instance with both off runs none of it. The kernel
 takes the five elementwise schemes; a fleet with a stateful one is refused
-(`NotImplementedError` naming ROADMAP Queue 1 item 4b), never handed to the
-step engine, which runs it under ``engine="step"``. ``launches`` counts the
+(`NotImplementedError` naming ROADMAP Queue 1 item 4b), and so is the legacy
+GC engine (`ValueError`), never handed to the step engine, which runs both
+under ``engine="step"``. ``launches`` counts the
 kernel's launches: ``replay`` with the timing model off, ``replay_timing``
 with it on.
 """
@@ -64,13 +65,19 @@ _SIGNATURES = {"replay_launch": [ctypes.POINTER(ReplayArgs), ctypes.c_void_p],
 
 
 def check_inputs(cfg: TorchSimConfig, st: dict, trace) -> bool:
-    """Raise unless every state key is a contiguous tensor of its dtype and
-    shape for ``cfg`` with one leading volume axis, ``trace`` a contiguous
-    (V, T) int32 tensor of LBAs in [-1, n_lbas) (-1: a pad step) on the same
-    device, every volume's scheme elementwise, that device CUDA, and the
-    segment size and class slots within the kernel's limits. Returns whether
+    """Raise unless ``cfg`` runs the tick engine (the legacy engine is
+    refused first: it runs under ``engine="step"``), every state key is a
+    contiguous tensor of its dtype and shape for ``cfg`` with one leading
+    volume axis, ``trace`` a contiguous (V, T) int32 tensor of LBAs in
+    [-1, n_lbas) (-1: a pad step) on the same device, every volume's scheme
+    elementwise, that device CUDA, and the segment size and class slots
+    within the kernel's limits. Returns whether
     some volume runs idle_window (`launch`'s ``defer``), read here with the
     other checks so that the launch itself makes no host sync."""
+    if cfg.gc_engine == "legacy":
+        raise ValueError("gc_engine='legacy' is the fused GC rewrite's oracle and runs on the "
+                         "step engine: pass engine=\"step\" (the replay kernel implements the "
+                         "tick engine's fused rewrite)")
     if not isinstance(trace, torch.Tensor) or trace.dtype != torch.int32 or trace.dim() != 2:
         raise TypeError("trace must be a (V, T) int32 tensor")
     V = trace.shape[0]

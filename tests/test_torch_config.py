@@ -102,6 +102,27 @@ def test_trace_generators_match_jax_package(kind, seed):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("max_requests", [None, 40])
+@pytest.mark.parametrize("block_bytes", [4096, 512])
+def test_alibaba_csv_loader_matches_jax_package(tmp_path, block_bytes, max_requests):
+    """A small CSV in the Alibaba block-trace format, written here: writes
+    by each opcode spelling, reads and short lines skipped, unaligned
+    offsets, zero and multi-block lengths, a sparse address space."""
+    rng = np.random.default_rng(9)
+    lines = ["device_id,opcode,offset,length,timestamp", "3,W,12"]
+    for i in range(60):
+        op = ("W", "w", "1", "R", "r")[i % 5]
+        offset = int(rng.integers(0, 1 << 34)) if i % 7 == 0 else int(rng.integers(0, 1 << 20))
+        length = int(rng.choice([0, 1, 4096, 4097, 65536, 1000]))
+        lines.append(f"3,{op},{offset},{length},{1000 + i}")
+    path = tmp_path / "trace.csv"
+    path.write_text("\n".join(lines) + "\n")
+    want = traces.load_alibaba_csv(str(path), block_bytes, max_requests)
+    got = ttraces.load_alibaba_csv(str(path), block_bytes, max_requests)
+    assert got.dtype == want.dtype and len(want) > 0
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("kind", ["mixed", "zipf_mixture", "shifting_hotspot", "msr_burst"])
 def test_fleet_generators_match_jax_package(kind):
     want = tracegen.make_fleet(kind, 5, 256, 400, jitter=0.25, seed=3)

@@ -612,3 +612,116 @@ def test_hetero_replay_refuses_a_stateful_group(card):
     res = fleetshard.simulate_fleet_hetero(traces, cfg, pol, device=card, engine="step")
     want = fleetshard.simulate_fleet_hetero(traces, cfg, pol, device="cpu")
     assert res["volumes"] == want["volumes"]
+
+
+# -- the legacy GC engine (the step engine on the card) --------------------------
+
+def test_legacy_fleet_on_the_card_matches_cpu_and_tick(card):
+    """The 14-scheme fleet under ``gc_engine="legacy"`` on the card's step
+    engine (K1 at loop entry on every write, K3 on every rewrite) equals the
+    CPU on every key, and the tick engine outside exhaustion."""
+    cfg, traces, pol = _all_schemes_fleet()
+    legacy = dataclasses.replace(cfg, gc_engine="legacy")
+    ops.reset_launch_counts()
+    stats = torchsim.ReplayStats()
+    got = convert.state_to_numpy(torchsim.run_fleet(legacy, traces, pol, device=card,
+                                                    engine="step", stats=stats))
+    counts = ops.launch_counts()
+    want = convert.state_to_numpy(torchsim.run_fleet(legacy, traces, pol, device="cpu"))
+    assert (want["reclaimed"] > 0).all()
+    _assert_same_state(got, want)
+    assert counts["segment_select_batch"] == stats.steps + stats.tick_iterations
+    assert counts["classify_gc"] == stats.tick_iterations and counts["replay"] == 0
+    tick = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device=card,
+                                                     engine="step"))
+    _assert_same_state(tick, want)
+
+
+@pytest.mark.parametrize("timing", [False, True])
+def test_legacy_single_volume_on_the_card_matches_cpu(card, timing):
+    """One volume under legacy on the card: victims from K2 on every write."""
+    cfg = TorchSimConfig(n_lbas=512, segment_size=16, scheme="sepbit", gc_engine="legacy",
+                         timing=timing, write_cost=0.7, gc_block_cost=1.3)
+    tr = mixed_trace(512, 3 * 512, seed=29)
+    ops.reset_launch_counts()
+    got = convert.state_to_numpy(torchsim.run(cfg, tr, device=card, engine="step"))
+    counts = ops.launch_counts()
+    want = convert.state_to_numpy(torchsim.run(cfg, tr, device="cpu"))
+    assert int(want["reclaimed"][0]) > 0
+    _assert_same_state(got, want)
+    assert counts["segment_select"] >= len(tr) and counts["segment_select_batch"] == 0
+
+
+@pytest.mark.parametrize("n_segments,seed", [(16, 67), (12, 65)])
+def test_legacy_exhaustion_corner_on_the_card_matches_cpu(card, n_segments, seed):
+    """Legacy's scatters are sequential, one per class, so its order on the
+    card is defined even where several classes' fresh row is the pad row:
+    bit-equal to the CPU, and the replay kernel refuses it."""
+    cfg = TorchSimConfig(n_lbas=96, segment_size=8, n_segments=n_segments, gp_threshold=0.10,
+                         gc_engine="legacy")
+    tr = np.asarray(np.random.default_rng(seed).integers(0, 96, size=6 * 96), np.int32)
+    got = convert.state_to_numpy(torchsim.run(cfg, tr, device=card, engine="step"))
+    want = convert.state_to_numpy(torchsim.run(cfg, tr, device="cpu"))
+    assert int(want["overflow"][0]) > 0
+    _assert_same_state(got, want)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match='engine="step"'):
+        torchsim.run(cfg, tr, device=card)
+    assert sum(ops.launch_counts().values()) == 0
+
+
+def test_gcbench_on_the_card_reproduces_the_committed_bench(card):
+    """The JAX package's gcbench fleet: legacy on the step engine and tick on
+    the replay kernel, each reproducing ``BENCH_fleet_gc.json``'s per-volume
+    reclaimed counts, WA and GC writes, equal to each other on every key."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.core import fleetshard
+    bench = json.loads((Path(__file__).resolve().parents[1] / "BENCH_fleet_gc.json").read_text())
+    V, n = bench["n_volumes"], bench["n_lbas"]
+    traces = make_fleet(bench["workload"], V, n, 4 * n, jitter=0.25, seed=23)
+    policy = fleetshard.encode_policies(V, schemes=bench["scheme"], selectors=bench["selector"],
+                                        gp_thresholds=bench["gp_thresholds"])
+    base = TorchSimConfig(n_lbas=n, segment_size=bench["segment_size"])
+    states = {}
+    for gc_engine, engine, group in (("legacy", "step", False), ("tick", "replay", True)):
+        res, states[gc_engine] = fleetshard.simulate_fleet_hetero(
+            traces, dataclasses.replace(base, gc_engine=gc_engine), policy, group=group,
+            return_state=True, device=card, engine=engine)
+        assert [v["reclaimed"] for v in res["volumes"]] == bench["gc"]["per_volume_reclaimed"]
+        assert [(v["wa"], v["gc_writes"]) for v in res["volumes"]] == [
+            (w["wa"], w["gc_writes"]) for w in bench["per_volume"]]
+    _assert_same_state(states["legacy"], states["tick"])
+
+
+# -- the static contracts as runtime properties, on the card ----------------------
+
+CARD_CONTRACT_CASES = [("replay", "tick", "elementwise"), ("step", "tick", "all"),
+                       ("step", "legacy", "all")]
+
+
+@pytest.mark.parametrize("engine,gc_engine,schemes", CARD_CONTRACT_CASES)
+@pytest.mark.parametrize("check", ["slices_isolated", "classes_in_range", "state_spec_kept",
+                                   "volumes_isolated"])
+def test_contracts_on_the_card(card, check, engine, gc_engine, schemes):
+    """SA101/102, SA301/302, SA202 and SA501 (`tests/test_torch_contracts.py`)
+    on the replay kernel (the elementwise schemes; it takes no other) and on
+    the step engine under both GC engines (every scheme)."""
+    import test_torch_contracts as contracts
+    names = contracts.ELEMENTWISE if schemes == "elementwise" else contracts.ALL
+    getattr(contracts, f"check_{check}")(names, gc_engine, device="cuda", engine=engine)
+
+
+def test_contracts_classify_in_range_on_the_card(card):
+    """SA301/302 for the classify kernel on the card, over hypothesis's rows."""
+    from hypothesis import given, settings
+
+    import test_torch_contracts as contracts
+
+    @settings(max_examples=100, deadline=None)
+    @given(contracts.classify_rows)
+    def check(rows):
+        contracts.check_classify_in_range(rows, device="cuda")
+
+    check()

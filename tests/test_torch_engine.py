@@ -187,13 +187,16 @@ def test_exhaustion_corner_matches_jax_and_keeps_its_envelope():
 ])
 def test_unported_config_values_raise(change, item):
     """The knobs of items 5 and 6 (timing, GC schedules, scheme groups) make
-    a config that replays equal to JAX; the legacy engine (item 7) still
-    raises when the config is made; the stateful schemes make a config and
+    a config that replays equal to JAX; the legacy engine (item 7) makes a
+    config, and the replay kernel refuses it before any launch, naming
+    ``engine="step"``, where it runs; the stateful schemes make a config and
     run on the step engine, and only the replay kernel refuses them (before
-    any launch, naming its ROADMAP item)."""
+    any launch, naming their ROADMAP item)."""
     if item == "item 7":
-        with pytest.raises(NotImplementedError, match=item):
-            TorchSimConfig(n_lbas=N, segment_size=SEG, **change)
+        cfg = TorchSimConfig(n_lbas=N, segment_size=SEG, **change)
+        st = torchsim.own_state(init_state(cfg, device="cpu"))
+        with pytest.raises(ValueError, match='engine="step"'):
+            treplay.check_inputs(cfg, st, torch.from_numpy(TRACES["zipf"][None]))
         return
     if item in ("item 5", "item 6"):
         jcfg = JaxSimConfig(n_lbas=N, segment_size=SEG, **change)

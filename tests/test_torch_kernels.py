@@ -190,7 +190,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 def _port_sources():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "fleet_sim_torch.py"]
+        ROOT / "chip_smoke.py", *sorted((ROOT / "examples").glob("*_torch.py"))]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
