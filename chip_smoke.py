@@ -22,38 +22,48 @@ Phases, in order; any failure raises and the script exits non-zero:
    bfloat16 output), a repeat bit-identical, then timed in bfloat16 beside
    scaled_dot_product_attention at each geometry (qwen3-32b's in the kernel
    table, and again with every row live), with the split grid;
-5. analysis: the paper's §3 at its own scale (n = 10 * 2^18): the eight
+5. serve: the LM serving path at qwen3-32b's full width in bfloat16 (65.5 GB
+   of random weights made on the card): the decode step with K5 against the
+   same step with its plain version (float32 on 2 layers within 1e-4;
+   bfloat16 on 64 within SERVE_K5_TOL of the largest logit), prefill plus
+   decode against the teacher-forced forward, then the reference serving
+   example's traffic (48 requests, batch 8) through the port's serving
+   functions, nosep then sepbit, its page store's WA equal to the CPU's; K5
+   launched 64 times per decode step and never by prefill; a profiled
+   decode window, a longer-context batch (B 8, prompt 1,024), and K5 timed
+   at both shapes beside scaled_dot_product_attention;
+6. analysis: the paper's §3 at its own scale (n = 10 * 2^18): the eight
    Fig 8 / Fig 10 points of the repository's benchmark, five of them held
    to the paper's values, all four figure grids through the Zipf kernel
    (one launch per pmf: 11 in each figure's part; every point counted;
    points shared by two calls equal bit for bit; the pmf made on the card
    compared with numpy's, printed), and Figs 9 / 11 on the benchmark-grade
    volume pool, equal on the card and on the CPU;
-6. engine parity: a reduced fleet replayed on the card by the replay kernel
+7. engine parity: a reduced fleet replayed on the card by the replay kernel
    and by the step engine (kernels K1 and K3 between PyTorch ops) must end
    in states bit-equal to the step engine's on the CPU; one volume replayed
    alone on the card under both engines (the replay kernel at V = 1, and the
    single-volume victim kernel K2) must equal its row of the fleet; in the
    free-pool exhaustion corner the replay kernel must equal the CPU and the
    step engine keep its envelope;
-7. main run: the 186-volume mixed corpus tiled over the four GC thresholds
+8. main run: the 186-volume mixed corpus tiled over the four GC thresholds
    of the repository's gcbench (744 volumes of 64 MiB at 4 KiB blocks),
    SepBIT with cost-benefit selection, replayed by the replay kernel and
    then by the step engine, every final key equal; eight of its volumes
    replayed over the whole trace by the step engine on the CPU, the replay
    kernel's plain version, equal to their rows; the replay kernel timed
    alone on both inputs;
-8. scale: the replay kernel alone on 32 volumes of 1 GiB, held to the
+9. scale: the replay kernel alone on 32 volumes of 1 GiB, held to the
    state invariants, its time and its victim scans' bytes per user write;
-9. profile: steady windows of both engines under torch.profiler;
-10. schemes: the paper's 14-scheme comparison (Exp#1): the 186-volume
+10. profile: steady windows of both engines under torch.profiler;
+11. schemes: the paper's 14-scheme comparison (Exp#1): the 186-volume
     corpus (16 MiB volumes) under each of the 14 placement schemes, 2,604
     volumes in one fleet through the step engine on the card (K1 and K3,
     the nine stateful schemes' branches between them); WA per scheme,
     ranked; one volume per scheme equal to the step engine on the CPU on
     every key, the elementwise volumes equal to the replay kernel's replay
     of them, which refuses the mixed fleet; a profiled steady window;
-11. sweep: the heterogeneous sweep of ``core/fleetshard.py`` at full width,
+12. sweep: the heterogeneous sweep of ``core/fleetshard.py`` at full width,
     the main run's corpus under 5 elementwise schemes x 2 selectors x GP
     0.10 / 0.15 / 0.20 (5,580 volumes of 64 MiB), timing model on, through
     the replay kernel's timing instance: grouped (one launch per scheme)
@@ -61,19 +71,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     (scheme, selector) pair equal to the step engine on the CPU (run in a
     worker beside the card), the accounting conserved; per cell WA, mean
     +- CI and p50 / p99; the kernel timed alone with timing on and off;
-12. latency: the committed ``BENCH_gc_latency.json`` reproduced on every
+13. latency: the committed ``BENCH_gc_latency.json`` reproduced on every
     field (nosep / sepgc / sepbit on the replay kernel, fk on the step
     engine), then greedy / rate_limited / idle_window x nosep / sepgc /
     sepbit at full width (1,674 volumes): overflow 0, rate_limited's GC
     writes equal to greedy's, the accounting conserved, one volume per cell
     equal to the CPU on every key;
-13. gcbench: the JAX package's gcbench fleet (16 volumes of 1 MiB, segment
+14. gcbench: the JAX package's gcbench fleet (16 volumes of 1 MiB, segment
     32, sepbit, cost-benefit, GC thresholds 0.08-0.22) under the legacy GC
     engine on the step engine and the tick engine on the replay kernel, each
     reproducing ``BENCH_fleet_gc.json``'s per-volume reclaimed counts, WA and
     GC writes, equal to each other on every key, with each engine's steady
     volumes/s; one volume alone under legacy (K2) equal to its fleet row;
-14. legacy: the main run's 744 volumes through a prefix of their steps
+15. legacy: the main run's 744 volumes through a prefix of their steps
     under the legacy GC engine on the card's step engine (K1 at loop entry on
     every write, K3 on every rewrite), equal on every key to the replay
     kernel on the same prefix and, on eight volumes, to the legacy engine on
@@ -128,6 +138,23 @@ PAPER_TOL = {77.1: 0.2, 87.1: 0.3, 9.5: 0.2, 41.2: 0.3, 14.9: 0.3}
 QWEN3_32B, STARCODER2_3B, PHI3_MINI = (64, 8, 128), (24, 2, 128), (32, 32, 96)
 DECODE_TIMED, DECODE_CHECKED = (16, 8192), (8, 4096)
 PREV_DECODE_MS = 1.472         # K5 before the split-KV design, at the timed shape (PERF.md, run D)
+SERVE_ARCH = "qwen3-32b"       # [serve]: K5's timed geometry, at full width in bfloat16
+SERVE_SEED = 20
+# examples/serve_paged.py's defaults: requests, batch, prompt, page, max new tokens
+SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_PAGE, SERVE_MAX_NEW = 48, 8, 16, 8, 96
+SERVE_WA = {"nosep": 3.990, "sepbit": 2.193}   # the example's store accounting on the CPU
+SERVE_STEPS, SERVE_PREFILLS = 140, 48          # per policy, the same accounting
+CHECK_B, CHECK_PROMPT, CHECK_STEPS = 2, 8, 4   # tests/test_models.py's decode-vs-forward pattern
+CHECK_F32_LAYERS = 2
+CHECK_F32_TOL = 1e-4           # (a) K5 against its plain version in float32, logits, absolute
+# (b) and (c) in bfloat16: the largest logit difference over the largest |logit|. The
+# first run on the card (NVIDIA H100 80GB HBM3, 700 W) measured 6.33e-3 in both: one
+# bfloat16 ulp (2^-5) of a logit in [4, 8), at a largest |logit| of 4.94
+SERVE_K5_TOL = 2e-2
+SERVE_FWD_TOL = 2e-2
+LONG_B, LONG_PROMPT, LONG_STEPS = 8, 1024, 32  # [serve]'s longer-context batch
+PROFILE_SERVE_STEPS = 4
+K5_KERNELS = ("split_kernel", "combine_kernel")   # csrc/decode_attn.cu's two passes
 
 
 def log(msg: str) -> None:
@@ -178,16 +205,20 @@ def max_abs_err(a, b) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> dict:
     import torch
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()
-    log(smi[0])
+    smi = _smi()
+    log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     return {"kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
-            "smi": smi[0]}
+            "smi": smi}
 
 
 def phase_build() -> None:
@@ -1901,6 +1932,356 @@ def phase_legacy() -> dict:
     return {"counts": counts, "steps": T, "wall": wall, "rows": cfg.n_rows, "V": V}
 
 
+def _generate(model, params, toks, prompt: int):
+    """Prefill ``toks[:, :prompt]`` into a fresh cache, then decode the rest
+    of ``toks`` one teacher-forced step at a time: (1 + steps, B, V) float32
+    logits, the prefill's first."""
+    import torch
+    B, S = toks.shape
+    cache = model.init_cache(B, S, device="cuda")
+    lg, cache = model.prefill(params, {"tokens": toks[:, :prompt]}, cache)
+    out = [lg.float()]
+    for t in range(prompt, S):
+        lg, cache = model.decode_step(params, toks[:, t:t + 1], cache)
+        out.append(lg.float())
+    return torch.stack(out)
+
+
+def _k5_against_plain(model, params, toks) -> tuple:
+    """The same weights and tokens decoded with K5 and with its plain version
+    (`ref.flash_decode_ref` in the decode step's place): (K5's logits, the
+    plain run's, the largest difference, the largest |logit| of the plain
+    run)."""
+    from unittest import mock
+
+    from repro_torch.kernels import decode_attn, ref
+    got = _generate(model, params, toks, CHECK_PROMPT)
+    with mock.patch.object(decode_attn, "flash_decode_unread", ref.flash_decode_ref):
+        plain = _generate(model, params, toks, CHECK_PROMPT)
+    return got, plain, float((got - plain).abs().max()), float(plain.abs().max())
+
+
+def _take_launches() -> int:
+    """K5's launches since the last reset; the counts reset."""
+    from repro_torch.kernels import ops
+    n = ops.launch_counts()["flash_decode"]
+    ops.reset_launch_counts()
+    return n
+
+
+def decode_step_bound(cfg, params, kv_lens) -> dict:
+    """The least time of one decode step at batch B = len(kv_lens): every
+    parameter but the embedding table read once, the B embedding rows, each
+    layer's K and V rows up to kv_len read and the new row written, the
+    bfloat16 logits written; the products' operations at the bf16 rate."""
+    B = len(kv_lens)
+    size = cfg.pdtype().itemsize
+    weights = sum(t.numel() for t in _leaves(params)) - params["embed"].numel()
+    kv_row = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.hd * size
+    n_bytes = ((weights + B * cfg.d_model) * size + (sum(kv_lens) + B) * kv_row
+               + B * cfg.vocab * size)
+    n_ops = 2 * B * weights + 4 * cfg.n_layers * cfg.n_heads * cfg.hd * sum(kv_lens)
+    return {**bound(n_bytes, n_ops, BF16_FLOPS), "bytes": n_bytes, "kv_row_bytes": kv_row}
+
+
+def _leaves(tree) -> list:
+    from repro_torch.models.common import tree_map
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+class _StepTimer:
+    """Wraps a step function: CUDA events around each call (device stream
+    time, idle gaps included) and the host's time to enqueue it."""
+
+    def __init__(self, fn):
+        self.fn, self.events, self.host = fn, [], []
+
+    def __call__(self, *args):
+        import torch
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = self.fn(*args)
+        end.record()
+        self.host.append(time.perf_counter() - t0)
+        self.events.append((start, end))
+        return out
+
+    def device_ms(self) -> float:
+        """Mean device ms per call (after a synchronize)."""
+        return float(np.mean([s.elapsed_time(e) for s, e in self.events]))
+
+
+def _count_syncs(fn):
+    """``fn()`` with PyTorch's sync debug mode on: (its result, the number of
+    synchronizing calls it warned of). Logs where each was made."""
+    import warnings
+
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # PyTorch's warning for each synchronizing call (not its one-time prototype notice)
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    for w in syncs:
+        log(f"[serve]   host sync at {w.filename}:{w.lineno}: {str(w.message)[:100]}")
+    return out, len(syncs)
+
+
+def _k5_row(tag, q, k, v, kl) -> dict:
+    """K5 at a serving shape against its plain version, timed beside the
+    plain version and scaled_dot_product_attention on the same inputs."""
+    from repro_torch.kernels import decode_attn, ref
+    out = decode_attn.flash_decode(q, k, v, kl)
+    ok, err, err32 = _decode_check(out, q, k, v, kl)
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    row = {"shape": [B, S, Hq, Hkv, D], "kv_rows": int(kl.clamp(max=S).sum()),
+           "max_abs_err": err, "ms": time_ms(lambda: decode_attn._launch(q, k, v, kl), reps=20),
+           "plain_ms": time_ms(lambda: ref.flash_decode_ref(q, k, v, kl), reps=5),
+           **_decode_bound(q, k, v, kl), "library_ms": _decode_library(q, k, v, kl)[1]}
+    log(f"[serve] K5 at the {tag} shape (B, S, Hq, Hkv, D) {row['shape']}, {row['kv_rows']} KV "
+        f"rows: {row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, "
+        f"scaled_dot_product_attention {row['library_ms'] * 1e3:.2f} us, bound "
+        f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}); max |err| {err:.3e}, against "
+        f"float32 {err32:.3e} ok={ok}")
+    if not ok:
+        raise AssertionError(f"K5 disagrees with its plain version at the {tag} shape")
+    return row
+
+
+def phase_serve() -> dict:
+    """The LM serving path at qwen3-32b's full width in bfloat16 on the card
+    (weights random from a seeded generator on the card, not JAX's values):
+    (a) K5 against its plain version in float32 on 2 of the 64 layers; (b)
+    the same in bfloat16 on all 64; (c) prefill plus decode against the
+    teacher-forced forward; the reference example's traffic served through
+    the port's serving functions, nosep then sepbit, its WA equal to the CPU
+    accounting's; a profiled decode step; a longer-context batch. K5's
+    launches equal n_layers per decode step; prefill and forward launch
+    none. Returns K5's serving rows and launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serving import make_decode_fn, make_prefill_fn, request_traffic, serve_paged
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    smi = _smi()
+    cfg = get_config(SERVE_ARCH)
+    rng = np.random.default_rng(SERVE_SEED)
+    check_toks = torch.from_numpy(rng.integers(0, cfg.vocab, (CHECK_B, CHECK_PROMPT + CHECK_STEPS),
+                                               dtype=np.int32)).cuda()
+    log(f"[serve] {smi}; {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads} / {cfg.n_kv_heads}, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.n_params():,} parameters; weights random from torch.Generator(cuda) seed "
+        f"{SERVE_SEED} by the reference's init rule (stacked fan-in), not JAX's values")
+    ops.reset_launch_counts()
+    k5_steps = 0                       # n_layers x decode steps through K5 in the phase
+    seen = 0                           # K5 launches counted in the phase
+
+    # (a) float32, 2 layers: K5 against its plain version, tight
+    cfg32 = dataclasses.replace(cfg, n_layers=CHECK_F32_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    model = build_model(cfg32)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(SERVE_SEED))
+    _, _, err, top = _k5_against_plain(model, params, check_toks)
+    k5_steps += cfg32.n_layers * CHECK_STEPS
+    log(f"[serve] (a) float32, {cfg32.n_layers} layers, B {CHECK_B}, prompt {CHECK_PROMPT}, "
+        f"{CHECK_STEPS} decode steps: logits with K5 against its plain version, max |diff| "
+        f"{err:.3e} (tolerance {CHECK_F32_TOL:.0e}), max |logit| {top:.3f}")
+    if not err <= CHECK_F32_TOL:
+        raise AssertionError(f"[serve] (a) K5 and its plain version differ by {err:.3e}")
+    del model, params
+    torch.cuda.empty_cache()
+
+    # the model at full width in bfloat16, made on the card
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(SERVE_SEED))
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[serve] bfloat16 weights made on the card in {time.perf_counter() - t0:.2f} s: "
+        f"{weight_bytes:,} bytes ({weight_bytes / 2**30:.2f} GiB); device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # (b) bfloat16, all layers: K5 against its plain version
+    got, plain, err, top = _k5_against_plain(model, params, check_toks)
+    k5_steps += cfg.n_layers * CHECK_STEPS
+    log(f"[serve] (b) bfloat16, {cfg.n_layers} layers: logits with K5 against its plain version, "
+        f"max |diff| {err:.4e} = {err / top:.4e} of max |logit| {top:.4f} (tolerance "
+        f"{SERVE_K5_TOL}); greedy token equal at {int((got.argmax(-1) == plain.argmax(-1)).sum())} "
+        f"of {got.shape[0] * got.shape[1]}")
+    if not err <= SERVE_K5_TOL * top:
+        raise AssertionError(f"[serve] (b) K5 and its plain version differ by {err / top:.3e}")
+
+    # (c) prefill + stepwise decode against the teacher-forced forward
+    seen += _take_launches()
+    full = model.forward(params, {"tokens": check_toks})[0][:, CHECK_PROMPT - 1:].float()
+    full = full.transpose(0, 1)
+    if _take_launches() != 0:
+        raise AssertionError("[serve] forward launched K5")
+    err, top = float((got - full).abs().max()), float(full.abs().max())
+    agree = int((got.argmax(-1) == full.argmax(-1)).sum())
+    log(f"[serve] (c) prefill + {CHECK_STEPS} decode steps against the teacher-forced forward: "
+        f"max |diff| {err:.4e} = {err / top:.4e} of max |logit| {top:.4f} (tolerance "
+        f"{SERVE_FWD_TOL}); greedy token equal at {agree} of {full.shape[0] * full.shape[1]}")
+    if not err <= SERVE_FWD_TOL * top:
+        raise AssertionError(f"[serve] (c) decode and forward differ by {err / top:.3e}")
+    del got, plain, full
+    log(f"[serve] peak device memory so far {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the served run: the reference example's traffic at full width; the sync
+    # counter first shown to see a known synchronizing call
+    if _count_syncs(lambda: torch.ones(1, device="cuda").item())[1] < 1:
+        raise AssertionError("[serve] the sync counter does not see .item()")
+    lengths, prompts = request_traffic(SERVE_REQUESTS, SERVE_MAX_NEW, SERVE_PROMPT, cfg.vocab)
+    prompts = torch.from_numpy(prompts.astype(np.int32)).cuda()   # uploaded outside the loop
+    prefill = make_prefill_fn(model, cfg)
+    served = {}
+    ops.reset_launch_counts()          # the main path: counts from 0, read just after
+    for policy in ("nosep", "sepbit"):
+        cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_MAX_NEW + 8, device="cuda")
+        decode = _StepTimer(make_decode_fn(model, cfg))
+        timed_prefill = _StepTimer(prefill)
+        st, syncs = _count_syncs(lambda: serve_paged(
+            timed_prefill, decode, params, cache, prompts, lengths, policy=policy,
+            page_tokens=SERVE_PAGE))
+        served[policy] = dict(st, syncs=syncs, step_ms=decode.device_ms(),
+                              host_ms=1e3 * float(np.mean(decode.host)),
+                              prefill_ms=timed_prefill.device_ms())
+        log(f"[serve] {policy}: WA {st['wa']:.3f} (gc_pages {st['gc_writes']}, alloc failures "
+            f"{st['alloc_failures']}), {st['decode_steps']} decode steps, {st['prefills']} "
+            f"prefills, {st['tokens']} tokens in {st['wall']:.3f} s = "
+            f"{st['tokens'] / st['wall']:.1f} tokens/s; decode step "
+            f"{served[policy]['step_ms']:.3f} "
+            f"ms on the device, {served[policy]['host_ms']:.3f} ms to enqueue; prefill (B "
+            f"{SERVE_BATCH}, S {SERVE_PROMPT}) {served[policy]['prefill_ms']:.3f} ms; host syncs "
+            f"in the loop {syncs} ({syncs / st['decode_steps']:.4f} per decode step)")
+        if (round(st["wa"], 3), st["alloc_failures"], st["decode_steps"], st["prefills"]) != (
+                SERVE_WA[policy], 0, SERVE_STEPS, SERVE_PREFILLS):
+            raise AssertionError(f"[serve] {policy}: the store's accounting differs from the "
+                                 f"CPU's (WA {SERVE_WA[policy]}, {SERVE_STEPS} steps, "
+                                 f"{SERVE_PREFILLS} prefills, 0 alloc failures)")
+        del cache
+    served_launches = _take_launches()
+    seen += served_launches
+    steps = sum(s["decode_steps"] for s in served.values())
+    log(f"[serve] served run: flash_decode launches {served_launches} = {cfg.n_layers} x "
+        f"{steps} decode steps (its {2 * SERVE_PREFILLS} prefills none): "
+        f"{served_launches == cfg.n_layers * steps}")
+    if served_launches != cfg.n_layers * steps:
+        raise AssertionError("[serve] the served run's decode steps did not all go through K5")
+    k5_steps += cfg.n_layers * steps
+
+    # a profiled decode window at the served shape
+    decode = make_decode_fn(model, cfg)
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_MAX_NEW + 8, device="cuda")
+    lg, cache = prefill(params, {"tokens": prompts[0].expand(SERVE_BATCH, -1)}, cache)
+    cur = lg.argmax(-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_SERVE_STEPS):
+            cur, _, cache = decode(params, cur, cache)
+            cur = cur[:, None]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    k5_steps += cfg.n_layers * PROFILE_SERVE_STEPS
+    rows = [e for e in prof.key_averages() if _device_us(e) > 0]
+    kernels = [e for e in rows if e.device_type.name == "CUDA"] or rows
+    busy = sum(_device_us(e) for e in kernels) or float("nan")   # nan: no device time seen
+    k5_us = sum(_device_us(e) for e in kernels if any(n in e.key for n in K5_KERNELS))
+    n_kernels = sum(e.count for e in kernels)
+    log(f"[serve] profiled {PROFILE_SERVE_STEPS} decode steps (B {SERVE_BATCH}, kv_len "
+        f"{SERVE_PROMPT + 1}-{SERVE_PROMPT + PROFILE_SERVE_STEPS}): wall {wall * 1e3:.3f} ms, "
+        f"device busy {busy / 1e3:.3f} ms = {100 * busy / 1e6 / wall:.2f}% of wall, "
+        f"{n_kernels / PROFILE_SERVE_STEPS:.1f} kernels per step; K5 {k5_us / 1e3:.3f} ms = "
+        f"{100 * k5_us / busy:.2f}% of the device time")
+    for e in sorted(kernels, key=lambda e: -_device_us(e))[:8]:
+        log(f"[serve]   {e.key[:70]:70s} {_device_us(e):12.1f} us x{e.count}")
+    served_cache = cache
+
+    # the longer-context batch
+    decode = _StepTimer(make_decode_fn(model, cfg))
+    cache = model.init_cache(LONG_B, LONG_PROMPT + LONG_STEPS, device="cuda")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (LONG_B, LONG_PROMPT),
+                                         dtype=np.int32)).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = prefill(params, {"tokens": toks}, cache)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    cur = lg.argmax(-1).to(torch.int32)[:, None]
+
+    def long_decode():
+        nonlocal cur, cache
+        for _ in range(LONG_STEPS):
+            nxt, _, cache = decode(params, cur, cache)
+            cur = nxt[:, None]
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, syncs = _count_syncs(long_decode)
+    wall = time.perf_counter() - t0
+    k5_steps += cfg.n_layers * LONG_STEPS
+    limit = {"bound_ms": float(np.mean([    # each step's, kv_len = prompt + step
+        decode_step_bound(cfg, params, [LONG_PROMPT + t] * LONG_B)["bound_ms"]
+        for t in range(1, LONG_STEPS + 1)]))}
+    limit.update({k: v for k, v in decode_step_bound(cfg, params, [LONG_PROMPT + 1] * LONG_B)
+                  .items() if k != "bound_ms"})
+    long_ms = decode.device_ms()
+    log(f"[serve] long context B {LONG_B}, prompt {LONG_PROMPT}: prefill {t_prefill:.3f} s; "
+        f"{LONG_STEPS} decode steps in {wall:.3f} s, {long_ms:.3f} ms per step on the device "
+        f"({1e3 * float(np.mean(decode.host)):.3f} ms to enqueue), bound {limit['bound_ms']:.3f} "
+        f"ms, the mean of its steps' ({limit['bound_by']}; {limit['bytes']:,} bytes at the first, "
+        f"{limit['kv_row_bytes']:,} KV bytes per cached token) = "
+        f"{long_ms / limit['bound_ms']:.3f}x "
+        f"the bound, {LONG_B * 1e3 / long_ms:.1f} tokens/s; host syncs {syncs}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    served_limit = decode_step_bound(cfg, params, [SERVE_PROMPT + 1] * SERVE_BATCH)
+    log(f"[serve] served decode step bound {served_limit['bound_ms']:.3f} ms at kv_len "
+        f"{SERVE_PROMPT + 1}, the run's least (the weights dominate): the served run's "
+        f"{served['sepbit']['step_ms']:.3f} ms is "
+        f"{served['sepbit']['step_ms'] / served_limit['bound_ms']:.3f}x")
+    seen += _take_launches()
+    log(f"[serve] flash_decode launches over the phase {seen} = n_layers x decode steps "
+        f"{k5_steps}: {seen == k5_steps}")
+    if seen != k5_steps:
+        raise AssertionError("[serve] K5's launches differ from n_layers x decode steps")
+
+    # K5 alone at the two shapes, on layer 0's cache (launches not counted)
+    rows = {}
+    for tag, c, B in (("served", served_cache, SERVE_BATCH), ("long-context", cache, LONG_B)):
+        q = torch.randn(B, cfg.n_heads, cfg.hd, generator=torch.Generator(
+            device="cuda").manual_seed(SERVE_SEED), device="cuda").to(torch.bfloat16)
+        layer0 = c["blocks"]["p0_attn"]
+        rows[tag] = _k5_row(tag, q, layer0["k"][0], layer0["v"][0], c["pos"])
+    del cache, served_cache, layer0, params, model
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve] peak device memory {peak / 2**30:.2f} GiB; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": served_launches, "decode_steps": steps,
+            "served": {**rows["served"], "step_ms": served["sepbit"]["step_ms"],
+                       "step_bound_ms": served_limit["bound_ms"]},
+            "long_context": {**rows["long-context"], "step_ms": long_ms,
+                             "step_bound_ms": limit["bound_ms"]},
+            "peak_gib": peak / 2**30}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1919,6 +2300,9 @@ def main() -> int:
                             fleet_config(PARITY_N_LBAS).n_rows)
     kernels += phase_zipf_kernel()
     decode_row, decode_launches = phase_decode()
+    serve = phase_serve()
+    decode_row["serve_path"] = {key: serve[key] for key in ("launches", "decode_steps", "served",
+                                                           "long_context")}
     kernels.append(decode_row)
     analysis_launches = phase_analysis()
     single_rows, k2_launches = phase_parity()

@@ -2,9 +2,12 @@
 
 A CUDA tensor goes to the hand-written kernel in ``csrc/decode_attn.cu``; a
 CPU tensor goes to the plain PyTorch version in `ref`. There is no fallback
-from one to the other. ``launches`` counts the kernel's launches. No model of
-the port calls this; like the JAX package's kernel, its entry point is
-`flash_decode` itself.
+from one to the other. ``launches`` counts the kernel's launches. The kernel
+takes D in `HEAD_DIMS` and at most `MAX_GROUP` query heads per KV head; the
+plain version takes any. The model's decode step (`models.common.
+decode_attend`) calls `flash_decode_unread`, once per layer and token: its
+``kv_len = pos + 1`` is at least 1 by construction, so that entry reads
+nothing from the device. `flash_decode` checks the lengths with one read.
 """
 
 from __future__ import annotations
@@ -60,15 +63,22 @@ def _check_shapes(q, k, v, kv_len) -> torch.device:
     if B < 1 or S < 1 or Hkv < 1 or Hq % Hkv != 0:
         raise ValueError(f"need B, S, Hkv >= 1 and Hq % Hkv == 0, got B={B} S={S} Hq={Hq} "
                          f"Hkv={Hkv}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} is not one the kernel takes {HEAD_DIMS}")
-    if Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"{Hq // Hkv} query heads per KV head; at most {MAX_GROUP}")
     device = check_tensors({"q": q}, (B, Hq, D), q.dtype)
     if (check_tensors({"k": k, "v": v}, (B, S, Hkv, D), q.dtype) != device
             or check_tensors({"kv_len": kv_len}, (B,)) != device):
         raise ValueError("q, k, v and kv_len must be on one device")
+    if device.type == "cuda":
+        check_kernel_shape(Hq, Hkv, D)
     return device
+
+
+def check_kernel_shape(Hq: int, Hkv: int, D: int) -> None:
+    """Raise unless the kernel takes head dim ``D`` and ``Hq / Hkv`` query
+    heads per KV head (the plain version takes any)."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} is not one the kernel takes {HEAD_DIMS}")
+    if Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"{Hq // Hkv} query heads per KV head; at most {MAX_GROUP}")
 
 
 def flash_decode(q, k, v, kv_len):
@@ -76,13 +86,22 @@ def flash_decode(q, k, v, kv_len):
     k and v (B, S, Hkv, D), the G = Hq / Hkv query heads of a KV head sharing
     its rows, positions >= ``kv_len`` (B,) int32 masked. Returns (B, Hq, D)
     in q's dtype. Takes float32 or bfloat16 (one dtype for q, k and v), D in
-    `HEAD_DIMS` and G <= `MAX_GROUP`, all contiguous. Every ``kv_len`` must
-    be at least 1 (one read of it from the device; an empty history has no
-    softmax) and raises otherwise; a length above S counts as S."""
-    device = _check_shapes(q, k, v, kv_len)
+    `HEAD_DIMS` and G <= `MAX_GROUP` on CUDA (any on the CPU), all
+    contiguous. Every ``kv_len`` must be at least 1 (one read of it from the
+    device; an empty history has no softmax) and raises otherwise; a length
+    above S counts as S."""
+    _check_shapes(q, k, v, kv_len)
     if int(kv_len.min()) < 1:
         raise ValueError("every kv_len must be >= 1")
-    if device.type == "cpu":
+    return flash_decode_unread(q, k, v, kv_len)
+
+
+def flash_decode_unread(q, k, v, kv_len):
+    """`flash_decode` for a caller whose every ``kv_len`` is at least 1 by
+    construction, as the decode step's ``pos + 1``: the same checks of
+    layouts, dtypes and sizes, and no read of the device, so a decode loop
+    never waits for the card."""
+    if _check_shapes(q, k, v, kv_len).type == "cpu":
         return flash_decode_ref(q, k, v, kv_len)
     return _launch(q, k, v, kv_len)
 

@@ -1,0 +1,333 @@
+"""Shared model substrate of the port: param specs, norms, RoPE, attention, MLP.
+
+The twin of the JAX package's ``models/common.py``, op for op in its order and
+dtypes. Parameters are described by ``ParamSpec`` trees (shape + logical axes
++ init); `init_tree` makes them on a device from a ``torch.Generator``. The
+values are not JAX's (the generators differ); the CPU tests carry JAX's
+parameters across with ``convert.lm_params_from_numpy``.
+
+RoPE uses the interleaved (even/odd pair) formulation, as the reference does.
+Decode attention without a window is K5, ``kernels.decode_attn``: the CUDA
+kernel for CUDA tensors (a head dim it does not take raises), its plain
+version for CPU ones. Prefill attention, the projections and the MLP are
+plain matrix products, as the JAX package leaves them to XLA.
+
+Not ported yet (ROADMAP Queue 1 item 9.1): ``moe_specs`` / ``moe_block`` and
+the sequence-parallel branch of ``mha``; cross-attention (``mha``'s ``kv``)
+comes with whisper (item 9.3).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import decode_attn
+
+INIT_CHUNK = 1 << 26            # normal draws per call, so no float32 copy of a whole tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple
+    axes: tuple                      # logical axis names, len == len(shape)
+    init: str = "normal"             # normal | zeros | ones | embed
+    scale: float = 1.0               # stddev multiplier / fan-in override
+
+
+def tree_map(fn, tree):
+    """``fn`` on every leaf of nested dicts, lists and tuples (a ``ParamSpec``
+    is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def make_param(spec: ParamSpec, generator: torch.Generator, dtype: torch.dtype) -> torch.Tensor:
+    """One parameter on ``generator``'s device by the reference's rule: a
+    normal draw times ``scale / sqrt(fan_in)`` (fan_in = every axis but the
+    last for 3-D and up, so a stacked tensor's layers axis counts), or times
+    ``scale`` for ``embed``; drawn in float32 and cast, INIT_CHUNK values at
+    a time."""
+    device = generator.device
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.full(spec.shape, spec.scale, dtype=dtype, device=device)  # constant init
+    if spec.init == "embed":
+        std = spec.scale
+    else:
+        fan_in = spec.shape[0] if len(spec.shape) > 1 else max(spec.shape[0], 1)
+        if len(spec.shape) >= 3:  # (.., in, out) conventions: all but last are in
+            fan_in = math.prod(spec.shape[:-1])
+        std = spec.scale / math.sqrt(max(fan_in, 1))
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for a in range(0, flat.numel(), INIT_CHUNK):
+        n = min(INIT_CHUNK, flat.numel() - a)
+        flat[a:a + n] = (torch.randn(n, generator=generator, device=device) * std).to(dtype)
+    return out
+
+
+def init_tree(specs, generator: torch.Generator, dtype: torch.dtype):
+    """Every ``ParamSpec`` of ``specs`` made by `make_param`, in tree order."""
+    return tree_map(lambda s: make_param(s, generator, dtype), specs)
+
+
+def stack_spec(spec: ParamSpec, n: int) -> ParamSpec:
+    """Prepend a stacked-layers axis."""
+    return ParamSpec((n,) + spec.shape, ("layers",) + spec.axes, spec.init, spec.scale)
+
+
+def stack_tree(specs, n: int):
+    return tree_map(lambda s: stack_spec(s, n), specs)
+
+
+def tree_index(tree, i: int):
+    """Layer ``i`` of a stacked tree: views, no copies."""
+    return tree_map(lambda a: a[i], tree)
+
+
+# -- norms --------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps=1e-6):
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * (1.0 + scale.to(x.dtype))
+
+
+def layernorm(x, scale, bias, eps=1e-5):
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * scale.to(x.dtype) + bias.to(x.dtype)
+
+
+def norm_specs(cfg, dim_axis="act_embed", dim=None):
+    d = dim or cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"scale": ParamSpec((d,), (dim_axis,), "ones"),
+                "bias": ParamSpec((d,), (dim_axis,), "zeros")}
+    return {"scale": ParamSpec((d,), (dim_axis,), "zeros")}
+
+
+def apply_norm(cfg, p, x):
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
+    return rmsnorm(x, p["scale"])
+
+
+# -- positions ----------------------------------------------------------------
+
+def rope_freqs(hd: int, fraction: float, theta: float, device=None):
+    rot = int(hd * fraction) // 2 * 2
+    inv = 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot))
+    return inv, rot
+
+
+def rope_angles(positions, hd: int, fraction: float, theta: float):
+    """(cos, sin) of the rotation at ``positions`` (..., S), each (..., S, 1,
+    rot/2); None where no dim rotates. The decode and prefill steps make
+    them once for all layers."""
+    inv, rot = rope_freqs(hd, fraction, theta, positions.device)
+    if rot == 0:
+        return None
+    ang = positions[..., None].to(torch.float32) * inv  # (..., S, rot/2)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def rotate(x, angles):
+    """Interleaved RoPE of x (..., S, H, D) by `rope_angles`' tables."""
+    if angles is None:
+        return x
+    cos, sin = angles
+    rot = 2 * cos.shape[-1]
+    xr = x[..., :rot].to(torch.float32)
+    x_even = xr[..., 0::2]
+    x_odd = xr[..., 1::2]
+    r_even = x_even * cos - x_odd * sin
+    r_odd = x_even * sin + x_odd * cos
+    out = torch.stack([r_even, r_odd], dim=-1).reshape(xr.shape).to(x.dtype)
+    return out if rot == x.shape[-1] else torch.cat([out, x[..., rot:]], dim=-1)
+
+
+def apply_rope(x, positions, *, fraction=1.0, theta=1e4):
+    """Interleaved RoPE. x: (..., S, H, D); positions: (..., S)."""
+    return rotate(x, rope_angles(positions, x.shape[-1], fraction, theta))
+
+
+def sinusoidal_pos(positions, d):
+    inv = 1.0 / (10000 ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                        device=positions.device) / d))
+    ang = positions[..., None].to(torch.float32) * inv
+    pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return pe[..., :d]
+
+
+# -- attention ----------------------------------------------------------------
+
+def attention_specs(cfg):
+    d, H, Hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    specs = {
+        "wq": ParamSpec((d, H, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, Hk, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, Hk, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((H, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.use_bias:
+        specs["bq"] = ParamSpec((H, hd), ("heads", "head_dim"), "zeros")
+        specs["bk"] = ParamSpec((Hk, hd), ("kv_heads", "head_dim"), "zeros")
+        specs["bv"] = ParamSpec((Hk, hd), ("kv_heads", "head_dim"), "zeros")
+        specs["bo"] = ParamSpec((d,), ("act_embed",), "zeros")
+    if cfg.qk_norm:
+        specs["q_norm"] = ParamSpec((hd,), ("head_dim",), "zeros")
+        specs["k_norm"] = ParamSpec((hd,), ("head_dim",), "zeros")
+    return specs
+
+
+def heads_in(x, w):
+    """einsum("bsd,dhk->bshk"): one matrix product over the flattened heads."""
+    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+def heads_out(o, w):
+    """einsum("bshk,hkd->bsd"): one matrix product over the flattened heads."""
+    return o.flatten(-2) @ w.reshape(-1, w.shape[-1])
+
+
+def rope_for(cfg, positions):
+    """`rope_angles` of ``cfg``'s RoPE at ``positions``, or None without it."""
+    if cfg.pos != "rope":
+        return None
+    return rope_angles(positions, cfg.hd, cfg.rope_fraction, cfg.rope_theta)
+
+
+def qkv(cfg, p, x, rope):
+    """q, k, v of the attention block, biased, qk-normed and rotated by
+    ``rope`` (`rope_for`) as the reference's ``mha``, ``_prefill_block`` and
+    ``_decode_block`` each do."""
+    cd = x.dtype
+    q = heads_in(x, p["wq"].to(cd))
+    k = heads_in(x, p["wk"].to(cd))
+    v = heads_in(x, p["wv"].to(cd))
+    if cfg.use_bias:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    return rotate(q, rope), rotate(k, rope), v
+
+
+def attn_out(cfg, p, out):
+    y = heads_out(out, p["wo"].to(out.dtype))
+    if cfg.use_bias:
+        y = y + p["bo"].to(out.dtype)
+    return y
+
+
+def _mask_bias(mode, q_pos, k_pos, window=0):
+    """(..., Sq, Sk) additive mask. mode: causal | prefix | full | window."""
+    if mode == "full":
+        return None
+    diff = q_pos[..., :, None] - k_pos[..., None, :]
+    if mode == "window":
+        ok = (diff >= 0) & (diff < window)
+    else:
+        ok = diff >= 0
+    return torch.where(ok, 0.0, -1e30)
+
+
+def mha(cfg, p, x, positions, *, mode="causal", prefix_len=None, window=0):
+    """Self-attention. x: (B, S, D) -> (B, S, D)."""
+    q, k, v = qkv(cfg, p, x, rope_for(cfg, positions))
+    out = gqa_attend(q, k, v, mode=mode, q_pos=positions, k_pos=positions,
+                     prefix_len=prefix_len, window=window)
+    return attn_out(cfg, p, out)
+
+
+def gqa_attend(q, k, v, *, mode, q_pos, k_pos, prefix_len=None, window=0):
+    """(B,Sq,H,hd) x (B,Sk,Hk,hd) -> (B,Sq,H,hd), fp32 softmax. The float32
+    scores are scaled and masked in place (the reference's values; one
+    (B, Hk, G, Sq, Sk) float32 buffer fewer)."""
+    B, Sq, H, hd = q.shape
+    Hk = k.shape[2]
+    G = H // Hk
+    qg = q.reshape(B, Sq, Hk, G, hd)
+    scores = torch.einsum("bqhgk,bshk->bhgqs", qg, k).to(torch.float32)
+    scores.div_(math.sqrt(hd))
+    bias = _mask_bias(mode, q_pos, k_pos, window)
+    if bias is not None:
+        if bias.dim() == 2:
+            bias = bias[None, None, None]
+        elif bias.dim() == 3:  # (B, Sq, Sk)
+            bias = bias[:, None, None]
+        scores.add_(bias)
+    if prefix_len is not None:  # prefix-LM: bidirectional attention in prefix
+        both_prefix = (q_pos[..., :, None] < prefix_len[..., None, None]) & \
+                      (k_pos[..., None, :] < prefix_len[..., None, None])
+        raw = torch.einsum("bqhgk,bshk->bhgqs", qg, k).to(torch.float32) / math.sqrt(hd)
+        scores = torch.where(both_prefix[:, None, None], raw, scores)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    del scores
+    out = torch.einsum("bhgqs,bshk->bqhgk", w, v)
+    return out.reshape(B, Sq, H, hd)
+
+
+def decode_attend(q, k_cache, v_cache, kv_len, *, window=0):
+    """Single-token decode. q: (B,1,H,hd); caches: (B,S,Hk,hd), contiguous;
+    kv_len (B,) int32, each at least 1. K5 on CUDA tensors, its plain
+    version on CPU ones; both keep the softmax weights in float32 for the PV
+    product, where the reference casts them to q's dtype first (equal in
+    float32, within bfloat16's rounding otherwise). Reads nothing from the
+    device."""
+    if window:
+        raise NotImplementedError("windowed decode attention (attn_local) is not ported yet: "
+                                  "ROADMAP Queue 1 item 9.2")
+    B, _, H, hd = q.shape
+    out = decode_attn.flash_decode_unread(q.reshape(B, H, hd).contiguous(), k_cache, v_cache,
+                                          kv_len)
+    return out.reshape(B, 1, H, hd)
+
+
+# -- MLP ----------------------------------------------------------------------
+
+def mlp_specs(cfg):
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp == "swiglu":
+        specs = {
+            "wi": ParamSpec((d, f), ("embed", "ffn")),
+            "wg": ParamSpec((d, f), ("embed", "ffn")),
+            "wo": ParamSpec((f, d), ("ffn", "embed")),
+        }
+    else:
+        specs = {
+            "wi": ParamSpec((d, f), ("embed", "ffn")),
+            "wo": ParamSpec((f, d), ("ffn", "embed")),
+        }
+    if cfg.use_bias:
+        specs["bi"] = ParamSpec((f,), ("ffn",), "zeros")
+        specs["bo"] = ParamSpec((d,), ("act_embed",), "zeros")
+    return specs
+
+
+def mlp(cfg, p, x):
+    cd = x.dtype
+    h = x @ p["wi"].to(cd)
+    if cfg.use_bias:
+        h = h + p["bi"].to(cd)
+    if cfg.mlp == "swiglu":
+        h = F.silu(x @ p["wg"].to(cd)) * h
+    else:
+        h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default
+    y = h @ p["wo"].to(cd)
+    if cfg.use_bias:
+        y = y + p["bo"].to(cd)
+    return y

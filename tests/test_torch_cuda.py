@@ -2,8 +2,10 @@
 version (bit-equal for the replay engine's kernels, within a stated
 tolerance for the float reductions), a fleet replayed through the kernels
 bit-equal to the same fleet replayed on the CPU (the stateful schemes on the
-step engine too), and the §3 analysis on the card against the CPU. Imports no JAX (the machine with the card has none);
-every test skips where ``torch.cuda.is_available()`` is false."""
+step engine too), the §3 analysis on the card against the CPU, and the LM
+decode step with K5 against its plain attention. Imports no JAX (the machine
+with the card has none); every test skips where ``torch.cuda.is_available()``
+is false."""
 
 import dataclasses
 
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch import convert
+from repro_torch.configs import smoke_config
 from repro_torch.core import analysis, torchsim
 from repro_torch.core.config import TorchSimConfig
 from repro_torch.core.tracegen import make_fleet
@@ -21,6 +24,8 @@ from repro_torch.kernels import decode_attn, zipfprob
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import segsel as tsegsel
+from repro_torch.models import build_model
+from repro_torch.models.common import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -725,3 +730,87 @@ def test_contracts_classify_in_range_on_the_card(card):
         contracts.check_classify_in_range(rows, device="cuda")
 
     check()
+
+
+# -- the LM serving path: K5 in the decode step, on the card -------------------------
+
+LM_B, LM_S, LM_P = 2, 12, 8       # tests/test_models.py's decode pattern
+
+
+def _narrow_lm(card, dtype):
+    """qwen3-32b's family at a narrow width with K5's head dim 128: 3 layers,
+    8 query heads over 2 KV heads, d_model 64."""
+    cfg = dataclasses.replace(smoke_config("qwen3-32b"), n_layers=3, head_dim=128, n_heads=8,
+                              n_kv_heads=2, param_dtype=dtype, compute_dtype=dtype)
+    model = build_model(cfg)
+    return cfg, model, model.init_params(torch.Generator(device=card).manual_seed(0))
+
+
+def _prefill_then_decode(model, params, toks):
+    """Last-prompt logits, then one row of logits per decode step: (S - P + 1, B, V)."""
+    cache = model.init_cache(LM_B, LM_S + 4, device=toks.device)
+    lg, cache = model.prefill(params, {"tokens": toks[:, :LM_P]}, cache)
+    out = [lg]
+    for t in range(LM_P, LM_S):
+        lg, cache = model.decode_step(params, toks[:, t:t + 1], cache)
+        out.append(lg)
+    return torch.stack(out)
+
+
+def _lm_tokens(cfg, device):
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (LM_B, LM_S)).astype(np.int32)
+    return torch.from_numpy(toks).to(device)
+
+
+def test_lm_decode_on_the_card_matches_plain_attention_and_cpu(card, monkeypatch):
+    """float32: the decode step with K5 within 1e-4 of the same step with its
+    plain version on the card and of the whole run on the CPU; K5 launched
+    n_layers times per decode step and never by prefill."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, model, params = _narrow_lm(card, "float32")
+    toks = _lm_tokens(cfg, card)
+    ops.reset_launch_counts()
+    cache = model.init_cache(LM_B, LM_S + 4, device=card)
+    model.prefill(params, {"tokens": toks[:, :LM_P]}, cache)
+    assert ops.launch_counts()["flash_decode"] == 0
+    ops.reset_launch_counts()
+    got = _prefill_then_decode(model, params, toks)
+    assert ops.launch_counts()["flash_decode"] == cfg.n_layers * (LM_S - LM_P)
+    on_cpu = _prefill_then_decode(model, tree_map(lambda t: t.cpu(), params), toks.cpu())
+    monkeypatch.setattr(decode_attn, "flash_decode_unread", tref.flash_decode_ref)
+    plain = _prefill_then_decode(model, params, toks)
+    torch.testing.assert_close(got, plain, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.cpu(), on_cpu, atol=1e-4, rtol=0)
+
+
+def test_lm_decode_on_the_card_in_bfloat16_follows_forward(card):
+    """bfloat16: prefill plus decode against the teacher-forced forward,
+    within 2e-2 of the largest |logit| (the two round the softmax weights at
+    other places), the greedy token equal at every step."""
+    cfg, model, params = _narrow_lm(card, "bfloat16")
+    toks = _lm_tokens(cfg, card)
+    got = _prefill_then_decode(model, params, toks).float()
+    full, _ = model.forward(params, {"tokens": toks})
+    want = full[:, LM_P - 1:].transpose(0, 1).float()
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_lm_on_the_card_refuses_a_head_dim_the_kernel_does_not_take(card):
+    """The smoke config's head dim 16: prefill runs, the decode step raises
+    before any launch (never the plain version on CUDA tensors)."""
+    cfg = smoke_config("qwen3-32b")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    toks = _lm_tokens(cfg, card)
+    cache = model.init_cache(LM_B, LM_S, device=card)
+    model.prefill(params, {"tokens": toks[:, :LM_P]}, cache)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="head dim 16"):
+        model.decode_step(params, toks[:, LM_P:LM_P + 1], cache)
+    q = torch.zeros(LM_B, 4, 16, device=card)
+    kv = torch.zeros(LM_B, 8, 2, 16, device=card)
+    with pytest.raises(ValueError, match="head dim 16"):
+        decode_attn.flash_decode_unread(q, kv, kv, torch.ones(LM_B, dtype=torch.int32,
+                                                                device=card))
+    assert ops.launch_counts()["flash_decode"] == 0
