@@ -32,38 +32,50 @@ Phases, in order; any failure raises and the script exits non-zero:
    launched 64 times per decode step and never by prefill; a profiled
    decode window, a longer-context batch (B 8, prompt 1,024), and K5 timed
    at both shapes beside scaled_dot_product_attention;
-6. analysis: the paper's §3 at its own scale (n = 10 * 2^18): the eight
+6. train: the training path at stablelm-1.6b's full width (24 layers,
+   1,644,367,872 parameters, bfloat16 weights made on the card, float32
+   AdamW moments, remat): (a) one loss and backward in float32 on 2 layers,
+   card against CPU (the loss within 1e-4 relative, every gradient leaf
+   within 1e-4 of its largest |grad|); (b) 30 AdamW steps at B 8, S 1,024
+   on the synthetic pipeline, every loss finite and the last five's mean at
+   least TRAIN_MARGIN under the first, the step timed against 6 N T and
+   8 N T over the bf16 peak, its host syncs counted, two steps profiled;
+   (c) the whole train state (16.44 GB in 46 leaves) saved through the
+   port's SepBIT checkpoint store and restored onto the card, every leaf
+   bit-equal, save and restore rates and the store's WA printed;
+7. analysis: the paper's §3 at its own scale (n = 10 * 2^18): the eight
    Fig 8 / Fig 10 points of the repository's benchmark, five of them held
    to the paper's values, all four figure grids through the Zipf kernel
    (one launch per pmf: 11 in each figure's part; every point counted;
    points shared by two calls equal bit for bit; the pmf made on the card
    compared with numpy's, printed), and Figs 9 / 11 on the benchmark-grade
    volume pool, equal on the card and on the CPU;
-7. engine parity: a reduced fleet replayed on the card by the replay kernel
+8. engine parity: a reduced fleet replayed on the card by the replay kernel
    and by the step engine (kernels K1 and K3 between PyTorch ops) must end
    in states bit-equal to the step engine's on the CPU; one volume replayed
    alone on the card under both engines (the replay kernel at V = 1, and the
    single-volume victim kernel K2) must equal its row of the fleet; in the
    free-pool exhaustion corner the replay kernel must equal the CPU and the
    step engine keep its envelope;
-8. main run: the 186-volume mixed corpus tiled over the four GC thresholds
+9. main run: the 186-volume mixed corpus tiled over the four GC thresholds
    of the repository's gcbench (744 volumes of 64 MiB at 4 KiB blocks),
-   SepBIT with cost-benefit selection, replayed by the replay kernel and
-   then by the step engine, every final key equal; eight of its volumes
+   SepBIT with cost-benefit selection, replayed by the replay kernel; the
+   step engine on its first 24,576 steps, every final key equal to the
+   replay kernel's replay of the same prefix; eight of its volumes
    replayed over the whole trace by the step engine on the CPU, the replay
    kernel's plain version, equal to their rows; the replay kernel timed
    alone on both inputs;
-9. scale: the replay kernel alone on 32 volumes of 1 GiB, held to the
+10. scale: the replay kernel alone on 32 volumes of 1 GiB, held to the
    state invariants, its time and its victim scans' bytes per user write;
-10. profile: steady windows of both engines under torch.profiler;
-11. schemes: the paper's 14-scheme comparison (Exp#1): the 186-volume
+11. profile: steady windows of both engines under torch.profiler;
+12. schemes: the paper's 14-scheme comparison (Exp#1): the 186-volume
     corpus (16 MiB volumes) under each of the 14 placement schemes, 2,604
     volumes in one fleet through the step engine on the card (K1 and K3,
     the nine stateful schemes' branches between them); WA per scheme,
     ranked; one volume per scheme equal to the step engine on the CPU on
     every key, the elementwise volumes equal to the replay kernel's replay
     of them, which refuses the mixed fleet; a profiled steady window;
-12. sweep: the heterogeneous sweep of ``core/fleetshard.py`` at full width,
+13. sweep: the heterogeneous sweep of ``core/fleetshard.py`` at full width,
     the main run's corpus under 5 elementwise schemes x 2 selectors x GP
     0.10 / 0.15 / 0.20 (5,580 volumes of 64 MiB), timing model on, through
     the replay kernel's timing instance: grouped (one launch per scheme)
@@ -71,19 +83,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     (scheme, selector) pair equal to the step engine on the CPU (run in a
     worker beside the card), the accounting conserved; per cell WA, mean
     +- CI and p50 / p99; the kernel timed alone with timing on and off;
-13. latency: the committed ``BENCH_gc_latency.json`` reproduced on every
+14. latency: the committed ``BENCH_gc_latency.json`` reproduced on every
     field (nosep / sepgc / sepbit on the replay kernel, fk on the step
     engine), then greedy / rate_limited / idle_window x nosep / sepgc /
     sepbit at full width (1,674 volumes): overflow 0, rate_limited's GC
     writes equal to greedy's, the accounting conserved, one volume per cell
     equal to the CPU on every key;
-14. gcbench: the JAX package's gcbench fleet (16 volumes of 1 MiB, segment
+15. gcbench: the JAX package's gcbench fleet (16 volumes of 1 MiB, segment
     32, sepbit, cost-benefit, GC thresholds 0.08-0.22) under the legacy GC
     engine on the step engine and the tick engine on the replay kernel, each
     reproducing ``BENCH_fleet_gc.json``'s per-volume reclaimed counts, WA and
     GC writes, equal to each other on every key, with each engine's steady
     volumes/s; one volume alone under legacy (K2) equal to its fleet row;
-15. legacy: the main run's 744 volumes through a prefix of their steps
+16. legacy: the main run's 744 volumes through a prefix of their steps
     under the legacy GC engine on the card's step engine (K1 at loop entry on
     every write, K3 on every rewrite), equal on every key to the replay
     kernel on the same prefix and, on eight volumes, to the legacy engine on
@@ -120,6 +132,7 @@ PARITY_N_LBAS = 2048           # the card-against-CPU fleet's volumes
 PROFILE_REPLAY_STEPS = 8192    # the profiled steady windows after the main run, per engine
 PROFILE_STEP_STEPS = 100
 PLAIN_VOLUMES_PER_TILE = 2     # main-run volumes per GC threshold replayed by the CPU step engine
+MAIN_STEP_PREFIX = 24576       # the main run's steps the card's step engine replays ([legacy]'s)
 SCHEMES_VOLUMES_PER_SCHEME = 186   # [schemes]: the corpus, replayed under each of the 14 schemes
 SCHEMES_N_LBAS = 4096          # [schemes]: 16 MiB volumes at 4 KiB blocks
 SCHEMES_GP = 0.15
@@ -155,6 +168,15 @@ SERVE_FWD_TOL = 2e-2
 LONG_B, LONG_PROMPT, LONG_STEPS = 8, 1024, 32  # [serve]'s longer-context batch
 PROFILE_SERVE_STEPS = 4
 K5_KERNELS = ("split_kernel", "combine_kernel")   # csrc/decode_attn.cu's two passes
+TRAIN_ARCH = "stablelm-1.6b"   # [train]: fits one card with its AdamW state at full width
+TRAIN_SEED = 21
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 30
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+TRAIN_TIMED_FROM = 5           # steps 5..29 timed, their syncs counted
+TRAIN_MARGIN = 1.0             # mean of the last five losses at least this far under the first
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 2, 128   # (a), float32, card against CPU
+TRAIN_CHECK_TOL = 1e-4         # (a): loss relative; each gradient leaf of its largest |grad|
+PROFILE_TRAIN_STEPS = 2
 
 
 def log(msg: str) -> None:
@@ -969,21 +991,65 @@ def time_replay(cfg, policies, trace, want: dict, reps: int = REPLAY_TIMED) -> f
     return float(np.median(times))
 
 
+def _main_run(cfg, padded, policies, traces, engine: str, tag: str) -> dict:
+    """One replay of the main run's fleet (or a prefix of its steps) on the
+    card by ``engine``: its wall, counts, launches and final state, logged
+    and held to the state invariants."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import ops
+    P, V = MAIN_VOLUMES_PER_TILE, padded.shape[0]
+    stats = torchsim.ReplayStats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = torchsim.run_fleet(cfg, padded, policies, device="cuda", stats=stats, engine=engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    final = convert.state_to_numpy(st)
+    res = torchsim.summarize_fleet(cfg, st, V)
+    writes = res["fleet"]["user_writes"]
+    log(f"[main] {tag}: wall {wall:.3f} s, user steps {stats.steps}, volume-writes "
+        f"{writes}, volume-writes/s {writes / wall:.1f}, s/step {wall / stats.steps:.9f}")
+    log(f"[main] {tag}: GC ticks {stats.gc_ticks}, tick iterations "
+        f"{stats.tick_iterations} ({stats.tick_iterations / stats.steps:.4f} per step), "
+        f"host syncs {stats.host_syncs} ({stats.host_syncs / stats.steps:.7f} per step), "
+        f"reclaimed {int(final['reclaimed'].sum())}, overflow {res['fleet']['overflow']}, "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    was = np.asarray(res["fleet"]["per_volume_wa"])
+    med = {gp: float(np.median(was[j * P:(j + 1) * P])) for j, gp in enumerate(MAIN_GPS)}
+    log(f"[main] {tag}: fleet WA {res['fleet']['wa']:.6f}; median WA per GC threshold {med}")
+    log(f"[main] {tag}: kernel launches {counts}")
+    if res["fleet"]["overflow"] != 0:
+        raise AssertionError(f"[main] {tag} overflowed its segment pool")
+    if not (np.isfinite(was).all() and (was >= 1.0).all() and (final["reclaimed"] > 0).all()):
+        raise AssertionError(f"[main] {tag}: WA out of range, or a volume never ran GC")
+    check_integrity(cfg, final, traces, f"main run, {tag}")
+    return {"st": st, "final": final, "stats": stats, "wall": wall, "counts": counts,
+            "writes": writes}
+
+
 def phase_main():
-    """The main run, replayed twice: by the replay kernel (the card's main
-    path) and by the step engine; every final key must agree. Then the step
-    engine on the CPU, the kernel's plain version, replays a subset of the
-    main run's volumes over the whole trace (PLAIN_VOLUMES_PER_TILE per GC
-    threshold), which must equal their rows; and the kernel alone is timed
-    on the main run's inputs and on the subset's. Returns the config, the
-    step engine's final state, the launches of each run and the replay
-    kernel's row."""
+    """The main run: the replay kernel (the card's main path) over every
+    step; the step engine over the first MAIN_STEP_PREFIX steps, every final
+    key equal to the replay kernel's replay of the same prefix (the step
+    engine replays the steps in sequence, host-bound, so its wall is cut by
+    steps). Then the step engine on the CPU, the kernel's plain version,
+    replays a subset of the volumes over the whole trace
+    (PLAIN_VOLUMES_PER_TILE per GC threshold), which must equal their rows;
+    and the kernel alone is timed on the main run's inputs and on the
+    subset's. Returns the config, the replay kernel's final state, the
+    launches of each engine's run and the replay kernel's row."""
     import torch
 
     from repro_torch import convert
     from repro_torch.core import torchsim
     from repro_torch.core.tracegen import tiled_fleet
-    from repro_torch.kernels import ops
     P, n = MAIN_VOLUMES_PER_TILE, MAIN_N_LBAS
     V = P * len(MAIN_GPS)
     log(f"[main] cut: volumes of {n} blocks (64 MiB at 4 KiB) instead of the paper's "
@@ -999,55 +1065,32 @@ def phase_main():
         f"{cfg.n_rows}, steps {padded.shape[1]}, writes {int((padded >= 0).sum())}; "
         f"traces made in {time.perf_counter() - t0:.1f} s")
 
-    runs = {}
-    for engine in ("replay", "step"):
-        stats = torchsim.ReplayStats()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        st = torchsim.run_fleet(cfg, padded, policies, device="cuda", stats=stats, engine=engine)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        final = convert.state_to_numpy(st)
-        res = torchsim.summarize_fleet(cfg, st, V)
-        writes = res["fleet"]["user_writes"]
-        log(f"[main] engine={engine}: wall {wall:.3f} s, user steps {stats.steps}, volume-writes "
-            f"{writes}, volume-writes/s {writes / wall:.1f}, s/step {wall / stats.steps:.9f}")
-        log(f"[main] engine={engine}: GC ticks {stats.gc_ticks}, tick iterations "
-            f"{stats.tick_iterations} ({stats.tick_iterations / stats.steps:.4f} per step), "
-            f"host syncs {stats.host_syncs} ({stats.host_syncs / stats.steps:.7f} per step), "
-            f"reclaimed {int(final['reclaimed'].sum())}, overflow {res['fleet']['overflow']}, "
-            f"peak device memory {peak / 2**30:.2f} GiB")
-        was = np.asarray(res["fleet"]["per_volume_wa"])
-        med = {gp: float(np.median(was[j * P:(j + 1) * P])) for j, gp in enumerate(MAIN_GPS)}
-        log(f"[main] engine={engine}: fleet WA {res['fleet']['wa']:.6f}; median WA per GC "
-            f"threshold {med}")
-        log(f"[main] engine={engine}: kernel launches {counts}")
-        if res["fleet"]["overflow"] != 0:
-            raise AssertionError("main run overflowed its segment pool")
-        if not (np.isfinite(was).all() and (was >= 1.0).all() and (final["reclaimed"] > 0).all()):
-            raise AssertionError("main run WA out of range, or a volume never ran GC")
-        check_integrity(cfg, final, traces, f"main run, engine={engine}")
-        runs[engine] = {"st": st, "final": final, "stats": stats, "wall": wall,
-                        "counts": counts, "writes": writes}
-    replay, step = runs["replay"], runs["step"]
+    replay = _main_run(cfg, padded, policies, traces, "replay", "engine=replay")
+    prefix = np.ascontiguousarray(padded[:, :MAIN_STEP_PREFIX])
+    log(f"[main] cut: the step engine replays the first {MAIN_STEP_PREFIX} of the "
+        f"{padded.shape[1]} steps (the prefix [legacy] replays; the thresholds' first GC falls "
+        f"between steps 17,809 and 21,006), held on every key to the replay kernel on the same "
+        f"prefix; the step engine is host-bound per step, so fewer volumes would save nothing")
+    step = _main_run(cfg, prefix, policies, list(prefix), "step",
+                     f"engine=step, first {MAIN_STEP_PREFIX} steps")
+    head = _main_run(cfg, prefix, policies, list(prefix), "replay",
+                     f"engine=replay, first {MAIN_STEP_PREFIX} steps")
     if replay["counts"]["replay"] != 1 or any(
             replay["counts"][k] for k in ("segment_select_batch", "classify_gc", "classify_user")):
         raise AssertionError("the replay engine's main run did not go through the replay kernel")
     if 0 in (step["counts"]["segment_select_batch"], step["counts"]["classify_gc"],
              step["counts"]["classify_user"]):
         raise AssertionError("the step engine's main run did not go through its kernels")
-    bad = _differing_keys(replay["final"], step["final"])
-    same = (replay["stats"].steps, replay["stats"].gc_ticks, replay["stats"].tick_iterations) \
+    bad = _differing_keys(head["final"], step["final"])
+    same = (head["stats"].steps, head["stats"].gc_ticks, head["stats"].tick_iterations) \
         == (step["stats"].steps, step["stats"].gc_ticks, step["stats"].tick_iterations)
-    log(f"[main] replay kernel vs step engine on the card: differing keys {bad}; same steps, "
-        f"GC ticks and tick iterations: {same}; wall {replay['wall']:.3f} s against "
-        f"{step['wall']:.3f} s = {step['wall'] / replay['wall']:.1f}x")
+    log(f"[main] replay kernel vs step engine on the card over the first {MAIN_STEP_PREFIX} "
+        f"steps: differing keys {bad}; same steps, GC ticks and tick iterations: {same}; wall "
+        f"{head['wall']:.3f} s against {step['wall']:.3f} s = "
+        f"{step['wall'] / head['wall']:.1f}x")
     if bad or not same:
         raise AssertionError(f"the replay kernel and the step engine differ: {bad}, stats {same}")
+    runs = {"replay": replay, "step": step}
 
     # the kernel's plain version, the step engine on the CPU, on a subset of
     # the volumes over the whole padded trace: the arithmetic at the main
@@ -1081,8 +1124,9 @@ def phase_main():
            "ms": ms, "ms_per_step": ms / T, "plain_ms": plain_ms, "plain_volumes": sub,
            "ms_plain_volumes": ms_sub, **limit,
            "tolerance": "bit-equal on every state key: to engine='step' on the card over all "
-                        "volumes, to the step engine on the CPU (the plain version; plain_ms) "
-                        "over plain_volumes, whose kernel time is ms_plain_volumes",
+                        f"volumes and the first {MAIN_STEP_PREFIX} steps, to the step engine on "
+                        "the CPU (the plain version; plain_ms) over plain_volumes and every "
+                        "step, whose kernel time is ms_plain_volumes",
            "library_ms": None}
     log(f"[kernels] replay ({V}, {T}): {ms:.3f} ms per replay (median of {REPLAY_TIMED}, "
         f"checks outside), {1e3 * ms / T:.4f} us per step, repeats bit-identical; bound "
@@ -1090,7 +1134,7 @@ def phase_main():
         f"{ms / limit['bound_ms']:.1f}x; victim scans {scan_bytes_per_write(cfg, replay['final']):.1f} "
         f"bytes per user write; on volumes {sub}: {ms_sub:.3f} ms, step engine on the cpu "
         f"{plain_ms:.1f} ms")
-    return cfg, step["st"], {k: runs[k]["counts"] for k in runs}, row
+    return cfg, replay["st"], {k: runs[k]["counts"] for k in runs}, row
 
 
 def phase_scale() -> None:
@@ -1974,21 +2018,15 @@ def decode_step_bound(cfg, params, kv_lens) -> dict:
     parameter but the embedding table read once, the B embedding rows, each
     layer's K and V rows up to kv_len read and the new row written, the
     bfloat16 logits written; the products' operations at the bf16 rate."""
+    from repro_torch.models.common import tree_leaves
     B = len(kv_lens)
     size = cfg.pdtype().itemsize
-    weights = sum(t.numel() for t in _leaves(params)) - params["embed"].numel()
+    weights = sum(t.numel() for t in tree_leaves(params)) - params["embed"].numel()
     kv_row = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.hd * size
     n_bytes = ((weights + B * cfg.d_model) * size + (sum(kv_lens) + B) * kv_row
                + B * cfg.vocab * size)
     n_ops = 2 * B * weights + 4 * cfg.n_layers * cfg.n_heads * cfg.hd * sum(kv_lens)
     return {**bound(n_bytes, n_ops, BF16_FLOPS), "bytes": n_bytes, "kv_row_bytes": kv_row}
-
-
-def _leaves(tree) -> list:
-    from repro_torch.models.common import tree_map
-    out = []
-    tree_map(out.append, tree)
-    return out
 
 
 class _StepTimer:
@@ -2014,7 +2052,7 @@ class _StepTimer:
         return float(np.mean([s.elapsed_time(e) for s, e in self.events]))
 
 
-def _count_syncs(fn):
+def _count_syncs(fn, tag: str = "[serve]"):
     """``fn()`` with PyTorch's sync debug mode on: (its result, the number of
     synchronizing calls it warned of). Logs where each was made."""
     import warnings
@@ -2030,7 +2068,7 @@ def _count_syncs(fn):
     # PyTorch's warning for each synchronizing call (not its one-time prototype notice)
     syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
     for w in syncs:
-        log(f"[serve]   host sync at {w.filename}:{w.lineno}: {str(w.message)[:100]}")
+        log(f"{tag}   host sync at {w.filename}:{w.lineno}: {str(w.message)[:100]}")
     return out, len(syncs)
 
 
@@ -2072,6 +2110,7 @@ def phase_serve() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
     from repro_torch.serving import make_decode_fn, make_prefill_fn, request_traffic, serve_paged
 
     t_phase = time.perf_counter()
@@ -2112,7 +2151,7 @@ def phase_serve() -> dict:
     t0 = time.perf_counter()
     params = model.init_params(torch.Generator(device="cuda").manual_seed(SERVE_SEED))
     torch.cuda.synchronize()
-    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     log(f"[serve] bfloat16 weights made on the card in {time.perf_counter() - t0:.2f} s: "
         f"{weight_bytes:,} bytes ({weight_bytes / 2**30:.2f} GiB); device memory allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -2282,6 +2321,238 @@ def phase_serve() -> dict:
             "peak_gib": peak / 2**30}
 
 
+def _train_batch(pipe, step: int) -> dict:
+    """The pipeline's batch ``step`` on the card."""
+    import torch
+    toks, labels = pipe.batch(step)
+    return {"tokens": torch.from_numpy(toks).cuda(), "labels": torch.from_numpy(labels).cuda()}
+
+
+def _bits(t):
+    """A float tensor's bits as the integer of its width (bit equality)."""
+    import torch
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}.get(t.dtype, t.dtype))
+
+
+def _grad_check(model, cfg) -> tuple[float, float, float]:
+    """(a): one loss and backward of ``cfg`` (float32) on the card and on the
+    CPU from the same weights: (the card's loss, its relative difference,
+    the largest gradient difference over its leaf's largest |grad|)."""
+    import torch
+
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.training import make_loss_fn
+    from repro_torch.training.train_loop import loss_and_grads
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(TRAIN_SEED))
+    rng = np.random.default_rng(TRAIN_SEED)
+    toks = rng.integers(0, cfg.vocab, (TRAIN_CHECK_B, TRAIN_CHECK_S), dtype=np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((TRAIN_CHECK_B, 1), -1, np.int32)], axis=1)
+    batch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+    loss_fn = make_loss_fn(model, cfg)
+    loss, grads = loss_and_grads(loss_fn, params, {k: v.cuda() for k, v in batch.items()})
+    cpu_loss, cpu_grads = loss_and_grads(loss_fn, tree_map(lambda t: t.detach().cpu(), params),
+                                         batch)
+    rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    gerr = max(float((g.cpu() - w).abs().max() / w.abs().max().clamp(min=1e-30))
+               for g, w in zip(tree_leaves(grads), tree_leaves(cpu_grads)))
+    return float(loss), rel, gerr
+
+
+def _checkpoint_round_trip(state, what: str, smi: str) -> dict:
+    """(c): ``state`` saved through the port's CheckpointManager(keep=1) into
+    a fresh temporary directory and restored into the port's tree on the
+    card; every leaf bit-equal. Removes the directory."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models.common import tree_leaves
+    leaves = tree_leaves(state)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        cm = CheckpointManager(root, keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cm.save(TRAIN_STEPS - 1, state)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, manifest = CheckpointManager(root).restore(state)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        bad = [i for i, (a, b) in enumerate(zip(tree_leaves(got), leaves))
+               if a.device != b.device or a.dtype != b.dtype or not torch.equal(_bits(a), _bits(b))]
+        wa = cm.store.write_amplification
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[train] (c) {smi}; checkpoint round trip of {what}: {len(leaves)} leaves, "
+        f"{n_bytes:,} bytes ({n_bytes / 1e9:.2f} GB); save {t_save:.2f} s = "
+        f"{n_bytes / 1e9 / t_save:.3f} GB/s, restore to the card {t_restore:.2f} s = "
+        f"{n_bytes / 1e9 / t_restore:.3f} GB/s; store WA {wa:.3f}; step {manifest['step']}; "
+        f"leaves not bit-equal {bad}")
+    if bad or len(manifest["entries"]) != len(leaves):
+        raise AssertionError(f"[train] (c) the restored state differs in leaves {bad}")
+    return {"bytes": n_bytes, "save_s": t_save, "restore_s": t_restore, "wa": wa}
+
+
+def phase_train() -> dict:
+    """The training path at stablelm-1.6b's full width on the card (weights
+    random from a seeded generator on the card, not JAX's values): (a) one
+    loss and backward on the card against the CPU in float32 on 2 of the 24
+    layers; (b) TRAIN_STEPS AdamW steps in bfloat16 on all 24 layers with
+    remat, the loss falling, timed against 6 N T and 8 N T over the card's
+    bf16 peak, its host syncs counted and a window profiled; (c) the whole
+    train state through the SepBIT checkpoint store and back, bit-equal.
+    No kernel of the port runs on this path (the JAX train step reaches no
+    Pallas call)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import (AdamWConfig, DataConfig, SyntheticLM, init_train_state,
+                                      make_train_step)
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    smi = _smi()
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    n_params = sum(int(np.prod(sp.shape)) for sp in tree_leaves(model.param_specs()))
+    n_leaves = len(tree_leaves(model.param_specs()))
+    log(f"[train] {smi}; {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads} / {cfg.n_kv_heads}, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.norm}, rotary fraction {cfg.rope_fraction}, remat {cfg.remat}, microbatches "
+        f"{cfg.microbatches}; {n_params:,} parameters in {n_leaves} leaves by lm_specs "
+        f"(ArchConfig.n_params {cfg.n_params():,} leaves out the norms); weights random from "
+        f"torch.Generator(cuda) seed {TRAIN_SEED}, not JAX's values")
+
+    # (a) float32, 2 layers: the card against the CPU
+    cfg32 = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    t0 = time.perf_counter()
+    loss32, rel, gerr = _grad_check(build_model(cfg32), cfg32)
+    log(f"[train] (a) {smi}; float32, {cfg32.n_layers} layers, B {TRAIN_CHECK_B}, S "
+        f"{TRAIN_CHECK_S}, remat {cfg32.remat}: loss {loss32:.6f} on the card, relative "
+        f"difference to the CPU {rel:.3e}; largest gradient difference over its leaf's largest "
+        f"|grad| {gerr:.3e} (tolerance {TRAIN_CHECK_TOL:.0e} each); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (rel <= TRAIN_CHECK_TOL and gerr <= TRAIN_CHECK_TOL):
+        raise AssertionError(f"[train] (a) card and CPU differ: loss {rel:.3e}, grads {gerr:.3e}")
+    torch.cuda.empty_cache()
+
+    # (b) bfloat16 at full depth: AdamW steps on the synthetic pipeline
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init_train_state(model, cfg, opt_cfg,
+                             torch.Generator(device="cuda").manual_seed(TRAIN_SEED))
+    torch.cuda.synchronize()
+    sizes = {k: sum(t.numel() * t.element_size() for t in tree_leaves(state[k]))
+             for k in ("params", "opt")}
+    log(f"[train] (b) state made on the card in {time.perf_counter() - t0:.2f} s: bfloat16 "
+        f"weights {sizes['params']:,} bytes, float32 moments {sizes['opt']:,} bytes; device "
+        f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B))
+    batches = [_train_batch(pipe, i) for i in range(TRAIN_STEPS + PROFILE_TRAIN_STEPS)]
+    step_fn = make_train_step(model, cfg, opt_cfg)
+    losses, timer = [], _StepTimer(step_fn)
+    for i in range(TRAIN_TIMED_FROM):
+        state, m = timer(state, batches[i])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+
+    def timed_steps():
+        nonlocal state
+        for i in range(TRAIN_TIMED_FROM, TRAIN_STEPS):
+            state, m = timer(state, batches[i])
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, syncs = _count_syncs(timed_steps, "[train]")
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    n_timed = TRAIN_STEPS - TRAIN_TIMED_FROM
+    ms = float(np.median([a.elapsed_time(b) for a, b in timer.events[TRAIN_TIMED_FROM:]]))
+    host_ms = 1e3 * float(np.median(timer.host[TRAIN_TIMED_FROM:]))
+    T = TRAIN_B * TRAIN_S
+    bound6, bound8 = 1e3 * 6 * n_params * T / BF16_FLOPS, 1e3 * 8 * n_params * T / BF16_FLOPS
+    peak = torch.cuda.max_memory_allocated()
+    first, last5 = losses[0], float(np.mean(losses[-5:]))
+    log(f"[train] (b) {smi}; bfloat16, {cfg.n_layers} layers, B {TRAIN_B}, S {TRAIN_S} "
+        f"({T} tokens a step), {TRAIN_STEPS} steps at {TRAIN_OPT}: losses "
+        f"{[round(x, 4) for x in losses]}")
+    log(f"[train] (b) {smi}; step {ms:.3f} ms on the device (median of steps "
+        f"{TRAIN_TIMED_FROM}-{TRAIN_STEPS - 1}; {host_ms:.3f} ms to enqueue; "
+        f"{wall / n_timed * 1e3:.3f} ms of wall each); 6 N T / 989 TFLOP/s = {bound6:.3f} ms, "
+        f"{bound6 / ms:.4f} of the step; with the recompute 8 N T = {bound8:.3f} ms, "
+        f"{bound8 / ms:.4f}; {T * 1e3 / ms:.1f} tokens/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB; host syncs in steps "
+        f"{TRAIN_TIMED_FROM}-{TRAIN_STEPS - 1} {syncs} ({syncs / n_timed:.4f} per step)")
+    log(f"[train] (b) the loss: first {first:.4f}, mean of the last five {last5:.4f}, "
+        f"{first - last5:.4f} under it (margin {TRAIN_MARGIN}); all finite: "
+        f"{bool(np.isfinite(losses).all())}")
+    if not np.isfinite(losses).all() or not last5 < first - TRAIN_MARGIN:
+        raise AssertionError(f"[train] (b) the loss did not fall by {TRAIN_MARGIN}: {losses}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS, TRAIN_STEPS + PROFILE_TRAIN_STEPS):
+            state, _ = step_fn(state, batches[i])
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if _device_us(e) > 0]
+    kernels = [e for e in rows if e.device_type.name == "CUDA"] or rows
+    busy = sum(_device_us(e) for e in kernels) or float("nan")   # nan: no device time seen
+    n_kernels = sum(e.count for e in kernels)
+    log(f"[train] (b) profiled {PROFILE_TRAIN_STEPS} steps: wall {p_wall * 1e3:.3f} ms, device "
+        f"busy {busy / 1e3:.3f} ms = {100 * busy / 1e6 / p_wall:.2f}% of wall, "
+        f"{n_kernels / PROFILE_TRAIN_STEPS:.1f} kernels per step")
+    for e in sorted(kernels, key=lambda e: -_device_us(e))[:10]:
+        log(f"[train]   {e.key[:70]:70s} {_device_us(e):12.1f} us x{e.count}")
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"[train] the training path launched the port's kernels {launched}")
+
+    # (c) the train state through the checkpoint store and back
+    need = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    probe = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(probe).free
+    shutil.rmtree(probe)
+    log(f"[train] (c) temporary directory {tempfile.gettempdir()}: {free / 1e9:.2f} GB free, "
+        f"one save needs {need / 1e9:.2f} GB")
+    if free > 1.1 * need:
+        ckpt = _checkpoint_round_trip(state, f"the whole {cfg.name} train state", smi)
+        ckpt["what"] = "full"
+    else:
+        log(f"[train] (c) recorded cut: the disk holds no save of the whole state; the "
+            f"{TRAIN_CHECK_LAYERS}-layer float32 state of (a) is checkpointed instead")
+        del state
+        torch.cuda.empty_cache()
+        small = build_model(cfg32)
+        small_state = init_train_state(small, cfg32, opt_cfg,
+                                       torch.Generator(device="cuda").manual_seed(TRAIN_SEED))
+        ckpt = _checkpoint_round_trip(small_state, f"(a)'s {TRAIN_CHECK_LAYERS}-layer state",
+                                      smi)
+        ckpt["what"] = "cut"
+    state = None
+    torch.cuda.empty_cache()
+    log(f"[train] phase wall {time.perf_counter() - t_phase:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"ms": ms, "bound6_ms": bound6, "losses": losses, "syncs": syncs, "ckpt": ckpt}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2301,6 +2572,7 @@ def main() -> int:
     kernels += phase_zipf_kernel()
     decode_row, decode_launches = phase_decode()
     serve = phase_serve()
+    phase_train()
     decode_row["serve_path"] = {key: serve[key] for key in ("launches", "decode_steps", "served",
                                                            "long_context")}
     kernels.append(decode_row)

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .core.config import TorchSimConfig
-from .models.common import ParamSpec
+from .models.common import ParamSpec, tree_map
 from .models.transformer import lm_specs
 
 # JaxSimConfig fields with no meaning on the port: the tensors' device
@@ -45,25 +45,43 @@ def state_to_numpy(state: dict) -> dict:
     return {key: x.detach().cpu().numpy() for key, x in state.items()}
 
 
-def _tensor(x: np.ndarray, device) -> torch.Tensor:
-    """A numpy array as a tensor, bfloat16 (numpy's ``ml_dtypes`` type) bit
-    for bit."""
-    if x.dtype.name == "bfloat16":
-        return torch.from_numpy(np.array(x).view(np.uint16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.array(x, copy=True)).to(device)
+def _tensor(x: np.ndarray, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A numpy array as a tensor, bfloat16 (numpy's ``ml_dtypes`` type, or
+    uint16 bits where ``dtype`` is bfloat16) bit for bit. Raises where
+    ``dtype`` is given and the array holds another."""
+    if x.dtype.name == "bfloat16" or (dtype == torch.bfloat16 and x.dtype == np.uint16):
+        t = torch.from_numpy(np.array(x).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(x, copy=True))
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"dtype {x.dtype}, expected {dtype}")
+    return t.to(device)
 
 
-def lm_params_from_numpy(cfg, tree, device) -> dict:
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy, a bfloat16 one as its uint16 bits
+    (numpy has no bfloat16 of its own)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def lm_params_from_numpy(cfg, tree, device, dtype: torch.dtype | None = None) -> dict:
     """The port's LM parameters from a JAX params pytree given as numpy
     arrays (``jax.device_get(params)``): the same nested dicts and lists,
     the stacked ``blocks/p<i>_<kind>`` tensors kept stacked (the port slices
     a layer as JAX's scan does). Raises unless every leaf of
-    ``lm_specs(cfg)`` is there with its shape, and nothing else."""
+    ``lm_specs(cfg)`` is there with its shape, and nothing else, and, where
+    ``dtype`` is given, in that dtype (bfloat16 may come as uint16 bits)."""
     def take(spec, x, path):
         if isinstance(spec, ParamSpec):
             if tuple(np.shape(x)) != spec.shape:
                 raise ValueError(f"{path}: shape {np.shape(x)}, expected {spec.shape}")
-            return _tensor(np.asarray(x), device)
+            try:
+                return _tensor(np.asarray(x), device, dtype)
+            except ValueError as e:
+                raise ValueError(f"{path}: {e}") from None
         if isinstance(spec, dict):
             if not isinstance(x, dict) or set(x) != set(spec):
                 raise ValueError(f"{path}: keys {sorted(x) if isinstance(x, dict) else x!r}, "
@@ -73,3 +91,22 @@ def lm_params_from_numpy(cfg, tree, device) -> dict:
             raise ValueError(f"{path}: {len(x)} entries, expected {len(spec)}")
         return [take(s, v, f"{path}[{i}]") for i, (s, v) in enumerate(zip(spec, x))]
     return take(lm_specs(cfg), tree, "params")
+
+
+def train_state_from_numpy(cfg, opt_cfg, tree, device) -> dict:
+    """The port's train state from a JAX one given as numpy arrays
+    (``jax.device_get(state)`` of ``{"params", "opt": {"m", "v", "step"}}``):
+    the params in ``cfg.pdtype()`` and the moments in ``opt_cfg.state_dtype``
+    by `lm_params_from_numpy`, the step a 0-d int32 tensor."""
+    sd = getattr(torch, opt_cfg.state_dtype)
+    opt = tree["opt"]
+    return {"params": lm_params_from_numpy(cfg, tree["params"], device, cfg.pdtype()),
+            "opt": {"m": lm_params_from_numpy(cfg, opt["m"], device, sd),
+                    "v": lm_params_from_numpy(cfg, opt["v"], device, sd),
+                    "step": _tensor(np.asarray(opt["step"]), device, torch.int32)}}
+
+
+def train_state_to_numpy(state) -> dict:
+    """The inverse of `train_state_from_numpy`: every leaf as numpy on the
+    host, the same nesting, a bfloat16 leaf as its uint16 bits."""
+    return tree_map(_numpy, state)

@@ -93,6 +93,26 @@ def tree_index(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, lists and tuples in `tree_map`'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each a tree of views, by one
+    ``unbind`` per leaf: autograd sums the layers' gradients into a stacked
+    leaf with one ``stack``, where views by indexing would cost a zero
+    gradient of the whole stack per layer."""
+    layers = [a.unbind(0) for a in tree_leaves(tree)]
+    out = []
+    for r in range(n):
+        it = iter(layers)
+        out.append(tree_map(lambda _: next(it)[r], tree))
+    return out
+
+
 # -- norms --------------------------------------------------------------------
 
 def rmsnorm(x, scale, eps=1e-6):

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .common import (
     ParamSpec,
@@ -38,6 +39,7 @@ from .common import (
     sinusoidal_pos,
     stack_tree,
     tree_index,
+    tree_unstack,
 )
 
 _NOT_PORTED = {
@@ -73,13 +75,14 @@ def _layout(cfg):
 
 def _layers(cfg, params, cache=None):
     """(layer params, layer cache or None) of every layer in order: views
-    into the stacks, then the tail."""
+    into the stacks (`tree_unstack`), then the tail."""
     pattern, period, n_full = _layout(cfg)
+    stacks = {key: tree_unstack(p, n_full) for key, p in params["blocks"].items()}
     for r in range(n_full):
         for i, kind in enumerate(pattern[:period]):
             key = f"p{i}_{kind}"
             c = tree_index(cache["blocks"][key], r) if cache is not None else None
-            yield tree_index(params["blocks"][key], r), c
+            yield stacks[key][r], c
     for j in range(len(pattern) - n_full * period):
         yield params["tail"][j], cache["tail"][j] if cache is not None else None
 
@@ -124,18 +127,29 @@ def _mlp_half(cfg, p, h):
     return h + mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], h))
 
 
+def _block(cfg, p, h, positions):
+    h = h + mha(cfg, p["attn"], apply_norm(cfg, p["ln1"], h), positions, mode="causal")
+    return _mlp_half(cfg, p, h)
+
+
 def forward(cfg, params, tokens):
     """tokens: (B, S) int. Returns (logits (B, S, V), aux_loss), the aux loss
-    a float32 zero (no MoE)."""
+    a float32 zero (no MoE). With ``cfg.remat`` and grad enabled, each layer
+    runs under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
+    of each block): its activations are recomputed in the backward pass, the
+    values unchanged."""
     check_supported(cfg)
     h = _embed(cfg, params, tokens)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
     if cfg.pos == "sinusoidal":
         h = h + sinusoidal_pos(positions, cfg.d_model).to(h.dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
     for p, _ in _layers(cfg, params):
-        h = h + mha(cfg, p["attn"], apply_norm(cfg, p["ln1"], h), positions, mode="causal")
-        h = _mlp_half(cfg, p, h)
+        if remat:
+            h = checkpoint(_block, cfg, p, h, positions, use_reentrant=False)
+        else:
+            h = _block(cfg, p, h, positions)
     h = apply_norm(cfg, params["final_norm"], h)
     return _lm_logits(cfg, params, h), torch.zeros((), dtype=torch.float32, device=h.device)
 
@@ -214,11 +228,26 @@ def prefill(cfg, params, tokens, cache):
     return logits[:, 0], cache
 
 
+def _max_seq(cache) -> int:
+    """The cache's length S (every layer's ``k`` is (B, S, Hk, hd))."""
+    stacks = list(cache["blocks"].values())
+    return stacks[0]["k"].shape[2] if stacks else cache["tail"][0]["k"].shape[1]
+
+
+def _write_row(cache, rows, at, inside, new):
+    """``cache[b, at[b]] = new[b, 0]`` in place for every row b ``inside``
+    the cache, ``at`` being ``pos`` clamped to the last slot; a row at or
+    past the end writes its old value back, as the reference's scatter
+    drops an index out of range: no read of the device."""
+    cache[rows, at] = torch.where(inside, new[:, 0].to(cache.dtype), cache[rows, at])
+
+
 def decode_step(cfg, params, tokens, cache):
     """tokens: (B, 1) -> (logits (B, V), cache): each row's k and v written
     at its own ``pos`` in place (continuous batching), attention over
-    ``kv_len = pos + 1`` by K5 on CUDA, ``pos`` advanced. Reads nothing from
-    the device."""
+    ``kv_len = pos + 1`` by K5 on CUDA, ``pos`` advanced. A row whose ``pos``
+    is at or past the cache's end writes nothing and attends over the whole
+    cache, as in the reference. Reads nothing from the device."""
     check_supported(cfg)
     pos = cache["pos"]
     kv_len = pos + 1
@@ -226,11 +255,13 @@ def decode_step(cfg, params, tokens, cache):
     if cfg.pos == "sinusoidal":
         h = h + sinusoidal_pos(pos[:, None], cfg.d_model).to(h.dtype)
     rows = torch.arange(h.shape[0], device=h.device)
+    S = _max_seq(cache)
+    at, inside = pos.clamp(max=S - 1), (pos < S)[:, None, None]
     rope = rope_for(cfg, pos[:, None])
     for p, c in _layers(cfg, params, cache):
         q, k, v = qkv(cfg, p["attn"], apply_norm(cfg, p["ln1"], h), rope)
-        c["k"][rows, pos] = k[:, 0].to(c["k"].dtype)
-        c["v"][rows, pos] = v[:, 0].to(c["v"].dtype)
+        _write_row(c["k"], rows, at, inside, k)
+        _write_row(c["v"], rows, at, inside, v)
         out = decode_attend(q, c["k"], c["v"], kv_len)
         h = _mlp_half(cfg, p, h + attn_out(cfg, p["attn"], out))
     h = apply_norm(cfg, params["final_norm"], h)

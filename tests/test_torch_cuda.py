@@ -2,18 +2,22 @@
 version (bit-equal for the replay engine's kernels, within a stated
 tolerance for the float reductions), a fleet replayed through the kernels
 bit-equal to the same fleet replayed on the CPU (the stateful schemes on the
-step engine too), the §3 analysis on the card against the CPU, and the LM
-decode step with K5 against its plain attention. Imports no JAX (the machine
+step engine too), the §3 analysis on the card against the CPU, the LM
+decode step with K5 against its plain attention, and the train step and
+checkpoints on the card against the CPU. Imports no JAX (the machine
 with the card has none); every test skips where ``torch.cuda.is_available()``
 is false."""
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import convert
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import smoke_config
 from repro_torch.core import analysis, torchsim
 from repro_torch.core.config import TorchSimConfig
@@ -25,7 +29,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import segsel as tsegsel
 from repro_torch.models import build_model
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.training import AdamWConfig, init_train_state, make_loss_fn, make_train_step
+from repro_torch.training.train_loop import loss_and_grads
 
 pytestmark = pytest.mark.cuda
 
@@ -814,3 +820,100 @@ def test_lm_on_the_card_refuses_a_head_dim_the_kernel_does_not_take(card):
         decode_attn.flash_decode_unread(q, kv, kv, torch.ones(LM_B, dtype=torch.int32,
                                                                 device=card))
     assert ops.launch_counts()["flash_decode"] == 0
+
+
+# -- training and checkpoint, on the card ----------------------------------------------
+
+def _train_inputs(cfg, device, seed=1, B=4, S=16):
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((B, 1), -1, np.int32)], axis=1)
+    return {"tokens": torch.from_numpy(toks).to(device),
+            "labels": torch.from_numpy(labels).to(device)}
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """float32, a smoke arch: the loss and every gradient leaf on the card
+    against the CPU on the same weights (the loss within 1e-4 relative,
+    each leaf within 1e-4 of its largest |grad|), then one whole train step
+    each: the step and the lr equal, the grad norm within 1e-4 relative
+    (not the params: AdamW turns the rounding of a near-zero gradient into
+    a difference of up to 2 lr)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("stablelm-1.6b")
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    state = init_train_state(model, cfg, opt_cfg, torch.Generator(device=card).manual_seed(0))
+    cpu_state = tree_map(lambda t: t.cpu(), state)
+    batch = _train_inputs(cfg, card)
+    loss_fn = make_loss_fn(model, cfg)
+    loss, grads = loss_and_grads(loss_fn, state["params"], batch)
+    cpu_loss, cpu_grads = loss_and_grads(loss_fn, cpu_state["params"],
+                                         {k: v.cpu() for k, v in batch.items()})
+    assert abs(float(loss) - float(cpu_loss)) <= 1e-4 * abs(float(cpu_loss))
+    for g, w in zip(tree_leaves(grads), tree_leaves(cpu_grads)):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    step = make_train_step(model, cfg, opt_cfg)
+    state, m = step(state, batch)
+    cpu_state, cm = step(cpu_state, {k: v.cpu() for k, v in batch.items()})
+    assert int(state["opt"]["step"]) == 1 and float(m["lr"]) == float(cm["lr"])
+    assert abs(float(m["grad_norm"]) - float(cm["grad_norm"])) <= 1e-4 * float(cm["grad_norm"])
+
+
+def test_bfloat16_checkpoint_from_the_card_restores_bit_equal(card, tmp_path):
+    """A bfloat16 train state made on the card, saved and restored into the
+    card's tree by a fresh manager: every leaf bit-equal and on the card."""
+    cfg = dataclasses.replace(smoke_config("phi3-mini-3.8b"), param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    state = init_train_state(model, cfg, opt_cfg, torch.Generator(device=card).manual_seed(3))
+    state, _ = make_train_step(model, cfg, opt_cfg)(state, _train_inputs(cfg, card))
+    CheckpointManager(str(tmp_path), keep=1).save(1, state)
+    like = init_train_state(model, cfg, opt_cfg, torch.Generator(device=card).manual_seed(4))
+    got, manifest = CheckpointManager(str(tmp_path)).restore(like)
+    assert manifest["step"] == 1
+    assert got["params"]["embed"].dtype == torch.bfloat16
+    for a, b in zip(tree_leaves(got), tree_leaves(state)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                           b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+
+
+def test_lm_decode_past_the_cache_end_on_the_card(card):
+    """A decode step at pos = max_seq: no device assert, the cache as it was,
+    pos advanced, the logits equal to the CPU's within 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, model, params = _narrow_lm(card, "float32")
+    prompt = torch.tensor([[5, 7, 9, 11]], dtype=torch.int32)
+
+    def run(device, p):
+        cache = model.init_cache(1, 4, device=device)
+        model.prefill(p, {"tokens": prompt.to(device)}, cache)
+        before = {k: v.clone() for k, v in cache["blocks"]["p0_attn"].items()}
+        lg, cache = model.decode_step(p, torch.tensor([[3]], dtype=torch.int32, device=device),
+                                      cache)
+        torch.cuda.synchronize()
+        for key in ("k", "v"):
+            assert torch.equal(cache["blocks"]["p0_attn"][key], before[key])
+        assert cache["pos"].tolist() == [5]
+        return lg
+    got = run(card, params)
+    want = run("cpu", tree_map(lambda t: t.cpu(), params))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+def test_train_lm_example_on_the_card_resumes(card, tmp_path, capsys):
+    """``examples/train_lm_torch.py`` on the card (its default device) for a
+    few steps, then ``--resume`` from its latest manifest."""
+    path = Path(__file__).resolve().parents[1] / "examples" / "train_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    argv = ["--arch", "qwen3-32b", "--ckpt-dir", str(tmp_path), "--ckpt-every", "4",
+            "--seq", "32"]
+    first = mod.main(argv + ["--steps", "10"])
+    again = mod.main(argv + ["--steps", "12", "--resume"])
+    out = capsys.readouterr().out
+    assert "resumed from step 9" in out and out.count("checkpoint-store WA=") == 2
+    assert again["start"] == 10 and len(again["losses"]) == 2
+    assert np.isfinite(first["losses"] + again["losses"]).all()

@@ -1,6 +1,7 @@
 """The port's examples (``examples/quickstart_torch.py`` and
 ``examples/trace_sim_torch.py``) run with ``--device cpu`` at a small size,
-each row bit-equal to ``jaxsim.simulate_jax`` on the same trace and knobs."""
+each row bit-equal to ``jaxsim.simulate_jax`` on the same trace and knobs;
+``examples/train_lm_torch.py`` trains, checkpoints and resumes on the CPU."""
 
 import dataclasses
 import importlib.util
@@ -83,19 +84,45 @@ def test_trace_sim_replays_an_alibaba_csv(tmp_path):
         assert row["reclaimed"] > 0
 
 
-@pytest.mark.parametrize("name", ["quickstart_torch", "trace_sim_torch"])
-def test_examples_run_on_the_card_by_default(name, monkeypatch):
-    """Without ``--device`` the examples replay on ``device="cuda"``, which
-    raises where CUDA is missing (``resolve_device``), never a quiet run on
-    the CPU."""
+@pytest.mark.parametrize("name,entry,argv", [
+    ("quickstart_torch", "rows", ["--n-lbas", "64"]),
+    ("trace_sim_torch", "rows", ["--n-lbas", "64"]),
+    ("train_lm_torch", "train", ["--steps", "2"])])
+def test_examples_run_on_the_card_by_default(name, entry, argv, monkeypatch):
+    """Without ``--device`` the examples replay (or train) on
+    ``device="cuda"``, which raises where CUDA is missing
+    (``resolve_device``), never a quiet run on the CPU."""
     mod = _example(name)
     seen = []
 
-    def rows(*args, **kw):
+    def stop(*args, **kw):
         seen.append(kw["device"] if "device" in kw else args[-1])
         raise RuntimeError("stop")
 
-    monkeypatch.setattr(mod, "rows", rows)
+    monkeypatch.setattr(mod, entry, stop)
     with pytest.raises(RuntimeError, match="stop"):
-        mod.main(["--n-lbas", "64"])
+        mod.main(argv)
     assert seen == ["cuda"]
+
+
+def test_train_lm_resumes_and_reports_the_stores_wa(tmp_path, capsys):
+    """``train_lm_torch.py --device cpu`` on a smoke arch: 30 steps whose
+    loss falls (the last five's mean at least 0.5 under the first, the JAX
+    package's test_loss_decreases margin), a checkpoint every 10 steps and
+    at the end; ``--resume`` with more steps continues from the latest
+    manifest (step 29) and prints the store's WA both times."""
+    mod = _example("train_lm_torch")
+    argv = ["--device", "cpu", "--arch", "stablelm-1.6b", "--batch", "8", "--seq", "32",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "10"]
+    first = mod.main(argv + ["--steps", "30"])
+    out = capsys.readouterr().out
+    losses = first["losses"]
+    assert first["start"] == 0 and len(losses) == 30 and np.isfinite(losses).all()
+    assert np.mean(losses[-5:]) < losses[0] - 0.5, losses[::6]
+    assert "checkpoint-store WA=" in out and first["wa"] >= 1.0
+    again = mod.main(argv + ["--steps", "34", "--resume"])
+    out = capsys.readouterr().out
+    assert "resumed from step 29" in out and "checkpoint-store WA=" in out
+    assert again["start"] == 30 and len(again["losses"]) == 4
+    assert np.isfinite(again["losses"]).all()
+    assert np.mean(again["losses"]) < losses[0] - 0.5

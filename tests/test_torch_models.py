@@ -110,6 +110,31 @@ def test_prefill_and_decode_match_jax(arch):
 
 
 @pytest.mark.parametrize("arch", DENSE)
+def test_decode_past_the_cache_end_drops_the_write_as_jax_does(arch):
+    """A prompt that fills the cache (max_seq 4), then one decode step at
+    pos 4: JAX's scatter drops the write and its mask covers every row; the
+    port leaves the cache as it was (no IndexError, no device assert) and
+    its logits follow JAX's within TOL; pos becomes 5 in both."""
+    jcfg, jmodel, jparams, cfg, model, params = _pair(arch)
+    sharder = null_sharder(jcfg)
+    prompt = np.array([[5, 7, 9, 11]], np.int32)
+    jcache = jmodel.init_cache(1, 4)
+    cache = model.init_cache(1, 4, device="cpu")
+    _, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(prompt)}, jcache, sharder)
+    _, cache = model.prefill(params, {"tokens": torch.from_numpy(prompt)}, cache)
+    before = {k: v.clone() for k, v in cache["blocks"]["p0_attn"].items()}
+    tok = np.array([[3]], np.int32)
+    jlg, jcache = jmodel.decode_step(jparams, jnp.asarray(tok), jcache, sharder)
+    lg, cache = model.decode_step(params, torch.from_numpy(tok), cache)
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), atol=TOL, rtol=0)
+    for key in ("k", "v"):
+        assert torch.equal(cache["blocks"]["p0_attn"][key], before[key])
+        np.testing.assert_allclose(cache["blocks"]["p0_attn"][key].numpy(),
+                                   np.asarray(jcache["blocks"]["p0_attn"][key]), atol=1e-5)
+    assert cache["pos"].tolist() == np.asarray(jcache["pos"]).tolist() == [5]
+
+
+@pytest.mark.parametrize("arch", DENSE)
 def test_bfloat16_follows_jax_within_its_rounding(arch):
     """In bfloat16 (the card's dtype) the port casts where JAX casts: forward,
     prefill and decode logits within 2e-2 of the largest |logit| (measured:
