@@ -32,32 +32,48 @@ Phases, in order; any failure raises and the script exits non-zero:
    launched 64 times per decode step and never by prefill; a profiled
    decode window, a longer-context batch (B 8, prompt 1,024), and K5 timed
    at both shapes beside scaled_dot_product_attention;
-6. train: the training path at stablelm-1.6b's full width (24 layers,
-   1,644,367,872 parameters, bfloat16 weights made on the card, float32
-   AdamW moments, remat): (a) one loss and backward in float32 on 2 layers,
+6. train: the training path at stablelm-1.6b's full width and TRAIN_LAYERS
+   of its 24 layers (bfloat16 weights made on the card, float32 AdamW
+   moments, remat): (a) one loss and backward in float32 on 2 layers,
    card against CPU (the loss within 1e-4 relative, every gradient leaf
    within 1e-4 of its largest |grad|); (b) 30 AdamW steps at B 8, S 1,024
    on the synthetic pipeline, every loss finite and the last five's mean at
    least TRAIN_MARGIN under the first, the step timed against 6 N T and
    8 N T over the bf16 peak, its host syncs counted, two steps profiled;
-   (c) the whole train state (16.44 GB in 46 leaves) saved through the
+   (c) the whole train state (46 leaves) saved through the
    port's SepBIT checkpoint store and restored onto the card, every leaf
    bit-equal, save and restore rates and the store's WA printed;
-7. analysis: the paper's §3 at its own scale (n = 10 * 2^18): the eight
+7. blocks: the MoE block, local attention and the recurrent blocks at full
+   width (random weights made on the card): (a) granite-moe-3b-a800m (2 of
+   32 layers), recurrentgemma-2b (one period, 3 of 26) and rwkv6-3b (2 of
+   32) in float32, card against CPU over 130 tokens (forward, then prefill
+   of 120 and 10 decode steps; logits within 1e-4 of the largest, the aux
+   within 1e-4 relative; MoE routings that differ are printed with their
+   top-K margin); (b) granite-moe-3b-a800m at full depth in bfloat16
+   through the serving path: K5 against its plain version in the decode
+   step, decode against forward (5e-2, the reference's MoE tolerance),
+   [serve]'s traffic under both policies with the CPU's WA, K5 launched 32
+   times per decode step, no host sync, a profiled window, K5 timed at this
+   shape; (c) five granite AdamW steps at B 8, S 1,024 with remat, every
+   loss and aux finite, against 6 N_active T; (d) recurrentgemma-2b (prompt
+   2,080 past its 2,048-slot ring) and rwkv6-3b (prompt 1,000) at full
+   depth in bfloat16, B 8, 64 decode steps against forward over the stream
+   (2e-2), timed against their bytes bound, host syncs counted, profiled;
+8. analysis: the paper's §3 at its own scale (n = 10 * 2^18): the eight
    Fig 8 / Fig 10 points of the repository's benchmark, five of them held
    to the paper's values, all four figure grids through the Zipf kernel
    (one launch per pmf: 11 in each figure's part; every point counted;
    points shared by two calls equal bit for bit; the pmf made on the card
    compared with numpy's, printed), and Figs 9 / 11 on the benchmark-grade
    volume pool, equal on the card and on the CPU;
-8. engine parity: a reduced fleet replayed on the card by the replay kernel
+9. engine parity: a reduced fleet replayed on the card by the replay kernel
    and by the step engine (kernels K1 and K3 between PyTorch ops) must end
    in states bit-equal to the step engine's on the CPU; one volume replayed
    alone on the card under both engines (the replay kernel at V = 1, and the
    single-volume victim kernel K2) must equal its row of the fleet; in the
    free-pool exhaustion corner the replay kernel must equal the CPU and the
    step engine keep its envelope;
-9. main run: the 186-volume mixed corpus tiled over the four GC thresholds
+10. main run: the 186-volume mixed corpus tiled over the four GC thresholds
    of the repository's gcbench (744 volumes of 64 MiB at 4 KiB blocks),
    SepBIT with cost-benefit selection, replayed by the replay kernel; the
    step engine on its first 24,576 steps, every final key equal to the
@@ -65,17 +81,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    replayed over the whole trace by the step engine on the CPU, the replay
    kernel's plain version, equal to their rows; the replay kernel timed
    alone on both inputs;
-10. scale: the replay kernel alone on 32 volumes of 1 GiB, held to the
+11. scale: the replay kernel alone on 32 volumes of 1 GiB, held to the
    state invariants, its time and its victim scans' bytes per user write;
-11. profile: steady windows of both engines under torch.profiler;
-12. schemes: the paper's 14-scheme comparison (Exp#1): the 186-volume
-    corpus (16 MiB volumes) under each of the 14 placement schemes, 2,604
+12. profile: steady windows of both engines under torch.profiler;
+13. schemes: the paper's 14-scheme comparison (Exp#1): the 186-volume
+    corpus (8 MiB volumes) under each of the 14 placement schemes, 2,604
     volumes in one fleet through the step engine on the card (K1 and K3,
     the nine stateful schemes' branches between them); WA per scheme,
     ranked; one volume per scheme equal to the step engine on the CPU on
     every key, the elementwise volumes equal to the replay kernel's replay
     of them, which refuses the mixed fleet; a profiled steady window;
-13. sweep: the heterogeneous sweep of ``core/fleetshard.py`` at full width,
+14. sweep: the heterogeneous sweep of ``core/fleetshard.py`` at full width,
     the main run's corpus under 5 elementwise schemes x 2 selectors x GP
     0.10 / 0.15 / 0.20 (5,580 volumes of 64 MiB), timing model on, through
     the replay kernel's timing instance: grouped (one launch per scheme)
@@ -83,19 +99,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     (scheme, selector) pair equal to the step engine on the CPU (run in a
     worker beside the card), the accounting conserved; per cell WA, mean
     +- CI and p50 / p99; the kernel timed alone with timing on and off;
-14. latency: the committed ``BENCH_gc_latency.json`` reproduced on every
+15. latency: the committed ``BENCH_gc_latency.json`` reproduced on every
     field (nosep / sepgc / sepbit on the replay kernel, fk on the step
     engine), then greedy / rate_limited / idle_window x nosep / sepgc /
     sepbit at full width (1,674 volumes): overflow 0, rate_limited's GC
     writes equal to greedy's, the accounting conserved, one volume per cell
     equal to the CPU on every key;
-15. gcbench: the JAX package's gcbench fleet (16 volumes of 1 MiB, segment
+16. gcbench: the JAX package's gcbench fleet (16 volumes of 1 MiB, segment
     32, sepbit, cost-benefit, GC thresholds 0.08-0.22) under the legacy GC
     engine on the step engine and the tick engine on the replay kernel, each
     reproducing ``BENCH_fleet_gc.json``'s per-volume reclaimed counts, WA and
     GC writes, equal to each other on every key, with each engine's steady
     volumes/s; one volume alone under legacy (K2) equal to its fleet row;
-16. legacy: the main run's 744 volumes through a prefix of their steps
+17. legacy: the main run's 744 volumes through a prefix of their steps
     under the legacy GC engine on the card's step engine (K1 at loop entry on
     every write, K3 on every rewrite), equal on every key to the replay
     kernel on the same prefix and, on eight volumes, to the legacy engine on
@@ -130,13 +146,14 @@ MAIN_N_LBAS = 16384            # 64 MiB volumes at 4 KiB blocks
 MAIN_SEGMENT = 128
 PARITY_N_LBAS = 2048           # the card-against-CPU fleet's volumes
 PROFILE_REPLAY_STEPS = 8192    # the profiled steady windows after the main run, per engine
-PROFILE_STEP_STEPS = 100
+PROFILE_STEP_STEPS = 25        # the profiler's analysis of a step-engine window grows with it
 PLAIN_VOLUMES_PER_TILE = 2     # main-run volumes per GC threshold replayed by the CPU step engine
 MAIN_STEP_PREFIX = 24576       # the main run's steps the card's step engine replays ([legacy]'s)
 SCHEMES_VOLUMES_PER_SCHEME = 186   # [schemes]: the corpus, replayed under each of the 14 schemes
-SCHEMES_N_LBAS = 4096          # [schemes]: 16 MiB volumes at 4 KiB blocks
+SCHEMES_N_LBAS = 2048          # [schemes]: 8 MiB volumes at 4 KiB blocks; the step engine is
+                               # host-bound per step: 7,144 steps, against 14,287 at 16 MiB
 SCHEMES_GP = 0.15
-SCHEMES_PROFILE_STEPS = 100
+SCHEMES_PROFILE_STEPS = 25
 REPLAY_TIMED = 5               # launches of the replay kernel timed, each on a fresh state
 SCALE_N_LBAS = 262144          # [scale]: 1 GiB volumes at 4 KiB blocks
 SCALE_VOLUMES_PER_TILE = 8
@@ -169,6 +186,7 @@ LONG_B, LONG_PROMPT, LONG_STEPS = 8, 1024, 32  # [serve]'s longer-context batch
 PROFILE_SERVE_STEPS = 4
 K5_KERNELS = ("split_kernel", "combine_kernel")   # csrc/decode_attn.cu's two passes
 TRAIN_ARCH = "stablelm-1.6b"   # [train]: fits one card with its AdamW state at full width
+TRAIN_LAYERS = 12              # of its 24: the checkpoint round trip is host-bound by the bytes
 TRAIN_SEED = 21
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 30
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
@@ -177,6 +195,20 @@ TRAIN_MARGIN = 1.0             # mean of the last five losses at least this far 
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 2, 128   # (a), float32, card against CPU
 TRAIN_CHECK_TOL = 1e-4         # (a): loss relative; each gradient leaf of its largest |grad|
 PROFILE_TRAIN_STEPS = 2
+BLOCKS_SEED = 22
+# [blocks] (a): float32 at full width, cut depth (granite 2 of 32, recurrentgemma one period of
+# 3 of 26, rwkv6 2 of 32), B 1, a stream of 130 crossing RWKV's 64-token chunk edge
+BLOCKS_CHECK_LAYERS = {"granite-moe-3b-a800m": 2, "recurrentgemma-2b": 3, "rwkv6-3b": 2}
+BLOCKS_CHECK_S, BLOCKS_CHECK_PROMPT = 130, 120
+BLOCKS_CHECK_TOL = 1e-4        # logits of the largest |logit|; the aux relative
+MOE_ARCH = "granite-moe-3b-a800m"   # (b) served through K5, (c) trained
+MOE_FWD_TOL = 5e-2             # (b) decode against forward: tests/test_models.py's MoE tolerance
+MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 8, 1024, 5
+# (d): recurrentgemma's prompt wraps its ring of W = 2,048; rwkv6's is not a multiple of 64
+RECURRENT_PROMPT = {"recurrentgemma-2b": 2080, "rwkv6-3b": 1000}
+RECURRENT_B, RECURRENT_STEPS = 8, 64
+RECURRENT_TOL = 2e-2
+PROFILE_BLOCK_STEPS = 4
 
 
 def log(msg: str) -> None:
@@ -1760,17 +1792,20 @@ def phase_latency(setup, on_cpu) -> dict:
     return {"launches": counts["replay_timing"], "wall": wall}
 
 
-def phase_sweep_and_latency() -> dict:
+def phase_sweep_and_latency(before=None) -> tuple:
     """[sweep] then [latency], with both CPU subsets replayed from the start
-    in two worker processes beside the card runs. Returns the kernel table's
-    ``replay_timing`` row."""
+    in two worker processes beside the card runs; ``before()``, where given,
+    runs first while those workers already replay (the CPU subsets take
+    longer than the sweep's card run). Returns the kernel table's
+    ``replay_timing`` row and ``before()``'s result."""
     sweep_setup, latency_setup = _sweep_setup(), _latency_setup()
     with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
         sweep_cpu, latency_cpu = _submit_cpu(pool, sweep_setup), _submit_cpu(pool, latency_setup)
+        first = before() if before is not None else None
         row = phase_sweep(sweep_setup, sweep_cpu)
         del sweep_setup
         row["latency_path"] = phase_latency(latency_setup, latency_cpu)
-    return row
+    return row, first
 
 
 LEGACY_PREFIX = 24576          # [legacy]: 1.5 * n_lbas steps, past every threshold's first GC
@@ -2013,19 +2048,30 @@ def _take_launches() -> int:
     return n
 
 
-def decode_step_bound(cfg, params, kv_lens) -> dict:
-    """The least time of one decode step at batch B = len(kv_lens): every
-    parameter but the embedding table read once, the B embedding rows, each
-    layer's K and V rows up to kv_len read and the new row written, the
-    bfloat16 logits written; the products' operations at the bf16 rate."""
+def _weights_read(cfg, params, B: int) -> tuple[int, int]:
+    """(parameters a decode step at batch B reads, parameters its products
+    use): every one but the embedding table, plus the B embedding rows, or
+    the whole table where the logits are the tied embedding's product."""
     from repro_torch.models.common import tree_leaves
+    embed = params["embed"].numel()
+    weights = sum(t.numel() for t in tree_leaves(params)) - embed
+    if cfg.tie_embeddings:
+        return weights + embed, weights + embed
+    return weights + B * cfg.d_model, weights
+
+
+def decode_step_bound(cfg, params, kv_lens) -> dict:
+    """The least time of one decode step at batch B = len(kv_lens): the
+    weights of `_weights_read` read once, each global-attention layer's K
+    and V rows up to kv_len read and the new row written, the bfloat16
+    logits written; the products' operations at the bf16 rate (under the MoE
+    block's dense dispatch every expert's weights take part)."""
     B = len(kv_lens)
     size = cfg.pdtype().itemsize
-    weights = sum(t.numel() for t in tree_leaves(params)) - params["embed"].numel()
+    read, used = _weights_read(cfg, params, B)
     kv_row = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.hd * size
-    n_bytes = ((weights + B * cfg.d_model) * size + (sum(kv_lens) + B) * kv_row
-               + B * cfg.vocab * size)
-    n_ops = 2 * B * weights + 4 * cfg.n_layers * cfg.n_heads * cfg.hd * sum(kv_lens)
+    n_bytes = read * size + (sum(kv_lens) + B) * kv_row + B * cfg.vocab * size
+    n_ops = 2 * B * used + 4 * cfg.n_layers * cfg.n_heads * cfg.hd * sum(kv_lens)
     return {**bound(n_bytes, n_ops, BF16_FLOPS), "bytes": n_bytes, "kv_row_bytes": kv_row}
 
 
@@ -2072,7 +2118,7 @@ def _count_syncs(fn, tag: str = "[serve]"):
     return out, len(syncs)
 
 
-def _k5_row(tag, q, k, v, kl) -> dict:
+def _k5_row(tag, q, k, v, kl, phase: str = "[serve]") -> dict:
     """K5 at a serving shape against its plain version, timed beside the
     plain version and scaled_dot_product_attention on the same inputs."""
     from repro_torch.kernels import decode_attn, ref
@@ -2084,7 +2130,7 @@ def _k5_row(tag, q, k, v, kl) -> dict:
            "max_abs_err": err, "ms": time_ms(lambda: decode_attn._launch(q, k, v, kl), reps=20),
            "plain_ms": time_ms(lambda: ref.flash_decode_ref(q, k, v, kl), reps=5),
            **_decode_bound(q, k, v, kl), "library_ms": _decode_library(q, k, v, kl)[1]}
-    log(f"[serve] K5 at the {tag} shape (B, S, Hq, Hkv, D) {row['shape']}, {row['kv_rows']} KV "
+    log(f"{phase} K5 at the {tag} shape (B, S, Hq, Hkv, D) {row['shape']}, {row['kv_rows']} KV "
         f"rows: {row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, "
         f"scaled_dot_product_attention {row['library_ms'] * 1e3:.2f} us, bound "
         f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}); max |err| {err:.3e}, against "
@@ -2401,7 +2447,7 @@ def phase_train() -> dict:
     """The training path at stablelm-1.6b's full width on the card (weights
     random from a seeded generator on the card, not JAX's values): (a) one
     loss and backward on the card against the CPU in float32 on 2 of the 24
-    layers; (b) TRAIN_STEPS AdamW steps in bfloat16 on all 24 layers with
+    layers; (b) TRAIN_STEPS AdamW steps in bfloat16 on TRAIN_LAYERS with
     remat, the loss falling, timed against 6 N T and 8 N T over the card's
     bf16 peak, its host syncs counted and a window profiled; (c) the whole
     train state through the SepBIT checkpoint store and back, bit-equal.
@@ -2426,11 +2472,12 @@ def phase_train() -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     smi = _smi()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
     model = build_model(cfg)
     n_params = sum(int(np.prod(sp.shape)) for sp in tree_leaves(model.param_specs()))
     n_leaves = len(tree_leaves(model.param_specs()))
-    log(f"[train] {smi}; {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+    log(f"[train] {smi}; {cfg.name}: {cfg.n_layers} of {get_config(TRAIN_ARCH).n_layers} "
+        f"layers, d_model {cfg.d_model}, heads "
         f"{cfg.n_heads} / {cfg.n_kv_heads}, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
         f"{cfg.norm}, rotary fraction {cfg.rope_fraction}, remat {cfg.remat}, microbatches "
         f"{cfg.microbatches}; {n_params:,} parameters in {n_leaves} leaves by lm_specs "
@@ -2553,6 +2600,379 @@ def phase_train() -> dict:
     return {"ms": ms, "bound6_ms": bound6, "losses": losses, "syncs": syncs, "ckpt": ckpt}
 
 
+def _profile_steps(step, steps: int, tag: str, smi: str, what: str = "decode steps") -> dict:
+    """``step()`` ``steps`` times under torch.profiler: wall, device busy
+    (its share of wall), kernels per step; logs the six largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if _device_us(e) > 0]
+    kernels = [e for e in rows if e.device_type.name == "CUDA"] or rows
+    busy = sum(_device_us(e) for e in kernels) or float("nan")   # nan: no device time seen
+    per_step = sum(e.count for e in kernels) / steps
+    log(f"{tag} {smi}; profiled {steps} {what}: wall {wall * 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms = {100 * busy / 1e6 / wall:.2f}% of wall, {per_step:.1f} kernels "
+        f"per step")
+    for e in sorted(kernels, key=lambda e: -_device_us(e))[:6]:
+        log(f"{tag}   {e.key[:70]:70s} {_device_us(e):12.1f} us x{e.count}")
+    return {"wall_ms": wall * 1e3, "busy_share": busy / 1e6 / wall, "kernels_per_step": per_step}
+
+
+def _state_step_bound(cfg, params, cache, B: int) -> dict:
+    """The least time of one decode step of a model without global attention:
+    the weights of `_weights_read` read once, the whole cache read once, the
+    recurrent states (every leaf but the rings' k, v and position maps)
+    written and one ring row per layer, the logits written; 2 B operations
+    per parameter used at the bf16 rate."""
+    from repro_torch.models.common import tree_leaves
+    size = cfg.pdtype().itemsize
+    weights, used = _weights_read(cfg, params, B)
+    read = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+    rings = [c for c in list(cache["blocks"].values()) + cache["tail"] if "k" in c]
+    ring_bytes = sum(c[k].numel() * c[k].element_size() for c in rings for k in ("k", "v", "pos"))
+    ring_rows = sum(c[k][..., 0, :, :].numel() * c[k].element_size() if k != "pos"
+                    else c[k][..., 0].numel() * c[k].element_size()
+                    for c in rings for k in ("k", "v", "pos"))
+    n_bytes = weights * size + read + read - ring_bytes + ring_rows + B * cfg.vocab * size
+    return {**bound(n_bytes, 2 * B * used, BF16_FLOPS), "bytes": n_bytes}
+
+
+def _blocks_check(arch: str, smi: str) -> dict:
+    """(a): ``arch`` at full width and cut depth in float32, on the card and
+    on the CPU from the same weights: forward's logits and aux over
+    BLOCKS_CHECK_S tokens, then prefill of BLOCKS_CHECK_PROMPT and stepwise
+    decode of the rest. Where an MoE token's chosen experts differ between
+    the devices, logs the token and its top-K margin."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, common
+    from repro_torch.models.common import tree_map
+    cfg = dataclasses.replace(get_config(arch), n_layers=BLOCKS_CHECK_LAYERS[arch],
+                              param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(BLOCKS_SEED))
+    toks = torch.from_numpy(np.random.default_rng(BLOCKS_SEED).integers(
+        0, cfg.vocab, (1, BLOCKS_CHECK_S), dtype=np.int32))
+    routes = {}
+    top_k = common.top_k
+
+    def run(device, p):
+        calls = routes.setdefault(device, [])
+
+        def recording(x, k):
+            vals, idx = top_k(x, k)
+            calls.append((x.detach().cpu(), idx.cpu()))
+            return vals, idx
+        with mock.patch.object(common, "top_k", recording):
+            t = toks.to(device)
+            logits, aux = model.forward(p, {"tokens": t})
+            cache = model.init_cache(1, BLOCKS_CHECK_S, device=device)
+            lg, cache = model.prefill(p, {"tokens": t[:, :BLOCKS_CHECK_PROMPT]}, cache)
+            steps = [lg]
+            for i in range(BLOCKS_CHECK_PROMPT, BLOCKS_CHECK_S):
+                lg, cache = model.decode_step(p, t[:, i:i + 1], cache)
+                steps.append(lg)
+        return logits.float().cpu(), float(aux), torch.stack(steps).float().cpu()
+    t0 = time.perf_counter()
+    card = run("cuda", params)
+    cpu = run("cpu", tree_map(lambda t: t.cpu(), params))
+    fwd_err = float((card[0] - cpu[0]).abs().max()) / float(cpu[0].abs().max())
+    dec_err = float((card[2] - cpu[2]).abs().max()) / float(cpu[2].abs().max())
+    aux_err = abs(card[1] - cpu[1]) / abs(cpu[1]) if cpu[1] else abs(card[1])
+    flips = 0
+    for n, ((_, gi), (probs, ci)) in enumerate(zip(routes["cuda"], routes["cpu"])):
+        K = gi.shape[-1]
+        differ = (gi.sort(-1).values != ci.sort(-1).values).any(-1).reshape(-1)
+        flat = probs.reshape(-1, probs.shape[-1]).sort(-1, descending=True).values
+        for tok in differ.nonzero().flatten().tolist():
+            flips += 1
+            log(f"[blocks] (a) {arch}: top-k call {n}, token {tok}: experts "
+                f"{gi.reshape(-1, K)[tok].tolist()} on the card, {ci.reshape(-1, K)[tok].tolist()} "
+                f"on the CPU; top-K margin {float(flat[tok, K - 1] - flat[tok, K]):.3e}")
+    ok = max(fwd_err, dec_err, aux_err) <= BLOCKS_CHECK_TOL
+    routings = sum(idx.numel() // idx.shape[-1] for _, idx in routes["cpu"])
+    log(f"[blocks] (a) {smi}; {arch} float32, {cfg.n_layers} of {get_config(arch).n_layers} "
+        f"layers, full width, B 1, S {BLOCKS_CHECK_S} (prefill {BLOCKS_CHECK_PROMPT}, "
+        f"{BLOCKS_CHECK_S - BLOCKS_CHECK_PROMPT} decode steps), card against CPU: forward "
+        f"{fwd_err:.3e}, prefill + decode {dec_err:.3e} of the largest |logit| "
+        f"({float(cpu[0].abs().max()):.3f}); aux {card[1]:.6e} vs {cpu[1]:.6e} ({aux_err:.3e}); "
+        f"tolerance {BLOCKS_CHECK_TOL:.0e}; routing differs at {flips} of {routings} token "
+        f"routings; {time.perf_counter() - t0:.1f} s; ok={ok}")
+    if not ok:
+        raise AssertionError(f"[blocks] (a) {arch}: card and CPU differ")
+    return {"fwd_err": fwd_err, "dec_err": dec_err, "aux_err": aux_err, "flips": flips}
+
+
+def _moe_serve(smi: str) -> dict:
+    """(b): granite-moe-3b-a800m at full width and depth in bfloat16 through
+    the serving path: K5 against its plain version in the decode step, decode
+    against forward, then [serve]'s traffic served under both policies (the
+    main path: K5 launched n_layers times per decode step, no host sync);
+    a profiled decode window; K5 timed at the served shape."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serving import make_decode_fn, make_prefill_fn, request_traffic, serve_paged
+    cfg = get_config(MOE_ARCH)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(BLOCKS_SEED))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"[blocks] (b) {smi}; {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads} / {cfg.n_kv_heads}, head_dim {cfg.hd}, {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.experts_per_token}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, route_group "
+        f"{cfg.moe.route_group}; {n_params:,} parameters by lm_specs, {weight_bytes:,} bytes of "
+        f"bfloat16 weights made on the card from seed {BLOCKS_SEED}")
+    rng = np.random.default_rng(BLOCKS_SEED)
+    check_toks = torch.from_numpy(rng.integers(0, cfg.vocab, (CHECK_B, CHECK_PROMPT + CHECK_STEPS),
+                                               dtype=np.int32)).cuda()
+    got, plain, err, top = _k5_against_plain(model, params, check_toks)
+    full = model.forward(params, {"tokens": check_toks})[0][:, CHECK_PROMPT - 1:].float()
+    full = full.transpose(0, 1)
+    ferr, ftop = float((got - full).abs().max()), float(full.abs().max())
+    log(f"[blocks] (b) {smi}; decode step with K5 against its plain version: max |diff| "
+        f"{err:.4e} = "
+        f"{err / top:.4e} of max |logit| {top:.4f} (tolerance {SERVE_K5_TOL}); prefill + "
+        f"{CHECK_STEPS} decode steps against forward: {ferr / ftop:.4e} of {ftop:.4f} (tolerance "
+        f"{MOE_FWD_TOL}); greedy token equal at {int((got.argmax(-1) == full.argmax(-1)).sum())} "
+        f"of {full.shape[0] * full.shape[1]}")
+    if not (err <= SERVE_K5_TOL * top and ferr <= MOE_FWD_TOL * ftop):
+        raise AssertionError("[blocks] (b) K5 against its plain version, or decode against "
+                             "forward, out of tolerance")
+    del got, plain, full
+
+    lengths, prompts = request_traffic(SERVE_REQUESTS, SERVE_MAX_NEW, SERVE_PROMPT, cfg.vocab)
+    prompts = torch.from_numpy(prompts.astype(np.int32)).cuda()
+    prefill = make_prefill_fn(model, cfg)
+    served = {}
+    ops.reset_launch_counts()          # the main path: counts from 0, read just after
+    for policy in ("nosep", "sepbit"):
+        cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_MAX_NEW + 8, device="cuda")
+        decode = _StepTimer(make_decode_fn(model, cfg))
+        st, syncs = _count_syncs(lambda: serve_paged(prefill, decode, params, cache, prompts,
+                                                     lengths, policy=policy,
+                                                     page_tokens=SERVE_PAGE), "[blocks]")
+        served[policy] = dict(st, syncs=syncs, step_ms=decode.device_ms(),
+                              host_ms=1e3 * float(np.mean(decode.host)))
+        log(f"[blocks] (b) {smi}; {policy}: WA {st['wa']:.3f} (gc_pages {st['gc_writes']}), "
+            f"{st['decode_steps']} decode steps, {st['prefills']} prefills, {st['tokens']} tokens "
+            f"in {st['wall']:.3f} s = {st['tokens'] / st['wall']:.1f} tokens/s; decode step "
+            f"{served[policy]['step_ms']:.3f} ms on the device, {served[policy]['host_ms']:.3f} "
+            f"ms to enqueue; host syncs {syncs} ({syncs / st['decode_steps']:.4f} per step)")
+        if (round(st["wa"], 3), st["alloc_failures"], st["decode_steps"], st["prefills"],
+                syncs) != (SERVE_WA[policy], 0, SERVE_STEPS, SERVE_PREFILLS, 0):
+            raise AssertionError(f"[blocks] (b) {policy}: the accounting differs from the CPU's, "
+                                 f"or the loop synchronized")
+    launches = ops.launch_counts()["flash_decode"]
+    steps = sum(v["decode_steps"] for v in served.values())
+    log(f"[blocks] (b) {smi}; flash_decode launches {launches} = {cfg.n_layers} x {steps} "
+        f"decode steps: "
+        f"{launches == cfg.n_layers * steps}")
+    if launches != cfg.n_layers * steps:
+        raise AssertionError("[blocks] (b) the served decode steps did not all go through K5")
+    limit = decode_step_bound(cfg, params, [SERVE_PROMPT + 1] * SERVE_BATCH)
+    step_ms = served["sepbit"]["step_ms"]
+    log(f"[blocks] (b) {smi}; decode step bound {limit['bound_ms']:.3f} ms ({limit['bound_by']}; "
+        f"{limit['bytes']:,} bytes: every expert's weights each step, the dense dispatch) at "
+        f"kv_len {SERVE_PROMPT + 1}: the served step {step_ms:.3f} ms is "
+        f"{step_ms / limit['bound_ms']:.3f}x")
+
+    decode = make_decode_fn(model, cfg)
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_MAX_NEW + 8, device="cuda")
+    lg, cache = prefill(params, {"tokens": prompts[0].expand(SERVE_BATCH, -1)}, cache)
+    cur = [lg.argmax(-1).to(torch.int32)[:, None]]
+
+    def one():
+        nxt, _, _ = decode(params, cur[0], cache)
+        cur[0] = nxt[:, None]
+    prof = _profile_steps(one, PROFILE_BLOCK_STEPS, "[blocks] (b)", smi)
+    q = torch.randn(SERVE_BATCH, cfg.n_heads, cfg.hd, generator=torch.Generator(
+        device="cuda").manual_seed(BLOCKS_SEED), device="cuda").to(torch.bfloat16)
+    layer0 = cache["blocks"]["p0_attn"]
+    k5 = _k5_row("granite served", q, layer0["k"][0], layer0["v"][0], cache["pos"],
+                 f"[blocks] (b) {smi};")
+    ops.reset_launch_counts()
+    return {"launches": launches, "decode_steps": steps, "served": {**k5, "step_ms": step_ms,
+            "step_bound_ms": limit["bound_ms"]}, "tokens_per_s": {
+                p: v["tokens"] / v["wall"] for p, v in served.items()}, "profile": prof}
+
+
+class _AuxRecorder:
+    """A model whose ``forward`` is the wrapped model's, each call's aux kept
+    (detached) for the train step's log."""
+
+    def __init__(self, model):
+        self.model, self.aux = model, []
+
+    def forward(self, params, batch):
+        logits, aux = self.model.forward(params, batch)
+        self.aux.append(aux.detach())
+        return logits, aux
+
+
+def _moe_train(smi: str) -> dict:
+    """(c): granite-moe-3b-a800m at full width and depth, MOE_TRAIN_STEPS
+    AdamW steps at B 8, S 1,024 (routing groups of 512) with remat: every
+    loss and aux finite; the step against 6 N_active T over the bf16 peak."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import (AdamWConfig, DataConfig, SyntheticLM, init_train_state,
+                                      make_train_step)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(MOE_ARCH)
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=MOE_TRAIN_STEPS)
+    state = init_train_state(model, cfg, opt_cfg,
+                             torch.Generator(device="cuda").manual_seed(BLOCKS_SEED))
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    E, K = cfg.moe.n_experts, cfg.moe.experts_per_token
+    n_active = n_params - cfg.n_layers * (E - K) * 3 * cfg.d_model * cfg.d_ff
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    recorder = _AuxRecorder(model)
+    step_fn = _StepTimer(make_train_step(recorder, cfg, opt_cfg))
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MOE_TRAIN_S, global_batch=MOE_TRAIN_B))
+    losses = []
+    for i in range(MOE_TRAIN_STEPS):
+        state, m = step_fn(state, _train_batch(pipe, i))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    aux = [float(x) for x in recorder.aux]
+    ms = [a.elapsed_time(b) for a, b in step_fn.events]
+    batch = _train_batch(pipe, MOE_TRAIN_STEPS)
+
+    def one():
+        nonlocal state
+        state, _ = step_fn.fn(state, batch)
+    prof = _profile_steps(one, 1, "[blocks] (c)", smi, "train step")
+    T = MOE_TRAIN_B * MOE_TRAIN_S
+    bound6 = 1e3 * 6 * n_active * T / BF16_FLOPS
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[blocks] (c) {smi}; {cfg.name} bfloat16, {cfg.n_layers} layers, B {MOE_TRAIN_B}, S "
+        f"{MOE_TRAIN_S} (routing groups of {cfg.moe.route_group}), remat {cfg.remat}, "
+        f"{MOE_TRAIN_STEPS} AdamW steps: train state {state_bytes:,} bytes; losses "
+        f"{[round(x, 4) for x in losses]}; aux {[f'{x:.5f}' for x in aux]}; step ms on the "
+        f"device {[round(x, 3) for x in ms]}; 6 N_active T / 989 TFLOP/s = {bound6:.3f} ms "
+        f"(N_active {n_active:,} of {n_params:,}), {bound6 / float(np.median(ms[1:])):.4f} of "
+        f"the median step after the first; {T * 1e3 / float(np.median(ms[1:])):.1f} tokens/s; "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    if not (np.isfinite(losses).all() and np.isfinite(aux).all()
+            and len(aux) == MOE_TRAIN_STEPS and min(aux) > 0):
+        raise AssertionError(f"[blocks] (c) a loss or aux is not finite: {losses} {aux}")
+    del state
+    return {"ms": float(np.median(ms[1:])), "bound6_ms": bound6, "losses": losses, "aux": aux,
+            "peak_gib": peak / 2**30, **prof}
+
+
+def _recurrent_decode(arch: str, smi: str) -> dict:
+    """(d): ``arch`` at full width and depth in bfloat16: prefill of
+    RECURRENT_PROMPT[arch] tokens at B 8, then RECURRENT_STEPS decode steps,
+    against forward over the whole stream; timed, host syncs counted, a
+    window profiled."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(BLOCKS_SEED))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    P = RECURRENT_PROMPT[arch]
+    T = P + RECURRENT_STEPS
+    toks = torch.from_numpy(np.random.default_rng(BLOCKS_SEED).integers(
+        0, cfg.vocab, (RECURRENT_B, T), dtype=np.int32)).cuda()
+    cache = model.init_cache(RECURRENT_B, T, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = model.prefill(params, {"tokens": toks[:, :P]}, cache)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    out = [lg]
+    decode = _StepTimer(lambda t, c: model.decode_step(params, t, c))
+
+    def loop():
+        nonlocal cache
+        for i in range(P, T):
+            lg, cache = decode(toks[:, i:i + 1], cache)
+            out.append(lg)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, syncs = _count_syncs(loop, "[blocks]")
+    wall = time.perf_counter() - t0
+    limit = _state_step_bound(cfg, params, cache, RECURRENT_B)
+    step_ms = decode.device_ms()
+    got = torch.stack(out).float()
+    full = model.forward(params, {"tokens": toks})[0][:, P - 1:].float().transpose(0, 1)
+    err, top = float((got - full).abs().max()), float(full.abs().max())
+    agree = int((got.argmax(-1) == full.argmax(-1)).sum())
+    del got, full, out
+    cur = [toks[:, -1:]]
+
+    def one():
+        lg, _ = model.decode_step(params, cur[0], cache)
+        cur[0] = lg.argmax(-1).to(torch.int32)[:, None]
+    prof = _profile_steps(one, PROFILE_BLOCK_STEPS, f"[blocks] (d) {arch}", smi)
+    log(f"[blocks] (d) {smi}; {arch} bfloat16, {cfg.n_layers} layers, {n_params:,} parameters by "
+        f"lm_specs; B {RECURRENT_B}, prefill {P} tokens {prefill_ms:.3f} ms; {RECURRENT_STEPS} "
+        f"decode steps in {wall:.3f} s, {step_ms:.3f} ms per step on the device "
+        f"({1e3 * float(np.mean(decode.host)):.3f} ms to enqueue), bound {limit['bound_ms']:.3f} "
+        f"ms ({limit['bound_by']}, {limit['bytes']:,} bytes) = {step_ms / limit['bound_ms']:.3f}x; "
+        f"{RECURRENT_B * 1e3 / step_ms:.1f} tokens/s; host syncs {syncs} "
+        f"({syncs / RECURRENT_STEPS:.4f} per step); decode against forward over the stream "
+        f"{err / top:.4e} of max |logit| {top:.4f} (tolerance {RECURRENT_TOL}), greedy token "
+        f"equal at {agree} of {RECURRENT_B * (RECURRENT_STEPS + 1)}")
+    if not (err <= RECURRENT_TOL * top and syncs == 0):
+        raise AssertionError(f"[blocks] (d) {arch}: decode differs from forward, or the loop "
+                             f"synchronized")
+    return {"prefill_ms": prefill_ms, "step_ms": step_ms, "bound_ms": limit["bound_ms"],
+            "syncs": syncs, "err": err / top, **prof}
+
+
+def phase_blocks() -> dict:
+    """The MoE, local-attention and recurrent block kinds on the card
+    (weights random from a seeded generator on the card, by the reference's
+    init rule; not JAX's values): (a) granite-moe-3b-a800m, recurrentgemma-2b
+    and rwkv6-3b at full width and cut depth in float32, card against CPU;
+    (b) granite served at full width and depth through K5; (c) five granite
+    train steps; (d) recurrentgemma-2b and rwkv6-3b decoded at full width and
+    depth. Returns K5's row on granite's serving path."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    smi = _smi()
+    for arch in BLOCKS_CHECK_LAYERS:
+        _blocks_check(arch, smi)
+        torch.cuda.empty_cache()
+    serve = _moe_serve(smi)
+    torch.cuda.empty_cache()
+    _moe_train(smi)
+    torch.cuda.empty_cache()
+    for arch in RECURRENT_PROMPT:
+        _recurrent_decode(arch, smi)
+        torch.cuda.empty_cache()
+    log(f"[blocks] {smi}; phase wall {time.perf_counter() - t_phase:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return serve
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2573,8 +2993,11 @@ def main() -> int:
     decode_row, decode_launches = phase_decode()
     serve = phase_serve()
     phase_train()
+    blocks = phase_blocks()
     decode_row["serve_path"] = {key: serve[key] for key in ("launches", "decode_steps", "served",
                                                            "long_context")}
+    decode_row["moe_serve_path"] = {key: blocks[key] for key in ("launches", "decode_steps",
+                                                                "served")}
     kernels.append(decode_row)
     analysis_launches = phase_analysis()
     single_rows, k2_launches = phase_parity()
@@ -2585,8 +3008,8 @@ def main() -> int:
     phase_scale()
     phase_profile(cfg, st)
     del st
-    schemes_rows = phase_schemes()
-    kernels.append(phase_sweep_and_latency())
+    sweep_row, schemes_rows = phase_sweep_and_latency(before=phase_schemes)
+    kernels.append(sweep_row)
     gcbench = phase_gcbench(device["smi"])
     legacy = phase_legacy()
     legacy_rows = _path_kernel_rows(

@@ -1,4 +1,4 @@
-"""Shared model substrate of the port: param specs, norms, RoPE, attention, MLP.
+"""Shared model substrate of the port: param specs, norms, RoPE, attention, MLP, MoE.
 
 The twin of the JAX package's ``models/common.py``, op for op in its order and
 dtypes. Parameters are described by ``ParamSpec`` trees (shape + logical axes
@@ -9,12 +9,13 @@ parameters across with ``convert.lm_params_from_numpy``.
 RoPE uses the interleaved (even/odd pair) formulation, as the reference does.
 Decode attention without a window is K5, ``kernels.decode_attn``: the CUDA
 kernel for CUDA tensors (a head dim it does not take raises), its plain
-version for CPU ones. Prefill attention, the projections and the MLP are
-plain matrix products, as the JAX package leaves them to XLA.
+version for CPU ones; windowed decode attention has no kernel (K5's TPU
+original takes no window) and is plain PyTorch on either device. Prefill
+attention, the projections, the MLP and the MoE block are plain matrix
+products, as the JAX package leaves them to XLA.
 
-Not ported yet (ROADMAP Queue 1 item 9.1): ``moe_specs`` / ``moe_block`` and
-the sequence-parallel branch of ``mha``; cross-attention (``mha``'s ``kv``)
-comes with whisper (item 9.3).
+Not ported yet: the sequence-parallel branch of ``mha`` (ROADMAP Queue 1
+item 9.8); cross-attention (``mha``'s ``kv``) comes with whisper (item 9.3).
 """
 
 from __future__ import annotations
@@ -303,21 +304,44 @@ def gqa_attend(q, k, v, *, mode, q_pos, k_pos, prefix_len=None, window=0):
 
 def decode_attend(q, k_cache, v_cache, kv_len, *, window=0):
     """Single-token decode. q: (B,1,H,hd); caches: (B,S,Hk,hd), contiguous;
-    kv_len (B,) int32, each at least 1. K5 on CUDA tensors, its plain
-    version on CPU ones; both keep the softmax weights in float32 for the PV
-    product, where the reference casts them to q's dtype first (equal in
-    float32, within bfloat16's rounding otherwise). Reads nothing from the
+    kv_len (B,) int32, each at least 1. Without a window: K5 on CUDA
+    tensors, its plain version on CPU ones; both keep the softmax weights in
+    float32 for the PV product, where the reference casts them to q's dtype
+    first (equal in float32, within bfloat16's rounding otherwise). With
+    ``window`` W: the reference's plain computation, positions in
+    ``[kv_len - W, kv_len)`` attended, on either device; K5's TPU original
+    takes no window, so no kernel computes this. Reads nothing from the
     device."""
-    if window:
-        raise NotImplementedError("windowed decode attention (attn_local) is not ported yet: "
-                                  "ROADMAP Queue 1 item 9.2")
     B, _, H, hd = q.shape
+    if window:
+        return _windowed_decode_attend(q, k_cache, v_cache, kv_len, window)
     out = decode_attn.flash_decode_unread(q.reshape(B, H, hd).contiguous(), k_cache, v_cache,
                                           kv_len)
     return out.reshape(B, 1, H, hd)
 
 
-# -- MLP ----------------------------------------------------------------------
+def _windowed_decode_attend(q, k_cache, v_cache, kv_len, window):
+    """The reference's ``decode_attend`` with a window, op for op."""
+    B, _, H, hd = q.shape
+    S, Hk = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, Hk, H // Hk, hd)
+    scores = torch.einsum("bhgk,bshk->bhgs", qg, k_cache).to(torch.float32)
+    scores = scores / math.sqrt(hd)
+    idx = torch.arange(S, device=q.device)[None]
+    ok = (idx < kv_len[:, None]) & (idx >= (kv_len[:, None] - window))
+    return masked_attend(scores, ok, v_cache, q.dtype).reshape(B, 1, H, hd)
+
+
+def masked_attend(scores, ok, v, dtype):
+    """softmax over the last axis of float32 ``scores`` (B, Hk, G, S) where
+    ``ok`` (B, S), -1e30 elsewhere, cast to ``dtype``, then the product with
+    ``v`` (B, S, Hk, hd): (B, Hk, G, hd), as the reference's decode paths."""
+    scores = torch.where(ok[:, None, None], scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("bhgs,bshk->bhgk", w, v)
+
+
+# -- MLP / MoE ----------------------------------------------------------------
 
 def mlp_specs(cfg):
     d, f = cfg.d_model, cfg.d_ff
@@ -351,3 +375,83 @@ def mlp(cfg, p, x):
     if cfg.use_bias:
         y = y + p["bo"].to(cd)
     return y
+
+
+def moe_specs(cfg):
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    return {
+        "router": ParamSpec((d, E), ("embed", "experts")),
+        "wi": ParamSpec((E, d, f), ("experts", "embed", "ffn")),
+        "wg": ParamSpec((E, d, f), ("experts", "embed", "ffn")),
+        "wo": ParamSpec((E, f, d), ("experts", "ffn", "embed")),
+    }
+
+
+def dataclasses_replace_route(cfg):
+    """cfg with route_group disabled (recursion guard for grouped moe)."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, route_group=0))
+
+
+def top_k(x, k: int):
+    """The ``k`` largest of the last axis in descending order with their
+    indices, ties toward the lower index: ``lax.top_k``'s order on either
+    device (``torch.topk`` promises no order among ties on CUDA)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_block(cfg, p, x, *, capacity_factor=1.25):
+    """Top-k MoE with capacity-based one-hot dispatch, the reference's
+    ``moe_block``: tokens go to an (E, capacity) buffer in sequence order,
+    overflow tokens are dropped and pass through the residual only. Returns
+    (y, aux), the float32 Switch-style load-balance loss.
+
+    With ``cfg.moe.route_group = G``, ``0 < G < S`` and ``S % G == 0``, the
+    sequence is split into routing groups of G tokens, each with its own
+    capacity, and the aux is that of the grouped call, as in the reference.
+
+    The reference builds ``dispatch`` through a (B, S, K, E, C) product and
+    sums it over K. A token's K chosen experts are distinct, so each (b, s,
+    e) has at most one nonzero term in that sum: ``dispatch`` (B, S, E, C)
+    is built here from the one position per (b, s, e), with the same 0 / 1
+    values and K times less memory. No shape depends on the data and
+    nothing is read from the device."""
+    B, S, D = x.shape
+    G = cfg.moe.route_group
+    if G and G < S and S % G == 0:
+        y, aux = moe_block(dataclasses_replace_route(cfg), p, x.reshape(B * (S // G), G, D),
+                           capacity_factor=capacity_factor)
+        return y.reshape(B, S, D), aux
+    E, K = cfg.moe.n_experts, cfg.moe.experts_per_token
+    cd = x.dtype
+    C = max(int(capacity_factor * K * S / E), 1)
+
+    logits = (x @ p["router"].to(cd)).to(torch.float32)              # (B,S,E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = top_k(probs, K)                              # (B,S,K)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+
+    experts = torch.arange(E, device=x.device)
+    onehot = (gate_idx[..., None] == experts).to(torch.float32)        # (B,S,K,E)
+    # position within each expert's buffer (priority by sequence position)
+    pos_in_expert = torch.cumsum(onehot.reshape(B, S * K, E), dim=1).reshape(B, S, K, E)
+    pos_in_expert = ((pos_in_expert - 1.0) * onehot).sum(2)           # (B,S,E)
+    chosen = onehot.sum(2)                                             # (B,S,E), 0 or 1
+    keep = (pos_in_expert < C) & (chosen > 0)
+    slots = torch.arange(C, device=x.device, dtype=torch.float32)
+    dispatch = (keep[..., None] & (pos_in_expert[..., None] == slots)).to(torch.float32)
+    combine = (gate_vals[..., None] * onehot).sum(2)[..., None] * dispatch  # (B,S,E,C)
+
+    xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(cd), x)          # (E,B,C,D)
+    xin = xin.reshape(E, B * C, D)
+    h = torch.bmm(xin, p["wi"].to(cd))
+    g = torch.bmm(xin, p["wg"].to(cd))
+    h = F.silu(g) * h
+    eout = torch.bmm(h, p["wo"].to(cd)).reshape(E, B, C, D)
+    y = torch.einsum("bsec,ebcd->bsd", combine.to(cd), eout)
+
+    # aux load-balance loss (Switch-style)
+    me = probs.mean(dim=(0, 1))                                        # (E,)
+    ce = chosen.mean(dim=(0, 1))                                       # fraction routed
+    aux = E * torch.sum(me * ce) * cfg.moe.load_balance_coef
+    return y, aux

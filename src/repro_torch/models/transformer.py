@@ -1,5 +1,5 @@
-"""Decoder LM of the port, dense family: the twin of the JAX package's
-``models/transformer.py`` for ``"attn"`` blocks with the dense MLP.
+"""Decoder LM of the port: dense / MoE / hybrid (RG-LRU with local attention)
+/ SSM (RWKV-6), the twin of the JAX package's ``models/transformer.py``.
 
 Parameters keep the reference's tree: per period position, a stack over the
 repeats (``blocks/p<i>_<kind>``, leading layers axis), then the remainder
@@ -11,10 +11,10 @@ Three entry points:
   prefill(cfg, params, tokens, cache)   -> (last-token logits, cache)
   decode_step(cfg, params, tokens, cache) -> (logits, cache)
 
-The KV cache is written in place (JAX returns a new one): ``prefill`` and
-``decode_step`` return the cache they were given, its ``k`` / ``v`` updated
-where they lie, with a new ``pos``. The other block kinds, MoE, and the
-vlm / audio stubs raise ``NotImplementedError`` naming their ROADMAP item.
+The cache is written in place (JAX returns a new one): ``prefill`` and
+``decode_step`` return the cache they were given, its leaves updated where
+they lie, with a new ``pos``. The vlm prefix and the audio family raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from . import rglru, rwkv6
 from .common import (
     ParamSpec,
     apply_norm,
@@ -30,9 +31,12 @@ from .common import (
     attn_out,
     decode_attend,
     gqa_attend,
+    masked_attend,
     mha,
     mlp,
     mlp_specs,
+    moe_block,
+    moe_specs,
     norm_specs,
     qkv,
     rope_for,
@@ -42,29 +46,16 @@ from .common import (
     tree_unstack,
 )
 
-_NOT_PORTED = {
-    "attn_local": "local attention (attn_local) is not ported yet: ROADMAP Queue 1 item 9.2",
-    "rglru": "rglru.py (the RG-LRU block) is not ported yet: ROADMAP Queue 1 item 9.2",
-    "rwkv": "rwkv6.py (the RWKV-6 block) is not ported yet: ROADMAP Queue 1 item 9.2",
-}
-
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of whatever the
-    port cannot run yet: the audio family, MoE, the vlm prefix, and every
-    block kind but ``"attn"``."""
+    port cannot run yet: the audio family and the vlm prefix."""
     if cfg.family == "audio":
         raise NotImplementedError("whisper.py (the audio family) is not ported yet: "
                                   "ROADMAP Queue 1 item 9.3")
-    if cfg.moe is not None:
-        raise NotImplementedError("moe_specs / moe_block are not ported yet: "
-                                  "ROADMAP Queue 1 item 9.1")
     if cfg.frontend is not None or cfg.n_prefix_tokens:
         raise NotImplementedError("the vlm prefix (prefix_embeds, prefix_len) is not ported "
                                   "yet: ROADMAP Queue 1 item 9.3")
-    for kind in cfg.pattern:
-        if kind != "attn":
-            raise NotImplementedError(_NOT_PORTED.get(kind, f"unknown block kind {kind!r}"))
 
 
 def _layout(cfg):
@@ -74,25 +65,40 @@ def _layout(cfg):
 
 
 def _layers(cfg, params, cache=None):
-    """(layer params, layer cache or None) of every layer in order: views
-    into the stacks (`tree_unstack`), then the tail."""
+    """(kind, layer params, layer cache or None) of every layer in order:
+    views into the stacks (`tree_unstack`), then the tail."""
     pattern, period, n_full = _layout(cfg)
     stacks = {key: tree_unstack(p, n_full) for key, p in params["blocks"].items()}
     for r in range(n_full):
         for i, kind in enumerate(pattern[:period]):
             key = f"p{i}_{kind}"
             c = tree_index(cache["blocks"][key], r) if cache is not None else None
-            yield stacks[key][r], c
-    for j in range(len(pattern) - n_full * period):
-        yield params["tail"][j], cache["tail"][j] if cache is not None else None
+            yield kind, stacks[key][r], c
+    for j, kind in enumerate(pattern[n_full * period:]):
+        yield kind, params["tail"][j], cache["tail"][j] if cache is not None else None
 
 
 # -- per-block specs -----------------------------------------------------------
 
-def block_specs(cfg):
-    """An ``"attn"`` block's specs (the only kind `check_supported` lets by)."""
-    return {"ln1": norm_specs(cfg), "ln2": norm_specs(cfg), "attn": attention_specs(cfg),
-            "mlp": mlp_specs(cfg)}
+def block_specs(cfg, kind: str):
+    if kind == "rwkv":
+        return {
+            "ln1": norm_specs(cfg),
+            "time_mix": rwkv6.rwkv_specs(cfg),
+            "ln2": norm_specs(cfg),
+        }
+    specs = {"ln1": norm_specs(cfg), "ln2": norm_specs(cfg)}
+    if kind in ("attn", "attn_local"):
+        specs["attn"] = attention_specs(cfg)
+    elif kind == "rglru":
+        specs["rec"] = rglru.rglru_specs(cfg)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    if cfg.moe is not None:
+        specs["moe"] = moe_specs(cfg)
+    else:
+        specs["mlp"] = mlp_specs(cfg)
+    return specs
 
 
 def lm_specs(cfg):
@@ -103,10 +109,10 @@ def lm_specs(cfg):
         "embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"), "embed"),
         "final_norm": norm_specs(cfg),
         "blocks": {
-            f"p{i}_{kind}": stack_tree(block_specs(cfg), n_full)
+            f"p{i}_{kind}": stack_tree(block_specs(cfg, kind), n_full)
             for i, kind in enumerate(pattern[:period])
         } if n_full else {},
-        "tail": [block_specs(cfg) for _ in tail],
+        "tail": [block_specs(cfg, kind) for kind in tail],
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"))
@@ -123,35 +129,66 @@ def _embed(cfg, params, tokens):
     return h
 
 
-def _mlp_half(cfg, p, h):
-    return h + mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], h))
+def _second_half(cfg, kind, p, h, c=None, carry=False):
+    """``h`` plus the block's second half: rwkv's channel mix, the MoE block
+    or the MLP, each after ``ln2``. Returns (h, the MoE aux or None). Given
+    a layer cache ``c``, rwkv's channel-mix shift ``cm`` is written there,
+    and with ``carry`` also read from there first (decode)."""
+    y = apply_norm(cfg, p["ln2"], h)
+    aux = None
+    if kind == "rwkv":
+        if c is None:
+            y = rwkv6.rwkv_channel_mix(cfg, p["time_mix"], y)
+        else:
+            y, cm = rwkv6.rwkv_channel_mix(cfg, p["time_mix"], y,
+                                           shift_prev=c["cm"] if carry else None,
+                                           return_state=True)
+            c["cm"].copy_(cm)
+    elif cfg.moe is not None:
+        y, aux = moe_block(cfg, p["moe"], y)
+    else:
+        y = mlp(cfg, p["mlp"], y)
+    return h + y, aux
 
 
-def _block(cfg, p, h, positions):
-    h = h + mha(cfg, p["attn"], apply_norm(cfg, p["ln1"], h), positions, mode="causal")
-    return _mlp_half(cfg, p, h)
+def _apply_block(cfg, kind, p, h, positions, aux):
+    """One block of `forward`: (h, aux plus the block's MoE aux)."""
+    y = apply_norm(cfg, p["ln1"], h)
+    if kind in ("attn", "attn_local"):
+        local = kind == "attn_local"
+        y = mha(cfg, p["attn"], y, positions, mode="window" if local else "causal",
+                window=cfg.window if local else 0)
+    elif kind == "rglru":
+        y = rglru.rglru_forward(cfg, p["rec"], y)
+    else:
+        y = rwkv6.rwkv_time_mix(cfg, p["time_mix"], y)
+    h, a = _second_half(cfg, kind, p, h + y)
+    return h, aux if a is None else aux + a
 
 
 def forward(cfg, params, tokens):
     """tokens: (B, S) int. Returns (logits (B, S, V), aux_loss), the aux loss
-    a float32 zero (no MoE). With ``cfg.remat`` and grad enabled, each layer
-    runs under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
-    of each block): its activations are recomputed in the backward pass, the
-    values unchanged."""
+    the float32 sum of the MoE blocks' (zero without MoE). With
+    ``cfg.remat`` and grad enabled, each layer runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of each
+    block): its activations are recomputed in the backward pass, the values
+    unchanged."""
     check_supported(cfg)
     h = _embed(cfg, params, tokens)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
     if cfg.pos == "sinusoidal":
         h = h + sinusoidal_pos(positions, cfg.d_model).to(h.dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for p, _ in _layers(cfg, params):
+    for kind, p, _ in _layers(cfg, params):
         if remat:
-            h = checkpoint(_block, cfg, p, h, positions, use_reentrant=False)
+            h, aux = checkpoint(_apply_block, cfg, kind, p, h, positions, aux,
+                                use_reentrant=False)
         else:
-            h = _block(cfg, p, h, positions)
+            h, aux = _apply_block(cfg, kind, p, h, positions, aux)
     h = apply_norm(cfg, params["final_norm"], h)
-    return _lm_logits(cfg, params, h), torch.zeros((), dtype=torch.float32, device=h.device)
+    return _lm_logits(cfg, params, h), aux
 
 
 def _lm_logits(cfg, params, h):
@@ -166,38 +203,71 @@ def _lm_logits(cfg, params, h):
     return logits
 
 
-# -- KV cache -----------------------------------------------------------------
+# -- KV / recurrent cache ------------------------------------------------------
 
 def cache_specs(cfg, batch: int, max_seq: int):
-    """Cache layout per period position (stacked over repeats)."""
+    """Cache layout per period position (stacked over repeats): ``k`` / ``v``
+    for global attention; a ring of ``W = min(window, max_seq)`` slots with
+    its position map ``pos`` for local attention; ``h`` and the conv window
+    for RG-LRU; the state ``s`` and the two token shifts for RWKV-6."""
     check_supported(cfg)
     pattern, period, n_full = _layout(cfg)
+    w = cfg.lru_width or cfg.d_model
 
-    def one(n=None):
+    def one(kind, n=None):
         lead = (n,) if n else ()
         lax = ("layers",) if n else ()
-        shape = lead + (batch, max_seq, cfg.n_kv_heads, cfg.hd)
         kv_axes = lax + ("batch", "kv_seq", "kv_heads", "head_dim")
-        return {"k": ParamSpec(shape, kv_axes, "zeros"),
-                "v": ParamSpec(shape, kv_axes, "zeros")}
+        if kind == "attn":
+            shape = lead + (batch, max_seq, cfg.n_kv_heads, cfg.hd)
+            return {"k": ParamSpec(shape, kv_axes, "zeros"),
+                    "v": ParamSpec(shape, kv_axes, "zeros")}
+        if kind == "attn_local":
+            W = min(cfg.window, max_seq)
+            shape = lead + (batch, W, cfg.n_kv_heads, cfg.hd)
+            return {"k": ParamSpec(shape, kv_axes, "zeros"),
+                    "v": ParamSpec(shape, kv_axes, "zeros"),
+                    "pos": ParamSpec(lead + (batch, W), lax + ("batch", None), "zeros")}
+        if kind == "rglru":
+            return {"h": ParamSpec(lead + (batch, w), lax + ("batch", "lru"), "zeros"),
+                    "conv": ParamSpec(lead + (batch, rglru.CONV_W - 1, w),
+                                      lax + ("batch", None, "lru"), "zeros")}
+        if kind == "rwkv":
+            H, N = cfg.n_heads, cfg.rnn_head_dim
+            emb_axes = lax + ("batch", None, "act_embed")
+            return {"s": ParamSpec(lead + (batch, H, N, N),
+                                   lax + ("batch", None, None, "rnn_state"), "zeros"),
+                    "tm": ParamSpec(lead + (batch, 1, cfg.d_model), emb_axes, "zeros"),
+                    "cm": ParamSpec(lead + (batch, 1, cfg.d_model), emb_axes, "zeros")}
+        raise ValueError(kind)
 
-    return {"blocks": {f"p{i}_{kind}": one(n_full)
+    return {"blocks": {f"p{i}_{kind}": one(kind, n_full)
                        for i, kind in enumerate(pattern[:period])} if n_full else {},
-            "tail": [one() for _ in pattern[n_full * period:]],
+            "tail": [one(kind) for kind in pattern[n_full * period:]],
             "pos": ParamSpec((batch,), ("batch",), "zeros")}
 
 
 def cache_dtype(key: str, default):
-    """Leaf dtypes: positions int32, everything else ``default``."""
-    return torch.int32 if key == "pos" else default
+    """Leaf dtypes: position maps int32, the RWKV state ``s`` and the RG-LRU
+    state ``h`` float32, everything else ``default``. JAX's ``cache_dtype``
+    gives ``h`` the cache dtype, but its prefill and decode steps replace
+    ``h`` by a float32 array, so from the first step on JAX carries it in
+    float32; the port writes its cache in place, and a bfloat16 ``h`` would
+    round the state at every step."""
+    if key == "pos":
+        return torch.int32
+    if key in ("s", "h"):
+        return torch.float32
+    return default
 
 
 def init_cache(cfg, batch, max_seq, dtype, device):
-    """Zeros of `cache_specs`' shapes on ``device``, each leaf of
-    `cache_dtype`."""
+    """`cache_specs`' shapes on ``device``, each leaf of `cache_dtype`:
+    zeros, except the rings' position maps, filled with -1 (no position)."""
     def make(tree, key=None):
         if isinstance(tree, ParamSpec):
-            return torch.zeros(tree.shape, dtype=cache_dtype(key, dtype), device=device)
+            fill = -1 if key == "pos" and len(tree.shape) > 1 else 0
+            return torch.full(tree.shape, fill, dtype=cache_dtype(key, dtype), device=device)
         if isinstance(tree, dict):
             return {k: make(v, k) for k, v in tree.items()}
         return [make(v, key) for v in tree]
@@ -206,9 +276,25 @@ def init_cache(cfg, batch, max_seq, dtype, device):
 
 # -- prefill / decode ----------------------------------------------------------
 
+def _ring_fill(c, k, v, positions):
+    """The last ``min(S, W)`` positions' k and v into ring slots ``p % W``,
+    with the position map: token p lives in slot p % W, and decode
+    continues the same ring."""
+    W = c["k"].shape[1]
+    last = min(k.shape[1], W)
+    rows = torch.arange(k.shape[0], device=k.device)[:, None]
+    pw = positions[:, -last:]
+    slots = pw % W
+    c["k"][rows, slots] = k[:, -last:].to(c["k"].dtype)
+    c["v"][rows, slots] = v[:, -last:].to(c["v"].dtype)
+    c["pos"][rows, slots] = pw
+
+
 def prefill(cfg, params, tokens, cache):
-    """Run the prompt, fill the caches' first S positions in place, set every
-    row's ``pos`` to S; return last-position logits (B, V) and the cache."""
+    """Run the prompt from a fresh state, fill the caches in place (global
+    attention's first S positions, the rings, the recurrent states), set
+    every row's ``pos`` to S; return last-position logits (B, V) and the
+    cache."""
     check_supported(cfg)
     h = _embed(cfg, params, tokens)
     B, S, _ = h.shape
@@ -216,22 +302,45 @@ def prefill(cfg, params, tokens, cache):
     if cfg.pos == "sinusoidal":
         h = h + sinusoidal_pos(positions, cfg.d_model).to(h.dtype)
     rope = rope_for(cfg, positions)
-    for p, c in _layers(cfg, params, cache):
-        q, k, v = qkv(cfg, p["attn"], apply_norm(cfg, p["ln1"], h), rope)
-        out = gqa_attend(q, k, v, mode="causal", q_pos=positions, k_pos=positions)
-        c["k"][:, :S] = k
-        c["v"][:, :S] = v
-        h = _mlp_half(cfg, p, h + attn_out(cfg, p["attn"], out))
+    for kind, p, c in _layers(cfg, params, cache):
+        y = apply_norm(cfg, p["ln1"], h)
+        if kind in ("attn", "attn_local"):
+            q, k, v = qkv(cfg, p["attn"], y, rope)
+            local = kind == "attn_local"
+            out = gqa_attend(q, k, v, mode="window" if local else "causal", q_pos=positions,
+                             k_pos=positions, window=cfg.window)
+            if local:
+                _ring_fill(c, k, v, positions)
+            else:
+                c["k"][:, :S] = k
+                c["v"][:, :S] = v
+            y = attn_out(cfg, p["attn"], out)
+        elif kind == "rglru":
+            y, (hs, conv) = rglru.rglru_forward(cfg, p["rec"], y, return_state=True)
+            c["h"].copy_(hs)          # h in the compute dtype, then float32, as the reference
+            c["conv"].copy_(conv)
+        else:
+            y, (st, tm) = rwkv6.rwkv_time_mix(cfg, p["time_mix"], y, return_state=True)
+            c["s"].copy_(st)
+            c["tm"].copy_(tm)
+        h, _ = _second_half(cfg, kind, p, h + y, c)
     h = apply_norm(cfg, params["final_norm"], h[:, -1:])
     logits = _lm_logits(cfg, params, h)
     cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=h.device)
     return logits[:, 0], cache
 
 
-def _max_seq(cache) -> int:
-    """The cache's length S (every layer's ``k`` is (B, S, Hk, hd))."""
-    stacks = list(cache["blocks"].values())
-    return stacks[0]["k"].shape[2] if stacks else cache["tail"][0]["k"].shape[1]
+def _max_seq(cfg, cache):
+    """The length S of the global-attention caches (B, S, Hk, hd), or None
+    where the model has no global attention."""
+    pattern, period, n_full = _layout(cfg)
+    for i, kind in enumerate(pattern[:period] if n_full else ()):
+        if kind == "attn":
+            return cache["blocks"][f"p{i}_attn"]["k"].shape[2]
+    for c, kind in zip(cache["tail"], pattern[n_full * period:]):
+        if kind == "attn":
+            return c["k"].shape[1]
+    return None
 
 
 def _write_row(cache, rows, at, inside, new):
@@ -242,12 +351,33 @@ def _write_row(cache, rows, at, inside, new):
     cache[rows, at] = torch.where(inside, new[:, 0].to(cache.dtype), cache[rows, at])
 
 
+def _ring_decode(cfg, c, q, k, v, rows, pos):
+    """Local attention's decode step: k, v and ``pos`` into ring slot
+    ``pos % W``, then attention over the slots whose position lies in
+    ``(pos - W, pos]``, the reference's plain ring attention (K5 takes no
+    window)."""
+    W = c["k"].shape[1]
+    slot = pos % W
+    c["k"][rows, slot] = k[:, 0].to(c["k"].dtype)
+    c["v"][rows, slot] = v[:, 0].to(c["v"].dtype)
+    c["pos"][rows, slot] = pos
+    B, _, H, hd = q.shape
+    Hk = cfg.n_kv_heads
+    qg = q.reshape(B, Hk, H // Hk, hd)
+    scores = torch.einsum("bhgk,bshk->bhgs", qg, c["k"]).to(torch.float32) / (cfg.hd ** 0.5)
+    pc = c["pos"]
+    ok = (pc >= 0) & (pc <= pos[:, None]) & (pc > pos[:, None] - W)
+    return masked_attend(scores, ok, c["v"], q.dtype).reshape(B, 1, H, hd)
+
+
 def decode_step(cfg, params, tokens, cache):
-    """tokens: (B, 1) -> (logits (B, V), cache): each row's k and v written
-    at its own ``pos`` in place (continuous batching), attention over
-    ``kv_len = pos + 1`` by K5 on CUDA, ``pos`` advanced. A row whose ``pos``
-    is at or past the cache's end writes nothing and attends over the whole
-    cache, as in the reference. Reads nothing from the device."""
+    """tokens: (B, 1) -> (logits (B, V), cache), every layer's state updated
+    in place at each row's own ``pos`` (continuous batching): global
+    attention writes k and v at ``pos`` and attends over ``kv_len = pos + 1``
+    by K5 on CUDA (a row at or past the cache's end writes nothing and
+    attends over the whole cache, as in the reference); local attention
+    writes its ring slot; the recurrent blocks step their states. ``pos``
+    advances. Reads nothing from the device."""
     check_supported(cfg)
     pos = cache["pos"]
     kv_len = pos + 1
@@ -255,15 +385,30 @@ def decode_step(cfg, params, tokens, cache):
     if cfg.pos == "sinusoidal":
         h = h + sinusoidal_pos(pos[:, None], cfg.d_model).to(h.dtype)
     rows = torch.arange(h.shape[0], device=h.device)
-    S = _max_seq(cache)
-    at, inside = pos.clamp(max=S - 1), (pos < S)[:, None, None]
+    S = _max_seq(cfg, cache)
+    if S is not None:
+        at, inside = pos.clamp(max=S - 1), (pos < S)[:, None, None]
     rope = rope_for(cfg, pos[:, None])
-    for p, c in _layers(cfg, params, cache):
-        q, k, v = qkv(cfg, p["attn"], apply_norm(cfg, p["ln1"], h), rope)
-        _write_row(c["k"], rows, at, inside, k)
-        _write_row(c["v"], rows, at, inside, v)
-        out = decode_attend(q, c["k"], c["v"], kv_len)
-        h = _mlp_half(cfg, p, h + attn_out(cfg, p["attn"], out))
+    for kind, p, c in _layers(cfg, params, cache):
+        y = apply_norm(cfg, p["ln1"], h)
+        if kind in ("attn", "attn_local"):
+            q, k, v = qkv(cfg, p["attn"], y, rope)
+            if kind == "attn":
+                _write_row(c["k"], rows, at, inside, k)
+                _write_row(c["v"], rows, at, inside, v)
+                out = decode_attend(q, c["k"], c["v"], kv_len)
+            else:
+                out = _ring_decode(cfg, c, q, k, v, rows, pos)
+            y = attn_out(cfg, p["attn"], out)
+        elif kind == "rglru":
+            y, (hs, conv) = rglru.rglru_decode(cfg, p["rec"], y, (c["h"], c["conv"]))
+            c["h"].copy_(hs)
+            c["conv"].copy_(conv)
+        else:
+            y, (st, tm) = rwkv6.rwkv_decode(cfg, p["time_mix"], y, (c["s"], c["tm"], None))
+            c["s"].copy_(st)
+            c["tm"].copy_(tm)
+        h, _ = _second_half(cfg, kind, p, h + y, c, carry=True)
     h = apply_norm(cfg, params["final_norm"], h)
     logits = _lm_logits(cfg, params, h)
     cache["pos"] = kv_len

@@ -1,5 +1,6 @@
-"""Model facade of the port: one API over the architectures it runs (the
-dense family so far), the twin of the JAX package's ``models/zoo.py``.
+"""Model facade of the port: one API over the architectures it runs (every
+one but the vlm and audio stubs), the twin of the JAX package's
+``models/zoo.py``.
 
     model  = build_model(cfg)               # raises for what is not ported
     specs  = model.param_specs()            # ParamSpec tree
@@ -55,6 +56,6 @@ class Model:
 
 def build_model(cfg) -> Model:
     """The model of ``cfg``; ``NotImplementedError`` naming the ROADMAP item
-    for a family, block kind or MoE the port does not run yet."""
+    for the families the port does not run yet (vlm, audio)."""
     transformer.check_supported(cfg)
     return Model(cfg)

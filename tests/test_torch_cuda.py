@@ -28,7 +28,7 @@ from repro_torch.kernels import decode_attn, zipfprob
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import segsel as tsegsel
-from repro_torch.models import build_model
+from repro_torch.models import build_model, common
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.training import AdamWConfig, init_train_state, make_loss_fn, make_train_step
 from repro_torch.training.train_loop import loss_and_grads
@@ -403,7 +403,8 @@ def _assert_decode_close(got, q, k, v, kl):
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,D,S", [(2, 8, 2, 64, 700), (3, 24, 2, 128, 333),
-                                          (2, 32, 32, 96, 300), (2, 64, 8, 128, 1100)])
+                                          (2, 32, 32, 96, 300), (2, 64, 8, 128, 1100),
+                                          (8, 24, 8, 64, 120), (8, 24, 8, 64, 1056)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_kernel_matches_plain(card, B, Hq, Hkv, D, S, dtype):
     """Within the tolerances of `_assert_decode_close`."""
@@ -820,6 +821,92 @@ def test_lm_on_the_card_refuses_a_head_dim_the_kernel_does_not_take(card):
         decode_attn.flash_decode_unread(q, kv, kv, torch.ones(LM_B, dtype=torch.int32,
                                                                 device=card))
     assert ops.launch_counts()["flash_decode"] == 0
+
+
+# -- the MoE, local-attention and recurrent blocks, on the card ------------------------
+
+def _block_lm(arch, card, **replace):
+    """The smoke config of ``arch`` (granite's at K5's head dim 64, 8 query
+    heads over 2 KV heads) with weights from seed 0 on the card."""
+    cfg = smoke_config(arch)
+    if cfg.moe is not None:
+        replace = dict(head_dim=64, n_heads=8, n_kv_heads=2, **replace)
+    cfg = dataclasses.replace(cfg, **replace)
+    model = build_model(cfg)
+    return cfg, model, model.init_params(torch.Generator(device=card).manual_seed(0))
+
+
+@pytest.mark.parametrize("zero_router", [False, True])
+def test_moe_block_on_the_card_routes_as_the_cpu(card, zero_router):
+    """float32: the MoE block on the card within 1e-4 of the CPU's output
+    and aux; with a zero router (every expert tied) the card keeps experts
+    0..K-1 and the first C tokens, as the CPU and lax.top_k do."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, _, params = _block_lm("granite-moe-3b-a800m", card)
+    p = dict(params["blocks"]["p0_attn"]["moe"])
+    p = {k: v[0] for k, v in p.items()}
+    if zero_router:
+        p["router"] = torch.zeros_like(p["router"])
+    x = torch.randn(2, 16, cfg.d_model, generator=torch.Generator(device=card).manual_seed(1),
+                    device=card)
+    got, aux = common.moe_block(cfg, p, x)
+    want, want_aux = common.moe_block(cfg, tree_map(lambda t: t.cpu(), p), x.cpu())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * float(want_aux)
+    if zero_router:
+        C = int(1.25 * cfg.moe.experts_per_token * 16 / cfg.moe.n_experts)
+        assert torch.equal(got[:, C:].cpu(), torch.zeros_like(want[:, C:]))
+        assert bool((got[:, :C] != 0).any(-1).all())
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "recurrentgemma-2b", "rwkv6-3b"])
+def test_block_lm_decode_on_the_card_matches_the_cpu(card, arch):
+    """float32, a stream past the smoke window (16): prefill of 24 tokens
+    and 16 decode steps on the card within 1e-4 of the CPU; K5 launched
+    once per global-attention layer and step (granite), never for the ring
+    attention or the recurrent blocks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, model, params = _block_lm(arch, card)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 40))
+                            .astype(np.int32))
+
+    def run(device, p):
+        cache = model.init_cache(2, 40, device=device)
+        lg, cache = model.prefill(p, {"tokens": toks[:, :24].to(device)}, cache)
+        out = [lg]
+        for t in range(24, 40):
+            lg, cache = model.decode_step(p, toks[:, t:t + 1].to(device), cache)
+            out.append(lg)
+        return torch.stack(out), cache
+    ops.reset_launch_counts()
+    got, cache = run(card, params)
+    assert ops.launch_counts()["flash_decode"] == 16 * cfg.pattern.count("attn")
+    want, want_cache = run("cpu", tree_map(lambda t: t.cpu(), params))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    for a, b in zip(tree_leaves(cache), tree_leaves(want_cache)):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+def test_moe_decode_step_on_the_card_makes_no_host_sync(card):
+    """bfloat16 granite (smoke width, K5's head dim): a decode step under
+    ``torch.cuda.set_sync_debug_mode("error")`` raises on no synchronizing
+    call."""
+    cfg, model, params = _block_lm("granite-moe-3b-a800m", card, param_dtype="bfloat16",
+                                   compute_dtype="bfloat16")
+    cache = model.init_cache(4, 32, device=card)
+    toks = torch.randint(0, cfg.vocab, (4, 8), dtype=torch.int32, device=card)
+    lg, cache = model.prefill(params, {"tokens": toks}, cache)
+    cur = lg.argmax(-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            lg, cache = model.decode_step(params, cur, cache)
+            cur = lg.argmax(-1).to(torch.int32)[:, None]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cache["pos"].tolist() == [11] * 4
 
 
 # -- training and checkpoint, on the card ----------------------------------------------

@@ -1,10 +1,14 @@
 """The port's examples (``examples/quickstart_torch.py`` and
 ``examples/trace_sim_torch.py``) run with ``--device cpu`` at a small size,
 each row bit-equal to ``jaxsim.simulate_jax`` on the same trace and knobs;
-``examples/train_lm_torch.py`` trains, checkpoints and resumes on the CPU."""
+``examples/train_lm_torch.py`` trains, checkpoints and resumes on the CPU;
+the LM examples print their JAX twins' write amplification for the MoE,
+hybrid and SSM archs."""
 
 import dataclasses
 import importlib.util
+import re
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -15,6 +19,7 @@ from repro.core import jaxsim, traces
 from repro.core.jaxsim import JaxSimConfig
 
 ROOT = Path(__file__).resolve().parents[1]
+BLOCK_ARCHS = ["granite-moe-3b-a800m", "recurrentgemma-2b", "rwkv6-3b"]
 
 
 def _example(name: str):
@@ -126,3 +131,36 @@ def test_train_lm_resumes_and_reports_the_stores_wa(tmp_path, capsys):
     assert again["start"] == 30 and len(again["losses"]) == 4
     assert np.isfinite(again["losses"]).all()
     assert np.mean(again["losses"]) < losses[0] - 0.5
+
+
+@pytest.mark.parametrize("arch", BLOCK_ARCHS)
+def test_serve_paged_prints_the_jax_examples_wa(arch, monkeypatch, capsys):
+    """``serve_paged_torch.py --device cpu --arch <arch>`` prints the page
+    store's WA lines and its cut that ``examples/serve_paged.py`` prints for
+    the same flags."""
+    args = ["--arch", arch, "--requests", "24"]
+    _example("serve_paged_torch").main(args + ["--device", "cpu"])
+    got = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["serve_paged.py", *args])
+    _example("serve_paged").main()
+    want = capsys.readouterr().out
+    lines = [re.findall(r"^(\w+ *: compaction WA=[\d.]+ gc_pages=\d+)", out, re.M)
+             + re.findall(r"SepBIT cuts .* by [\d.]+%", out) for out in (got, want)]
+    assert len(lines[0]) == 3 and lines[0] == lines[1], (got, want)
+
+
+@pytest.mark.parametrize("arch", BLOCK_ARCHS)
+def test_train_lm_prints_the_jax_examples_wa(arch, tmp_path, monkeypatch, capsys):
+    """``train_lm_torch.py --device cpu --steps 2 --arch <arch>``: finite
+    losses and the checkpoint store's WA line of ``examples/train_lm.py``
+    with the same flags."""
+    args = ["--arch", arch, "--steps", "2", "--seq", "32"]
+    run = _example("train_lm_torch").main(args + ["--device", "cpu", "--ckpt-dir",
+                                                  str(tmp_path / "port")])
+    got = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["train_lm.py", *args, "--ckpt-dir", str(tmp_path / "jax")])
+    _example("train_lm").main()
+    want = capsys.readouterr().out
+    assert len(run["losses"]) == 2 and np.isfinite(run["losses"]).all()
+    wa = [re.findall(r"checkpoint-store WA=[\d.]+", out) for out in (got, want)]
+    assert len(wa[0]) == 1 and wa[0] == wa[1], (got, want)

@@ -1,7 +1,8 @@
 """The port's LM slice against the JAX package on the CPU: the copied configs,
 the pieces of ``models/common.py``, and the dense transformer's forward,
 prefill and stepwise decode at the smoke configs of the four dense archs,
-with JAX's parameters carried across by ``convert.lm_params_from_numpy``."""
+with JAX's parameters carried across by ``convert.lm_params_from_numpy``
+(the other block kinds: ``tests/test_torch_blocks.py``)."""
 
 import dataclasses
 import functools
@@ -23,7 +24,8 @@ from repro_torch.kernels import ref as tref
 from repro_torch.models import build_model, common, transformer
 
 DENSE = ["qwen3-32b", "stablelm-1.6b", "starcoder2-3b", "phi3-mini-3.8b"]
-NOT_DENSE = [a for a in jconfigs.ARCH_IDS if a not in DENSE]
+NOT_PORTED = ["paligemma-3b", "whisper-small"]       # the vlm prefix and whisper, item 9.3
+BLOCKS = ["granite-moe-3b-a800m", "grok-1-314b", "recurrentgemma-2b", "rwkv6-3b"]
 TOL = 2e-4          # tests/test_models.py's decode-vs-forward tolerance, float32
 B, S, P = 2, 12, 8  # tests/test_models.py's decode pattern: prompt P, then S - P steps
 
@@ -196,18 +198,12 @@ def test_lm_params_from_numpy_rejects_another_tree(case):
         convert.lm_params_from_numpy(cfg, tree, "cpu")
 
 
-@pytest.mark.parametrize("arch", NOT_DENSE)
+@pytest.mark.parametrize("arch", NOT_PORTED)
 def test_what_is_not_ported_raises_naming_its_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 9\.[123]"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 9\.3"):
         build_model(configs.smoke_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.lm_specs(configs.smoke_config(arch))
-
-
-def test_windowed_decode_attention_raises():
-    q, k = torch.zeros(1, 1, 4, 16), torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="attn_local"):
-        common.decode_attend(q, k, k, torch.ones(1, dtype=torch.int32), window=4)
 
 
 def _np(*shape, seed=0):
@@ -302,14 +298,32 @@ def test_make_param_follows_the_reference_rule(spec, std):
                                                                           dtype=torch.bfloat16))
 
 
-def test_init_params_shapes_and_cache_layout():
-    cfg = configs.smoke_config("qwen3-32b")
+@pytest.mark.parametrize("arch", ["qwen3-32b"] + BLOCKS)
+def test_init_params_shapes_and_cache_layout(arch):
+    """The port's parameter tree has JAX's shapes; its cache has JAX's
+    leaves, shapes and dtypes (but RG-LRU's ``h``, float32 in the port:
+    `transformer.cache_dtype`), zeros but the rings' position maps, -1."""
+    cfg = configs.smoke_config(arch)
     model = build_model(cfg)
     params = model.init_params(torch.Generator().manual_seed(0))
-    jspecs = jbuild_model(jconfigs.smoke_config("qwen3-32b")).param_specs()
-    shapes = jax.tree.map(lambda s: s.shape, jspecs,
+    jmodel = jbuild_model(jconfigs.smoke_config(arch))
+    shapes = jax.tree.map(lambda s: s.shape, jmodel.param_specs(),
                           is_leaf=lambda x: isinstance(x, jcommon.ParamSpec))
     assert common.tree_map(lambda t: tuple(t.shape), params) == shapes
     cache = model.init_cache(3, 20, device="cpu")
-    assert cache["blocks"]["p0_attn"]["k"].shape == (2, 3, 20, 2, 16)
-    assert cache["pos"].dtype == torch.int32 and cache["tail"] == []
+    jcache = jax.device_get(jmodel.init_cache(3, 20))
+    got = jax.tree_util.tree_flatten_with_path(cache)[0]
+    want = jax.tree_util.tree_flatten_with_path(jcache)[0]
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        key = jax.tree_util.keystr(path)
+        assert tuple(g.shape) == w.shape, key
+        dtype = "float32" if key.endswith("['h']") else str(w.dtype)
+        assert str(g.dtype) == "torch." + dtype, key
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w, np.float32), err_msg=key)
+    if arch == "qwen3-32b":
+        assert cache["blocks"]["p0_attn"]["k"].shape == (2, 3, 20, 2, 16)
+        assert cache["pos"].dtype == torch.int32 and cache["tail"] == []
+    if arch == "recurrentgemma-2b":
+        assert cache["blocks"]["p2_attn_local"]["pos"].shape == (1, 3, 16)
+        assert (cache["blocks"]["p2_attn_local"]["pos"] == -1).all()

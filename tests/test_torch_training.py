@@ -1,8 +1,8 @@
 """The port's training slice against the JAX package on the CPU: the copied
 data pipeline, AdamW and its schedules, the cross entropy, the loss's
-gradients and the train step at the smoke configs of the four dense archs,
-with JAX's parameters carried across by ``convert``; remat and microbatches;
-the train state carried both ways."""
+gradients and the train step at the smoke configs of the four dense archs
+and of the MoE, hybrid and SSM ones, with JAX's parameters carried across by
+``convert``; remat and microbatches; the train state carried both ways."""
 
 import dataclasses
 import functools
@@ -25,6 +25,7 @@ from repro_torch.models.common import tree_leaves
 from repro_torch.training import data, optimizer, train_loop
 
 DENSE = ["qwen3-32b", "stablelm-1.6b", "starcoder2-3b", "phi3-mini-3.8b"]
+BLOCKS = ["granite-moe-3b-a800m", "grok-1-314b", "recurrentgemma-2b", "rwkv6-3b"]
 B, S = 4, 16
 GRAD_TOL = 1e-4      # every gradient leaf, absolute, of the leaf's largest |grad|
 LOSS_TOL = 1e-5      # one step's loss, relative
@@ -236,7 +237,7 @@ def _check_step(arch, **replace):
     return l_err, g_err
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + BLOCKS)
 def test_train_step_matches_jax(arch):
     _check_step(arch)
 
