@@ -22,14 +22,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    bfloat16 output), a repeat bit-identical, then timed in bfloat16 beside
    scaled_dot_product_attention at each geometry (qwen3-32b's in the kernel
    table, and again with every row live), with the split grid;
-5. serve: the LM serving path at qwen3-32b's full width in bfloat16 (65.5 GB
-   of random weights made on the card): the decode step with K5 against the
-   same step with its plain version (float32 on 2 layers within 1e-4;
-   bfloat16 on 64 within SERVE_K5_TOL of the largest logit), prefill plus
-   decode against the teacher-forced forward, then the reference serving
-   example's traffic (48 requests, batch 8) through the port's serving
-   functions, nosep then sepbit, its page store's WA equal to the CPU's; K5
-   launched 64 times per decode step and never by prefill; a profiled
+5. serve: the LM serving path at qwen3-32b's full width on SERVE_LAYERS of
+   its 64 layers in bfloat16 (random weights made on the card): the decode
+   step with K5 against the same step with its plain version (float32 on 2
+   layers within 1e-4; bfloat16 on SERVE_LAYERS within SERVE_K5_TOL of the
+   largest logit), prefill plus decode against the teacher-forced forward,
+   then the reference serving example's traffic (48 requests, batch 8)
+   through the port's serving functions, nosep then sepbit, its page
+   store's WA equal to the CPU's; K5 launched once per layer and decode
+   step and never by prefill; a profiled
    decode window, a longer-context batch (B 8, prompt 1,024), and K5 timed
    at both shapes beside scaled_dot_product_attention;
 6. train: the training path at stablelm-1.6b's full width and TRAIN_LAYERS
@@ -49,31 +50,44 @@ Phases, in order; any failure raises and the script exits non-zero:
    32) in float32, card against CPU over 130 tokens (forward, then prefill
    of 120 and 10 decode steps; logits within 1e-4 of the largest, the aux
    within 1e-4 relative; MoE routings that differ are printed with their
-   top-K margin); (b) granite-moe-3b-a800m at full depth in bfloat16
-   through the serving path: K5 against its plain version in the decode
-   step, decode against forward (5e-2, the reference's MoE tolerance),
-   [serve]'s traffic under both policies with the CPU's WA, K5 launched 32
-   times per decode step, no host sync, a profiled window, K5 timed at this
-   shape; (c) five granite AdamW steps at B 8, S 1,024 with remat, every
+   top-K margin); (b) granite-moe-3b-a800m on MOE_LAYERS of its 32 layers
+   in bfloat16 through the serving path: K5 against its plain version in
+   the decode step, decode against forward (5e-2, the reference's MoE
+   tolerance), [serve]'s traffic under both policies with the CPU's WA, K5
+   launched once per layer and decode step, no host sync, a profiled
+   window, K5 timed at this shape; (c) five granite AdamW steps on
+   MOE_LAYERS layers at B 8, S 1,024 with remat, every
    loss and aux finite, against 6 N_active T; (d) recurrentgemma-2b (prompt
    2,080 past its 2,048-slot ring) and rwkv6-3b (prompt 1,000) at full
    depth in bfloat16, B 8, 64 decode steps against forward over the stream
    (2e-2), timed against their bytes bound, host syncs counted, profiled;
-8. analysis: the paper's §3 at its own scale (n = 10 * 2^18): the eight
+8. vlm_audio: the vlm prefix and whisper: (a) paligemma-3b (2 of 18
+   layers) and whisper-small (2 + 2 of 12 + 12) at full width in float32,
+   card against CPU (logits within 1e-4 of the largest, every cache leaf
+   within 1e-4 of its largest); (b) paligemma-3b at full depth in bfloat16,
+   B 8 rows of 256 image embeddings and 16 tokens, 64 greedy decode steps
+   through the serving functions: K5 at head dim 256 18 times a step, no
+   host sync, K5 = its plain version and decode = forward within 2e-2 of
+   the largest |logit|, a profiled window; (c) whisper-small the same, B 8
+   rows of 1,500 frames and 4 tokens, a self cache of 448: K5 24 times a
+   step (self and cross); (d) one AdamW step of each at full width on
+   ``input_specs``' inputs, loss and grad norm finite, no host sync; (e) K5
+   timed at the three served shapes beside scaled_dot_product_attention;
+9. analysis: the paper's §3 at its own scale (n = 10 * 2^18): the eight
    Fig 8 / Fig 10 points of the repository's benchmark, five of them held
    to the paper's values, all four figure grids through the Zipf kernel
    (one launch per pmf: 11 in each figure's part; every point counted;
    points shared by two calls equal bit for bit; the pmf made on the card
    compared with numpy's, printed), and Figs 9 / 11 on the benchmark-grade
    volume pool, equal on the card and on the CPU;
-9. engine parity: a reduced fleet replayed on the card by the replay kernel
+10. engine parity: a reduced fleet replayed on the card by the replay kernel
    and by the step engine (kernels K1 and K3 between PyTorch ops) must end
    in states bit-equal to the step engine's on the CPU; one volume replayed
    alone on the card under both engines (the replay kernel at V = 1, and the
    single-volume victim kernel K2) must equal its row of the fleet; in the
    free-pool exhaustion corner the replay kernel must equal the CPU and the
    step engine keep its envelope;
-10. main run: the 186-volume mixed corpus tiled over the four GC thresholds
+11. main run: the 186-volume mixed corpus tiled over the four GC thresholds
    of the repository's gcbench (744 volumes of 64 MiB at 4 KiB blocks),
    SepBIT with cost-benefit selection, replayed by the replay kernel; the
    step engine on its first 24,576 steps, every final key equal to the
@@ -81,17 +95,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    replayed over the whole trace by the step engine on the CPU, the replay
    kernel's plain version, equal to their rows; the replay kernel timed
    alone on both inputs;
-11. scale: the replay kernel alone on 32 volumes of 1 GiB, held to the
+12. scale: the replay kernel alone on 32 volumes of 1 GiB, held to the
    state invariants, its time and its victim scans' bytes per user write;
-12. profile: steady windows of both engines under torch.profiler;
-13. schemes: the paper's 14-scheme comparison (Exp#1): the 186-volume
+13. profile: steady windows of both engines under torch.profiler;
+14. schemes: the paper's 14-scheme comparison (Exp#1): the 186-volume
     corpus (8 MiB volumes) under each of the 14 placement schemes, 2,604
     volumes in one fleet through the step engine on the card (K1 and K3,
     the nine stateful schemes' branches between them); WA per scheme,
     ranked; one volume per scheme equal to the step engine on the CPU on
     every key, the elementwise volumes equal to the replay kernel's replay
     of them, which refuses the mixed fleet; a profiled steady window;
-14. sweep: the heterogeneous sweep of ``core/fleetshard.py`` at full width,
+15. sweep: the heterogeneous sweep of ``core/fleetshard.py`` at full width,
     the main run's corpus under 5 elementwise schemes x 2 selectors x GP
     0.10 / 0.15 / 0.20 (5,580 volumes of 64 MiB), timing model on, through
     the replay kernel's timing instance: grouped (one launch per scheme)
@@ -99,19 +113,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     (scheme, selector) pair equal to the step engine on the CPU (run in a
     worker beside the card), the accounting conserved; per cell WA, mean
     +- CI and p50 / p99; the kernel timed alone with timing on and off;
-15. latency: the committed ``BENCH_gc_latency.json`` reproduced on every
+16. latency: the committed ``BENCH_gc_latency.json`` reproduced on every
     field (nosep / sepgc / sepbit on the replay kernel, fk on the step
     engine), then greedy / rate_limited / idle_window x nosep / sepgc /
     sepbit at full width (1,674 volumes): overflow 0, rate_limited's GC
     writes equal to greedy's, the accounting conserved, one volume per cell
     equal to the CPU on every key;
-16. gcbench: the JAX package's gcbench fleet (16 volumes of 1 MiB, segment
+17. gcbench: the JAX package's gcbench fleet (16 volumes of 1 MiB, segment
     32, sepbit, cost-benefit, GC thresholds 0.08-0.22) under the legacy GC
     engine on the step engine and the tick engine on the replay kernel, each
     reproducing ``BENCH_fleet_gc.json``'s per-volume reclaimed counts, WA and
     GC writes, equal to each other on every key, with each engine's steady
     volumes/s; one volume alone under legacy (K2) equal to its fleet row;
-17. legacy: the main run's 744 volumes through a prefix of their steps
+18. legacy: the main run's 744 volumes through a prefix of their steps
     under the legacy GC engine on the card's step engine (K1 at loop entry on
     every write, K3 on every rewrite), equal on every key to the replay
     kernel on the same prefix and, on eight volumes, to the legacy engine on
@@ -169,6 +183,7 @@ QWEN3_32B, STARCODER2_3B, PHI3_MINI = (64, 8, 128), (24, 2, 128), (32, 32, 96)
 DECODE_TIMED, DECODE_CHECKED = (16, 8192), (8, 4096)
 PREV_DECODE_MS = 1.472         # K5 before the split-KV design, at the timed shape (PERF.md, run D)
 SERVE_ARCH = "qwen3-32b"       # [serve]: K5's timed geometry, at full width in bfloat16
+SERVE_LAYERS = 32              # of its 64: the decode steps are host-bound, launches per layer
 SERVE_SEED = 20
 # examples/serve_paged.py's defaults: requests, batch, prompt, page, max new tokens
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_PAGE, SERVE_MAX_NEW = 48, 8, 16, 8, 96
@@ -186,7 +201,7 @@ LONG_B, LONG_PROMPT, LONG_STEPS = 8, 1024, 32  # [serve]'s longer-context batch
 PROFILE_SERVE_STEPS = 4
 K5_KERNELS = ("split_kernel", "combine_kernel")   # csrc/decode_attn.cu's two passes
 TRAIN_ARCH = "stablelm-1.6b"   # [train]: fits one card with its AdamW state at full width
-TRAIN_LAYERS = 12              # of its 24: the checkpoint round trip is host-bound by the bytes
+TRAIN_LAYERS = 8               # of its 24: the checkpoint round trip is host-bound by the bytes
 TRAIN_SEED = 21
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 30
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
@@ -202,6 +217,7 @@ BLOCKS_CHECK_LAYERS = {"granite-moe-3b-a800m": 2, "recurrentgemma-2b": 3, "rwkv6
 BLOCKS_CHECK_S, BLOCKS_CHECK_PROMPT = 130, 120
 BLOCKS_CHECK_TOL = 1e-4        # logits of the largest |logit|; the aux relative
 MOE_ARCH = "granite-moe-3b-a800m"   # (b) served through K5, (c) trained
+MOE_LAYERS = 16                # of its 32 in (b) and (c): the decode steps are host-bound
 MOE_FWD_TOL = 5e-2             # (b) decode against forward: tests/test_models.py's MoE tolerance
 MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 8, 1024, 5
 # (d): recurrentgemma's prompt wraps its ring of W = 2,048; rwkv6's is not a multiple of 64
@@ -209,6 +225,22 @@ RECURRENT_PROMPT = {"recurrentgemma-2b": 2080, "rwkv6-3b": 1000}
 RECURRENT_B, RECURRENT_STEPS = 8, 64
 RECURRENT_TOL = 2e-2
 PROFILE_BLOCK_STEPS = 4
+VLM_ARCH, AUDIO_ARCH = "paligemma-3b", "whisper-small"   # [vlm_audio]: the stub frontends
+STUB_SEED = 23
+# (a): float32, full width, cut depth (paligemma 2 of 18 layers, whisper 2 + 2 of 12 + 12),
+# B 1, the stub frontend's 256 embeddings or 1,500 frames, 16 text tokens: forward over all
+# 16, prefill of 12 and 4 decode steps
+STUB_CHECK_LAYERS, STUB_CHECK_TOKENS, STUB_CHECK_STEPS = 2, 16, 4
+STUB_CHECK_TOL = 1e-4          # logits of the largest |logit|; each cache leaf of its largest
+# (b), (c): B 8 served in bfloat16, 64 greedy decode steps; paligemma's prompt 16 tokens after
+# its 256 image embeddings, whisper's 4 (the start-of-transcript sequence's length) beside
+# 1,500 frames (a 30-second window), its self cache Whisper's decoder context of 448
+STUB_B, STUB_STEPS, VLM_PROMPT, AUDIO_PROMPT, AUDIO_MAX_SEQ = 8, 64, 16, 4, 448
+STUB_TOL = 2e-2                # K5 = plain and decode = forward, of the largest |logit|
+PROFILE_STUB_STEPS = 4
+# (d): one AdamW step at full width: paligemma B 4 x (256 prefix + 128 text), whisper B 8 x
+# (1,500 frames, 448 tokens), inputs by input_specs
+STUB_TRAIN = {VLM_ARCH: (4, 256 + 128), AUDIO_ARCH: (8, 448)}
 
 
 def log(msg: str) -> None:
@@ -283,7 +315,9 @@ def phase_build() -> None:
         f"(nvcc {' '.join(build.NVCC_FLAGS)})")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if "entry function" in line:          # the instance whose lines follow
+                log(f"[build] {name}: {line.split(chr(39))[1][:96]}")
+            elif "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -2144,7 +2178,7 @@ def phase_serve() -> dict:
     """The LM serving path at qwen3-32b's full width in bfloat16 on the card
     (weights random from a seeded generator on the card, not JAX's values):
     (a) K5 against its plain version in float32 on 2 of the 64 layers; (b)
-    the same in bfloat16 on all 64; (c) prefill plus decode against the
+    the same in bfloat16 on SERVE_LAYERS; (c) prefill plus decode against the
     teacher-forced forward; the reference example's traffic served through
     the port's serving functions, nosep then sepbit, its WA equal to the CPU
     accounting's; a profiled decode step; a longer-context batch. K5's
@@ -2164,7 +2198,7 @@ def phase_serve() -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     smi = _smi()
-    cfg = get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=SERVE_LAYERS)
     rng = np.random.default_rng(SERVE_SEED)
     check_toks = torch.from_numpy(rng.integers(0, cfg.vocab, (CHECK_B, CHECK_PROMPT + CHECK_STEPS),
                                                dtype=np.int32)).cuda()
@@ -2713,8 +2747,8 @@ def _blocks_check(arch: str, smi: str) -> dict:
 
 
 def _moe_serve(smi: str) -> dict:
-    """(b): granite-moe-3b-a800m at full width and depth in bfloat16 through
-    the serving path: K5 against its plain version in the decode step, decode
+    """(b): granite-moe-3b-a800m at full width on MOE_LAYERS layers in
+    bfloat16 through the serving path: K5 against its plain version in the decode step, decode
     against forward, then [serve]'s traffic served under both policies (the
     main path: K5 launched n_layers times per decode step, no host sync);
     a profiled decode window; K5 timed at the served shape."""
@@ -2725,7 +2759,7 @@ def _moe_serve(smi: str) -> dict:
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_leaves
     from repro_torch.serving import make_decode_fn, make_prefill_fn, request_traffic, serve_paged
-    cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
     model = build_model(cfg)
     params = model.init_params(torch.Generator(device="cuda").manual_seed(BLOCKS_SEED))
     n_params = sum(t.numel() for t in tree_leaves(params))
@@ -2823,8 +2857,9 @@ class _AuxRecorder:
 
 
 def _moe_train(smi: str) -> dict:
-    """(c): granite-moe-3b-a800m at full width and depth, MOE_TRAIN_STEPS
-    AdamW steps at B 8, S 1,024 (routing groups of 512) with remat: every
+    """(c): granite-moe-3b-a800m at full width on MOE_LAYERS layers,
+    MOE_TRAIN_STEPS AdamW steps at B 8, S 1,024 (routing groups of 512) with
+    remat: every
     loss and aux finite; the step against 6 N_active T over the bf16 peak."""
     import torch
 
@@ -2834,7 +2869,7 @@ def _moe_train(smi: str) -> dict:
     from repro_torch.training import (AdamWConfig, DataConfig, SyntheticLM, init_train_state,
                                       make_train_step)
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
     model = build_model(cfg)
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=MOE_TRAIN_STEPS)
     state = init_train_state(model, cfg, opt_cfg,
@@ -2949,9 +2984,10 @@ def phase_blocks() -> dict:
     (weights random from a seeded generator on the card, by the reference's
     init rule; not JAX's values): (a) granite-moe-3b-a800m, recurrentgemma-2b
     and rwkv6-3b at full width and cut depth in float32, card against CPU;
-    (b) granite served at full width and depth through K5; (c) five granite
-    train steps; (d) recurrentgemma-2b and rwkv6-3b decoded at full width and
-    depth. Returns K5's row on granite's serving path."""
+    (b) granite served at full width on MOE_LAYERS layers through K5; (c)
+    five granite train steps on as many; (d) recurrentgemma-2b and rwkv6-3b
+    decoded at full width and depth. Returns K5's row on granite's serving
+    path."""
     import torch
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2971,6 +3007,306 @@ def phase_blocks() -> dict:
     log(f"[blocks] {smi}; phase wall {time.perf_counter() - t_phase:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return serve
+
+
+def _stub_batch(cfg, B: int, n_tokens: int, device) -> dict:
+    """Tokens (B, n_tokens) and the stub frontend's embeddings (B, P or T, D)
+    in float32, from numpy's generator seeded with STUB_SEED."""
+    import torch
+    rng = np.random.default_rng(STUB_SEED)
+    toks = rng.integers(0, cfg.vocab, (B, n_tokens), dtype=np.int32)
+    emb = rng.standard_normal((B, cfg.n_prefix_tokens, cfg.d_model), dtype=np.float32)
+    return {"tokens": torch.from_numpy(toks).to(device),
+            "prefix" if cfg.family == "vlm" else "frames": torch.from_numpy(emb).to(device)}
+
+
+def _stub_check(arch: str, smi: str) -> dict:
+    """(a): ``arch`` at full width, STUB_CHECK_LAYERS decoder (and encoder)
+    layers, float32, on the card and on the CPU from the same weights and
+    inputs: forward's logits, prefill's logits and every cache leaf, and
+    STUB_CHECK_STEPS decode steps with every leaf after them."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    full = get_config(arch)
+    cut = {"encoder_layers": STUB_CHECK_LAYERS} if full.encoder_layers else {}
+    cfg = dataclasses.replace(full, n_layers=STUB_CHECK_LAYERS, param_dtype="float32",
+                              compute_dtype="float32", **cut)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(STUB_SEED))
+    batch = _stub_batch(cfg, 1, STUB_CHECK_TOKENS, "cpu")
+    prompt = STUB_CHECK_TOKENS - STUB_CHECK_STEPS
+
+    def run(device, p):
+        b = {k: v.to(device) for k, v in batch.items()}
+        logits, _ = model.forward(p, b)
+        cache = model.init_cache(1, STUB_CHECK_TOKENS, device=device)
+        lg, cache = model.prefill(p, dict(b, tokens=b["tokens"][:, :prompt]), cache)
+        leaves = [t.cpu().clone() for t in tree_leaves(cache)]
+        steps = [lg]
+        for t in range(prompt, STUB_CHECK_TOKENS):
+            lg, cache = model.decode_step(p, b["tokens"][:, t:t + 1], cache)
+            steps.append(lg)
+        leaves += [t.cpu() for t in tree_leaves(cache)]
+        return logits.cpu(), torch.stack(steps).cpu(), leaves
+    t0 = time.perf_counter()
+    card = run("cuda", params)
+    cpu = run("cpu", tree_map(lambda t: t.cpu(), params))
+    top = float(cpu[0].abs().max())
+    fwd_err = float((card[0] - cpu[0]).abs().max()) / top
+    dec_err = float((card[1] - cpu[1]).abs().max()) / float(cpu[1].abs().max())
+    leaf_err = max(float((a.float() - b.float()).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(card[2], cpu[2]))
+    ok = max(fwd_err, dec_err, leaf_err) <= STUB_CHECK_TOL
+    log(f"[vlm_audio] (a) {smi}; {arch} float32, {cfg.n_layers} of {full.n_layers} decoder "
+        f"layers{f', {cfg.encoder_layers} of {full.encoder_layers} encoder' if cut else ''}, "
+        f"full width, B 1, {cfg.n_prefix_tokens} "
+        f"{'frames' if cfg.family == 'audio' else 'image embeddings'}"
+        f", {STUB_CHECK_TOKENS} tokens (prefill {prompt}, {STUB_CHECK_STEPS} decode steps), card "
+        f"against CPU: forward {fwd_err:.3e}, prefill + decode {dec_err:.3e} of the largest "
+        f"|logit| ({top:.3f}); {len(card[2])} cache leaves after prefill and after decode, the "
+        f"worst {leaf_err:.3e} of its largest |value|; tolerance {STUB_CHECK_TOL:.0e}; "
+        f"{time.perf_counter() - t0:.1f} s; ok={ok}")
+    if not ok:
+        raise AssertionError(f"[vlm_audio] (a) {arch}: card and CPU differ")
+    return {"fwd_err": fwd_err, "dec_err": dec_err, "leaf_err": leaf_err}
+
+
+def _stub_step_bound(cfg, params, kv_lens) -> dict:
+    """The least time of one decode step of the stub-frontend archs at batch
+    B = len(kv_lens). paligemma: `decode_step_bound` without
+    ``vision_proj`` (the decode step never reads it). whisper: the decoder's
+    weights, ``lm_head`` and B embedding rows read once, every layer's
+    cross K and V read whole and its self K and V rows up to kv_len, the new
+    self row written, the logits written; the products at the bf16 rate."""
+    from repro_torch.models.common import tree_leaves
+    if cfg.family == "vlm":
+        return decode_step_bound(cfg, {k: v for k, v in params.items() if k != "vision_proj"},
+                                 kv_lens)
+    B, size = len(kv_lens), cfg.pdtype().itemsize
+    used = sum(t.numel() for key in ("decoder", "final_norm", "lm_head")
+               for t in tree_leaves(params[key]))
+    row = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.hd * size
+    cross = B * cfg.n_prefix_tokens * row
+    n_bytes = ((used + B * cfg.d_model) * size + cross + (sum(kv_lens) + B) * row
+               + B * cfg.vocab * size)
+    n_ops = 2 * B * used + 4 * cfg.n_layers * cfg.n_heads * cfg.hd * (
+        sum(kv_lens) + B * cfg.n_prefix_tokens)
+    return {**bound(n_bytes, n_ops, BF16_FLOPS), "bytes": n_bytes, "cross_bytes": cross}
+
+
+def _stub_serve(arch: str, smi: str) -> dict:
+    """(b) paligemma-3b or (c) whisper-small at full width and depth in
+    bfloat16: STUB_B rows, each with its own stub-frontend embeddings, a
+    prompt, then STUB_STEPS greedy decode steps through ``make_prefill_fn``
+    / ``make_decode_fn`` (the main path: K5 launched once per attention per
+    layer and step, no host sync); decode against the teacher-forced forward
+    over the whole stream, and against the same steps with K5's plain
+    version; a profiled window; K5 timed at the served shapes."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attn, ref
+    from repro_torch.models import build_model, whisper
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serving import make_decode_fn, make_prefill_fn
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    audio = cfg.family == "audio"
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(STUB_SEED))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    prompt = AUDIO_PROMPT if audio else VLM_PROMPT
+    max_seq = AUDIO_MAX_SEQ if audio else prompt + STUB_STEPS + 8
+    offset = 0 if audio else cfg.n_prefix_tokens
+    per_step = cfg.n_layers * (2 if audio else 1)       # whisper: self and cross
+    batch = _stub_batch(cfg, STUB_B, prompt, "cuda")
+    prefill, decode = make_prefill_fn(model, cfg), _StepTimer(make_decode_fn(model, cfg))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc_ms = None
+    if audio:
+        whisper.encode(cfg, params, batch["frames"])
+        torch.cuda.synchronize()
+        enc_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+    cache = model.init_cache(STUB_B, max_seq, device="cuda")
+    lg, cache = prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    out, fed = [lg], []
+    cur = lg.argmax(-1).to(torch.int32)[:, None]
+
+    def loop():
+        nonlocal cur, cache
+        for _ in range(STUB_STEPS):
+            fed.append(cur)
+            nxt, lg, cache = decode(params, cur, cache)
+            out.append(lg)
+            cur = nxt[:, None]
+        torch.cuda.synchronize()
+    _take_launches()
+    t0 = time.perf_counter()
+    _, syncs = _count_syncs(loop, "[vlm_audio]")      # the main path: K5's counts from 0
+    wall = time.perf_counter() - t0
+    launches = _take_launches()
+    step_ms = decode.device_ms()
+    got = torch.stack(out).float()
+    stream = torch.cat([batch["tokens"]] + fed, dim=1)
+    kv_lens = [offset + prompt + t for t in range(1, STUB_STEPS + 1)]
+    limit = {"bound_ms": float(np.mean([_stub_step_bound(cfg, params, [n] * STUB_B)["bound_ms"]
+                                        for n in kv_lens]))}
+    limit.update({k: v for k, v in _stub_step_bound(cfg, params, [kv_lens[0]] * STUB_B).items()
+                  if k != "bound_ms"})
+
+    # decode against the teacher-forced forward over the stream: prompt and fed tokens
+    full = model.forward(params, dict(batch, tokens=stream))[0]
+    full = full[:, offset + prompt - 1:].float().transpose(0, 1)
+    if _take_launches() != 0:
+        raise AssertionError("[vlm_audio] forward launched K5")
+    ferr, ftop = float((got - full).abs().max()), float(full.abs().max())
+    agree = int((got.argmax(-1) == full.argmax(-1)).sum())
+    del full
+    # the same steps with K5's plain version in the decode step's place
+    with mock.patch.object(decode_attn, "flash_decode_unread", ref.flash_decode_ref):
+        pcache = model.init_cache(STUB_B, max_seq, device="cuda")
+        plg, pcache = model.prefill(params, batch, pcache)
+        plain = [plg]
+        for tok in fed:
+            plg, pcache = model.decode_step(params, tok, pcache)
+            plain.append(plg)
+    plain = torch.stack(plain).float()
+    perr, ptop = float((got - plain).abs().max()), float(plain.abs().max())
+    del pcache, plain, got, out
+    peak = torch.cuda.max_memory_allocated()
+
+    def one():
+        nonlocal cur
+        nxt, _, _ = decode.fn(params, cur, cache)
+        cur = nxt[:, None]
+    prof = _profile_steps(one, PROFILE_STUB_STEPS, f"[vlm_audio] {arch}", smi)
+    log(f"[vlm_audio] {'(c)' if audio else '(b)'} {smi}; {arch} bfloat16, {cfg.n_layers} "
+        f"layers{f' + {cfg.encoder_layers} encoder' if audio else ''}, d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads} / {cfg.n_kv_heads}, head_dim {cfg.hd}, vocab {cfg.vocab}, "
+        f"{n_params:,} parameters made on the card from seed {STUB_SEED}; B {STUB_B}, "
+        f"{cfg.n_prefix_tokens} {'frames' if audio else 'image embeddings'} a row, prompt "
+        f"{prompt}{f', encoder {enc_ms:.3f} ms' if audio else ''}, prefill {prefill_ms:.3f} ms; "
+        f"{STUB_STEPS} decode steps in {wall:.3f} s, {step_ms:.3f} ms per step on the device "
+        f"({1e3 * float(np.mean(decode.host)):.3f} ms to enqueue), bound {limit['bound_ms']:.3f} "
+        f"ms, the mean of its steps' ({limit['bound_by']}; {limit['bytes']:,} bytes at the "
+        f"first) = {step_ms / limit['bound_ms']:.3f}x; {STUB_B * 1e3 / step_ms:.1f} tokens/s; "
+        f"host syncs {syncs} ({syncs / STUB_STEPS:.4f} per step); peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"[vlm_audio] {'(c)' if audio else '(b)'} {smi}; {arch}: flash_decode launches "
+        f"{launches} = {per_step} x {STUB_STEPS} decode steps: {launches == per_step * STUB_STEPS}"
+        f"; decode with K5 against its plain version {perr / ptop:.4e} of max |logit| "
+        f"{ptop:.4f}; prefill + decode against forward over the stream {ferr / ftop:.4e} of "
+        f"{ftop:.4f} (tolerance {STUB_TOL}); greedy token equal at {agree} of "
+        f"{STUB_B * (STUB_STEPS + 1)}")
+    if not (launches == per_step * STUB_STEPS and syncs == 0 and perr <= STUB_TOL * ptop
+            and ferr <= STUB_TOL * ftop):
+        raise AssertionError(f"[vlm_audio] {arch}: K5's launches, a host sync, K5 against its "
+                             f"plain version or decode against forward failed")
+    q = torch.randn(STUB_B, cfg.n_heads, cfg.hd, generator=torch.Generator(
+        device="cuda").manual_seed(STUB_SEED), device="cuda").to(torch.bfloat16)
+    tag = f"[vlm_audio] {smi};"
+    if audio:
+        rows = {"served_self": _k5_row("whisper self", q, cache["self_k"][0],
+                                       cache["self_v"][0], cache["pos"], tag),
+                "served_cross": _k5_row("whisper cross", q, cache["cross_k"][0],
+                                        cache["cross_v"][0],
+                                        torch.full_like(cache["pos"], cfg.n_prefix_tokens), tag)}
+    else:
+        layer0 = cache["blocks"]["p0_attn"]
+        rows = {"served": _k5_row("paligemma served", q, layer0["k"][0], layer0["v"][0],
+                                  cache["pos"], tag)}
+    _take_launches()
+    for row in rows.values():
+        row.update(step_ms=step_ms, step_bound_ms=limit["bound_ms"])
+    return {"launches": launches, "decode_steps": STUB_STEPS, **rows, "prefill_ms": prefill_ms,
+            "encoder_ms": enc_ms, "peak_gib": peak / 2**30, **prof}
+
+
+def _stub_train(arch: str, smi: str) -> dict:
+    """(d): one AdamW step of ``arch`` at full width and depth in bfloat16 on
+    ``input_specs``' inputs of a train shape (STUB_TRAIN): loss and gradient
+    norm finite, no host sync; the step against 6 N T over the bf16 peak
+    (whisper: its encoder's parameters over the frames, its decoder's over
+    the tokens)."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    state = init_train_state(model, cfg, opt_cfg,
+                             torch.Generator(device="cuda").manual_seed(STUB_SEED))
+    B, seq = STUB_TRAIN[arch]
+    batch = model.input_specs(ShapeConfig(f"{arch}-train", seq, B, "train"), abstract=False,
+                              generator=torch.Generator(device="cuda").manual_seed(STUB_SEED))
+    step = _StepTimer(make_train_step(model, cfg, opt_cfg))
+    out = {}
+
+    def one():
+        _, out["m"] = step(state, batch)
+        torch.cuda.synchronize()
+    _, syncs = _count_syncs(one, "[vlm_audio]")
+    loss, gnorm = float(out["m"]["loss"]), float(out["m"]["grad_norm"])
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    if cfg.family == "audio":
+        enc = sum(t.numel() for k in ("enc_in", "encoder", "enc_norm")
+                  for t in tree_leaves(state["params"][k]))
+        work = enc * B * cfg.n_prefix_tokens + (n_params - enc) * B * seq
+    else:
+        work = n_params * B * seq
+    bound6 = 1e3 * 6 * work / BF16_FLOPS
+    ms = step.device_ms()
+    peak = torch.cuda.max_memory_allocated()
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    remat = "none (as the reference's)" if cfg.family == "audio" else cfg.remat
+    log(f"[vlm_audio] (d) {smi}; {arch} bfloat16, {n_params:,} parameters, remat {remat}, "
+        f"one AdamW step on input_specs {shapes}: loss {loss:.4f}, grad norm {gnorm:.4f}, "
+        f"{ms:.3f} ms on the device; 6 N T / 989 TFLOP/s = {bound6:.3f} ms, {bound6 / ms:.4f} of "
+        f"the step; host syncs {syncs}; peak device memory {peak / 2**30:.2f} GiB")
+    if not (np.isfinite(loss) and np.isfinite(gnorm) and syncs == 0):
+        raise AssertionError(f"[vlm_audio] (d) {arch}: loss {loss}, grad norm {gnorm}, "
+                             f"host syncs {syncs}")
+    return {"ms": ms, "bound6_ms": bound6, "loss": loss, "peak_gib": peak / 2**30}
+
+
+def phase_vlm_audio() -> dict:
+    """The vlm prefix and whisper on the card (weights random from a seeded
+    generator on the card, by the reference's init rule; not JAX's values):
+    (a) paligemma-3b and whisper-small at full width and cut depth in
+    float32, card against CPU; (b) paligemma-3b and (c) whisper-small served
+    at full width and depth in bfloat16 through K5 (D 256 at G 8; D 64 at
+    G 1, self and cross); (d) one train step of each; (e) K5 timed at the
+    three served shapes. Returns K5's rows on the two paths."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    smi = _smi()
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        _stub_check(arch, smi)
+        torch.cuda.empty_cache()
+    paths = {}
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        paths[arch] = _stub_serve(arch, smi)
+        torch.cuda.empty_cache()
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        paths[arch]["train"] = _stub_train(arch, smi)
+        torch.cuda.empty_cache()
+    log(f"[vlm_audio] {smi}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"vlm_path": paths[VLM_ARCH], "audio_path": paths[AUDIO_ARCH]}
 
 
 def main() -> int:
@@ -2994,6 +3330,7 @@ def main() -> int:
     serve = phase_serve()
     phase_train()
     blocks = phase_blocks()
+    decode_row.update(phase_vlm_audio())
     decode_row["serve_path"] = {key: serve[key] for key in ("launches", "decode_steps", "served",
                                                            "long_context")}
     decode_row["moe_serve_path"] = {key: blocks[key] for key in ("launches", "decode_steps",

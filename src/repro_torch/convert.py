@@ -15,7 +15,7 @@ import torch
 
 from .core.config import TorchSimConfig
 from .models.common import ParamSpec, tree_map
-from .models.transformer import lm_specs
+from .models.zoo import build_model
 
 # JaxSimConfig fields with no meaning on the port: the tensors' device
 # decides whether a kernel or its plain version runs
@@ -71,9 +71,11 @@ def lm_params_from_numpy(cfg, tree, device, dtype: torch.dtype | None = None) ->
     """The port's LM parameters from a JAX params pytree given as numpy
     arrays (``jax.device_get(params)``): the same nested dicts and lists,
     the stacked ``blocks/p<i>_<kind>`` tensors kept stacked (the port slices
-    a layer as JAX's scan does). Raises unless every leaf of
-    ``lm_specs(cfg)`` is there with its shape, and nothing else, and, where
-    ``dtype`` is given, in that dtype (bfloat16 may come as uint16 bits)."""
+    a layer as JAX's scan does). Raises unless every leaf of the model's
+    ``param_specs()`` (the decoder LM's tree, with ``vision_proj`` for the
+    vlm family; whisper's for the audio family) is there with its shape, and
+    nothing else, and, where ``dtype`` is given, in that dtype (bfloat16 may
+    come as uint16 bits)."""
     def take(spec, x, path):
         if isinstance(spec, ParamSpec):
             if tuple(np.shape(x)) != spec.shape:
@@ -90,7 +92,7 @@ def lm_params_from_numpy(cfg, tree, device, dtype: torch.dtype | None = None) ->
         if len(x) != len(spec):
             raise ValueError(f"{path}: {len(x)} entries, expected {len(spec)}")
         return [take(s, v, f"{path}[{i}]") for i, (s, v) in enumerate(zip(spec, x))]
-    return take(lm_specs(cfg), tree, "params")
+    return take(build_model(cfg).param_specs(), tree, "params")
 
 
 def train_state_from_numpy(cfg, opt_cfg, tree, device) -> dict:

@@ -30,20 +30,25 @@
 //
 // Inside a pass-1 block, four warps take the chunk's rows in turn, with no
 // __syncthreads in the row loop. L lanes (8 for D = 64, 16 for D = 96 and
-// 128, of which 12 hold data at 96) cover one row, 8 values each, read with
-// 16-byte loads, neighbouring lanes on neighbouring addresses, straight into
-// registers; a step's rows are used while the next step's are in flight.
-// A lane keeps at most 4 query heads (kLaneHeads) in registers, pre-scaled,
-// with their accumulators: a tile of 8 heads is two lane groups that read
-// the same rows, so K and V leave memory once for the tile and the warp
-// needs ~124 registers a lane (4 blocks per SM) instead of ~200 (2 blocks).
-// Each lane group takes 2 rows per step (kLaneRows): their 8 dot products
-// per lane are fmaf chains, then a reduce-scatter butterfly across the
-// row's lanes leaves each lane one finished (row, head) score, so one
-// shuffle tree and one expf per lane serve 2 rows. Each warp keeps its own
-// online softmax, and rescales its accumulator only when a score passes the
-// running max by more than kRescaleAbove (exp(s - m) stays <= e^8), not once
-// per row or group of rows. At the end of the chunk the warps are merged
+// 128, of which 12 hold data at 96, 32 for D = 256) cover one row, 8 values
+// each, read with 16-byte loads, neighbouring lanes on neighbouring
+// addresses, straight into registers; a step's rows are used while the next
+// step's are in flight. Up to D = 128 a lane keeps at most 4 query heads
+// (kLaneHeads) in registers, pre-scaled, with their accumulators: a tile of
+// 8 heads is two lane groups that read the same rows, so K and V leave
+// memory once for the tile and the warp needs ~124 registers a lane (4
+// blocks per SM) instead of ~200 (2 blocks). At D = 256 a row fills the
+// warp, so there is no second lane group: a lane keeps all the tile's heads
+// (8 at most, 8 values of q and of acc for each) and takes one row per
+// step (kLaneRows256), at up to ~200 registers (2 blocks per SM); the
+// merge's shared memory is then 32 KB, under the 48 KB static limit.
+// Below D = 256 each lane group takes 2 rows per step (kLaneRows): their 8
+// dot products per lane are fmaf chains, then a reduce-scatter butterfly
+// across the row's lanes leaves each lane one finished (row, head) score,
+// so one shuffle tree and one expf per lane serve 2 rows. Each warp keeps
+// its own online softmax, and rescales its accumulator only when a score
+// passes the running max by more than kRescaleAbove (exp(s - m) stays <=
+// e^8), not once per row or group of rows. At the end of the chunk the warps are merged
 // once through shared memory, and the block writes its partial
 // (m, l, acc[D]) per query head in float32.
 //
@@ -65,14 +70,19 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kVec = 8;                  // values of a row in one lane
 constexpr float kMasked = -1e30f;        // the reference's mask value
 constexpr float kRescaleAbove = 8.0f;    // the lazy rescale's margin, in nats
-constexpr int kLaneHeads = 4;           // query heads of one lane, at most
+constexpr int kLaneHeads = 4;           // query heads of one lane, at most, below D = 256
 constexpr int kLaneRows = 2;            // rows a lane group takes per step, at most
+constexpr int kLaneRows256 = 1;         // the same at D = 256, where a lane holds 8 heads
 constexpr int kCombineThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
+// A row fills the warp (D = 256): one lane group, holding the whole tile.
+template <int D> constexpr bool kWideRow = D / kVec > 16;
 // Blocks of the split pass per SM that its registers must allow: 4 (at most
-// 128 registers) in bf16, 3 in float32, whose rows take twice the registers.
-// Naming them also keeps ptxas from trading registers for spills.
-template <typename T> constexpr int kMinBlocks = sizeof(T) == 2 ? 4 : 3;
+// 128 registers) in bf16, 3 in float32, whose rows take twice the registers;
+// 2 at D = 256, where a lane holds up to 8 heads. Naming them also keeps
+// ptxas from trading registers for spills.
+template <typename T, int D>
+constexpr int kMinBlocks = kWideRow<D> ? 2 : (sizeof(T) == 2 ? 4 : 3);
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -117,7 +127,9 @@ __device__ __forceinline__ int element(int j, int e) {
 }
 
 // Lanes that hold one row: a power of two, D / 8 of them with data.
-template <int D> __host__ __device__ constexpr int row_lanes() { return D / kVec <= 8 ? 8 : 16; }
+template <int D> __host__ __device__ constexpr int row_lanes() {
+  return D / kVec <= 8 ? 8 : (D / kVec <= 16 ? 16 : 32);
+}
 __host__ __device__ constexpr int log2i(int x) { return x <= 1 ? 0 : 1 + log2i(x / 2); }
 
 // Sum each of the N partial dot products across the row's L lanes (N <= L).
@@ -150,15 +162,18 @@ __device__ __forceinline__ float butterfly(float (&part)[N], int j) {
 // Pass 1: the partial of one chunk of rows for GT query heads of a KV head.
 // Partials: per (b, query head, chunk) D + 2 floats, [m, l, acc[0..D)].
 template <typename T, int D, int GT>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T, D>)
 split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const int* __restrict__ kv_len, int S, int Hkv, int G, int tiles, float scale,
              float* __restrict__ part) {
   constexpr int L = row_lanes<D>();
-  constexpr int GL = GT < kLaneHeads ? GT : kLaneHeads;   // query heads of one lane
+  constexpr int kHeads = kWideRow<D> ? GT : kLaneHeads;
+  constexpr int GL = GT < kHeads ? GT : kHeads;   // query heads of one lane
   constexpr int kHeadGroups = GT / GL;       // lane groups that read the same rows
   constexpr int kGroups = 32 / L / kHeadGroups;   // lane groups on other rows
-  constexpr int R = kLaneRows < L / GL ? kLaneRows : L / GL;   // rows of a group's step
+  static_assert(kGroups >= 1, "a warp holds a lane group for every head group");
+  constexpr int kRows = kWideRow<D> ? kLaneRows256 : kLaneRows;
+  constexpr int R = kRows < L / GL ? kRows : L / GL;   // rows of a group's step
   constexpr int kScores = R * GL;            // scores of a group's step, <= L
   constexpr int kSpread = L / kScores;       // lanes that end with one score
   constexpr int kStep = kWarps * kGroups * R;   // rows the block takes per step
@@ -437,6 +452,7 @@ int by_dim(const Args& a) {
     case 64: return by_tile<T, 64>(a);
     case 96: return by_tile<T, 96>(a);
     case 128: return by_tile<T, 128>(a);
+    case 256: return by_tile<T, 256>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -22,7 +22,7 @@ from .segsel import check_tensors
 
 launches = {"flash_decode": 0}
 
-HEAD_DIMS = (64, 96, 128)       # D the kernel takes (tested on the card)
+HEAD_DIMS = (64, 96, 128, 256)  # D the kernel takes (tested on the card)
 MAX_GROUP = 64                  # query heads per KV head
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p

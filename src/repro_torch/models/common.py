@@ -15,7 +15,7 @@ attention, the projections, the MLP and the MoE block are plain matrix
 products, as the JAX package leaves them to XLA.
 
 Not ported yet: the sequence-parallel branch of ``mha`` (ROADMAP Queue 1
-item 9.8); cross-attention (``mha``'s ``kv``) comes with whisper (item 9.3).
+item 9.8).
 """
 
 from __future__ import annotations
@@ -229,14 +229,16 @@ def rope_for(cfg, positions):
     return rope_angles(positions, cfg.hd, cfg.rope_fraction, cfg.rope_theta)
 
 
-def qkv(cfg, p, x, rope):
+def qkv(cfg, p, x, rope, kv=None):
     """q, k, v of the attention block, biased, qk-normed and rotated by
     ``rope`` (`rope_for`) as the reference's ``mha``, ``_prefill_block`` and
-    ``_decode_block`` each do."""
+    ``_decode_block`` each do; k and v from ``kv`` where it is given
+    (cross-attention, whose caller passes no ``rope``)."""
     cd = x.dtype
+    src = x if kv is None else kv
     q = heads_in(x, p["wq"].to(cd))
-    k = heads_in(x, p["wk"].to(cd))
-    v = heads_in(x, p["wv"].to(cd))
+    k = heads_in(src, p["wk"].to(cd))
+    v = heads_in(src, p["wv"].to(cd))
     if cfg.use_bias:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
@@ -266,10 +268,14 @@ def _mask_bias(mode, q_pos, k_pos, window=0):
     return torch.where(ok, 0.0, -1e30)
 
 
-def mha(cfg, p, x, positions, *, mode="causal", prefix_len=None, window=0):
-    """Self-attention. x: (B, S, D) -> (B, S, D)."""
-    q, k, v = qkv(cfg, p, x, rope_for(cfg, positions))
-    out = gqa_attend(q, k, v, mode=mode, q_pos=positions, k_pos=positions,
+def mha(cfg, p, x, positions, *, mode="causal", kv=None, kv_positions=None, prefix_len=None,
+        window=0):
+    """Attention. x: (B, S, D) -> (B, S, D). With ``kv`` (B, T, D), k and v
+    come from it (cross-attention at ``kv_positions``) and RoPE applies to
+    neither side, as in the reference."""
+    q, k, v = qkv(cfg, p, x, rope_for(cfg, positions) if kv is None else None, kv)
+    out = gqa_attend(q, k, v, mode=mode, q_pos=positions,
+                     k_pos=positions if kv_positions is None else kv_positions,
                      prefix_len=prefix_len, window=window)
     return attn_out(cfg, p, out)
 
@@ -318,6 +324,14 @@ def decode_attend(q, k_cache, v_cache, kv_len, *, window=0):
     out = decode_attn.flash_decode_unread(q.reshape(B, H, hd).contiguous(), k_cache, v_cache,
                                           kv_len)
     return out.reshape(B, 1, H, hd)
+
+
+def write_row(cache, rows, at, inside, new):
+    """``cache[b, at[b]] = new[b, 0]`` in place for every row b ``inside``
+    the cache, ``at`` being ``pos`` clamped to the last slot; a row at or
+    past the end writes its old value back, as the reference's scatter
+    drops an index out of range: no read of the device."""
+    cache[rows, at] = torch.where(inside, new[:, 0].to(cache.dtype), cache[rows, at])
 
 
 def _windowed_decode_attend(q, k_cache, v_cache, kv_len, window):

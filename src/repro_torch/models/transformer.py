@@ -13,8 +13,9 @@ Three entry points:
 
 The cache is written in place (JAX returns a new one): ``prefill`` and
 ``decode_step`` return the cache they were given, its leaves updated where
-they lie, with a new ``pos``. The vlm prefix and the audio family raise
-``NotImplementedError`` naming their ROADMAP item.
+they lie, with a new ``pos``. The vlm family's stub image prefix comes in
+through ``forward`` and ``prefill``'s ``prefix_embeds``; the audio family is
+``models/whisper.py``.
 """
 
 from __future__ import annotations
@@ -44,18 +45,19 @@ from .common import (
     stack_tree,
     tree_index,
     tree_unstack,
+    write_row,
 )
 
 
+FAMILIES = ("dense", "moe", "hybrid", "vlm", "ssm", "audio")
+
+
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of whatever the
-    port cannot run yet: the audio family and the vlm prefix."""
-    if cfg.family == "audio":
-        raise NotImplementedError("whisper.py (the audio family) is not ported yet: "
-                                  "ROADMAP Queue 1 item 9.3")
-    if cfg.frontend is not None or cfg.n_prefix_tokens:
-        raise NotImplementedError("the vlm prefix (prefix_embeds, prefix_len) is not ported "
-                                  "yet: ROADMAP Queue 1 item 9.3")
+    """Raise ``ValueError`` unless the port has a model of ``cfg``'s family:
+    this module's (dense, moe, hybrid, vlm, ssm) or ``models/whisper.py``'s
+    (audio)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"no model of family {cfg.family!r}; the port has {FAMILIES}")
 
 
 def _layout(cfg):
@@ -102,7 +104,6 @@ def block_specs(cfg, kind: str):
 
 
 def lm_specs(cfg):
-    check_supported(cfg)
     pattern, period, n_full = _layout(cfg)
     tail = pattern[n_full * period:]
     specs = {
@@ -116,6 +117,9 @@ def lm_specs(cfg):
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+    if cfg.frontend == "siglip_stub":
+        # projection from (stub) vision embeddings into the LM stream
+        specs["vision_proj"] = ParamSpec((cfg.d_model, cfg.d_model), ("embed", "embed2"))
     return specs
 
 
@@ -127,6 +131,23 @@ def _embed(cfg, params, tokens):
     if cfg.tie_embeddings:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=cd)
     return h
+
+
+def _stream(cfg, params, tokens, prefix_embeds):
+    """The embedded stream (B, P + S, D) and its prefix lengths: the
+    tokens' embeddings after the stub frontend's ``prefix_embeds`` (B, P, D),
+    cast to the compute dtype and projected by ``vision_proj`` where the
+    model has one (no √d scaling), with ``prefix_len`` a (B,) int32 tensor of
+    P; without a prefix, the tokens' embeddings and None."""
+    h = _embed(cfg, params, tokens)
+    if prefix_embeds is None:
+        return h, None
+    pe = prefix_embeds.to(h.dtype)
+    if "vision_proj" in params:
+        pe = pe @ params["vision_proj"].to(h.dtype)
+    prefix_len = torch.full((h.shape[0],), prefix_embeds.shape[1], dtype=torch.int32,
+                            device=h.device)
+    return torch.cat([pe, h], dim=1), prefix_len
 
 
 def _second_half(cfg, kind, p, h, c=None, carry=False):
@@ -151,13 +172,13 @@ def _second_half(cfg, kind, p, h, c=None, carry=False):
     return h + y, aux
 
 
-def _apply_block(cfg, kind, p, h, positions, aux):
+def _apply_block(cfg, kind, p, h, positions, aux, prefix_len=None):
     """One block of `forward`: (h, aux plus the block's MoE aux)."""
     y = apply_norm(cfg, p["ln1"], h)
     if kind in ("attn", "attn_local"):
         local = kind == "attn_local"
         y = mha(cfg, p["attn"], y, positions, mode="window" if local else "causal",
-                window=cfg.window if local else 0)
+                prefix_len=prefix_len, window=cfg.window if local else 0)
     elif kind == "rglru":
         y = rglru.rglru_forward(cfg, p["rec"], y)
     else:
@@ -166,15 +187,16 @@ def _apply_block(cfg, kind, p, h, positions, aux):
     return h, aux if a is None else aux + a
 
 
-def forward(cfg, params, tokens):
-    """tokens: (B, S) int. Returns (logits (B, S, V), aux_loss), the aux loss
-    the float32 sum of the MoE blocks' (zero without MoE). With
+def forward(cfg, params, tokens, *, prefix_embeds=None):
+    """tokens: (B, S) int; ``prefix_embeds`` (B, P, D), the vlm stub
+    frontend's embeddings, go before them (`_stream`), bidirectional among
+    themselves (the prefix-LM mask). Returns (logits (B, P + S, V), aux_loss),
+    the aux loss the float32 sum of the MoE blocks' (zero without MoE). With
     ``cfg.remat`` and grad enabled, each layer runs under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of each
     block): its activations are recomputed in the backward pass, the values
     unchanged."""
-    check_supported(cfg)
-    h = _embed(cfg, params, tokens)
+    h, prefix_len = _stream(cfg, params, tokens, prefix_embeds)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
     if cfg.pos == "sinusoidal":
@@ -183,10 +205,10 @@ def forward(cfg, params, tokens):
     remat = cfg.remat and torch.is_grad_enabled()
     for kind, p, _ in _layers(cfg, params):
         if remat:
-            h, aux = checkpoint(_apply_block, cfg, kind, p, h, positions, aux,
+            h, aux = checkpoint(_apply_block, cfg, kind, p, h, positions, aux, prefix_len,
                                 use_reentrant=False)
         else:
-            h, aux = _apply_block(cfg, kind, p, h, positions, aux)
+            h, aux = _apply_block(cfg, kind, p, h, positions, aux, prefix_len)
     h = apply_norm(cfg, params["final_norm"], h)
     return _lm_logits(cfg, params, h), aux
 
@@ -210,7 +232,6 @@ def cache_specs(cfg, batch: int, max_seq: int):
     for global attention; a ring of ``W = min(window, max_seq)`` slots with
     its position map ``pos`` for local attention; ``h`` and the conv window
     for RG-LRU; the state ``s`` and the two token shifts for RWKV-6."""
-    check_supported(cfg)
     pattern, period, n_full = _layout(cfg)
     w = cfg.lru_width or cfg.d_model
 
@@ -290,13 +311,13 @@ def _ring_fill(c, k, v, positions):
     c["pos"][rows, slots] = pw
 
 
-def prefill(cfg, params, tokens, cache):
-    """Run the prompt from a fresh state, fill the caches in place (global
-    attention's first S positions, the rings, the recurrent states), set
-    every row's ``pos`` to S; return last-position logits (B, V) and the
-    cache."""
-    check_supported(cfg)
-    h = _embed(cfg, params, tokens)
+def prefill(cfg, params, tokens, cache, *, prefix_embeds=None):
+    """Run the prompt, after ``prefix_embeds`` where given (`forward`'s),
+    from a fresh state, fill the caches in place (global attention's first
+    S positions of the stream, the rings, the recurrent states), set every
+    row's ``pos`` to S, the stream's length; return last-position logits
+    (B, V) and the cache."""
+    h, prefix_len = _stream(cfg, params, tokens, prefix_embeds)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
     if cfg.pos == "sinusoidal":
@@ -308,7 +329,7 @@ def prefill(cfg, params, tokens, cache):
             q, k, v = qkv(cfg, p["attn"], y, rope)
             local = kind == "attn_local"
             out = gqa_attend(q, k, v, mode="window" if local else "causal", q_pos=positions,
-                             k_pos=positions, window=cfg.window)
+                             k_pos=positions, prefix_len=prefix_len, window=cfg.window)
             if local:
                 _ring_fill(c, k, v, positions)
             else:
@@ -343,14 +364,6 @@ def _max_seq(cfg, cache):
     return None
 
 
-def _write_row(cache, rows, at, inside, new):
-    """``cache[b, at[b]] = new[b, 0]`` in place for every row b ``inside``
-    the cache, ``at`` being ``pos`` clamped to the last slot; a row at or
-    past the end writes its old value back, as the reference's scatter
-    drops an index out of range: no read of the device."""
-    cache[rows, at] = torch.where(inside, new[:, 0].to(cache.dtype), cache[rows, at])
-
-
 def _ring_decode(cfg, c, q, k, v, rows, pos):
     """Local attention's decode step: k, v and ``pos`` into ring slot
     ``pos % W``, then attention over the slots whose position lies in
@@ -378,7 +391,6 @@ def decode_step(cfg, params, tokens, cache):
     attends over the whole cache, as in the reference); local attention
     writes its ring slot; the recurrent blocks step their states. ``pos``
     advances. Reads nothing from the device."""
-    check_supported(cfg)
     pos = cache["pos"]
     kv_len = pos + 1
     h = _embed(cfg, params, tokens)
@@ -394,8 +406,8 @@ def decode_step(cfg, params, tokens, cache):
         if kind in ("attn", "attn_local"):
             q, k, v = qkv(cfg, p["attn"], y, rope)
             if kind == "attn":
-                _write_row(c["k"], rows, at, inside, k)
-                _write_row(c["v"], rows, at, inside, v)
+                write_row(c["k"], rows, at, inside, k)
+                write_row(c["v"], rows, at, inside, v)
                 out = decode_attend(q, c["k"], c["v"], kv_len)
             else:
                 out = _ring_decode(cfg, c, q, k, v, rows, pos)

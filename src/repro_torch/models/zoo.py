@@ -1,17 +1,18 @@
-"""Model facade of the port: one API over the architectures it runs (every
-one but the vlm and audio stubs), the twin of the JAX package's
-``models/zoo.py``.
+"""Model facade of the port: one API over the ten architectures, the twin of
+the JAX package's ``models/zoo.py``.
 
-    model  = build_model(cfg)               # raises for what is not ported
+    model  = build_model(cfg)
     specs  = model.param_specs()            # ParamSpec tree
     params = model.init_params(generator)   # on the generator's device
     logits, aux = model.forward(params, batch)
     cache  = model.init_cache(B, S, device=...)
     logits, cache = model.prefill(params, batch, cache)
     logits, cache = model.decode_step(params, tokens, cache)
+    batch  = model.input_specs(shape, abstract=False, generator=g)
 
-``batch`` is a dict with ``tokens`` (B, S). There is no sharder until
-ROADMAP Queue 1 item 9.8.
+``batch`` is a dict: ``tokens`` (B, S) always; ``prefix`` (B, P, D) for the
+vlm family and ``frames`` (B, T, D) for the audio family, the stub
+frontends' embeddings. There is no sharder until ROADMAP Queue 1 item 9.8.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import dataclasses
 import torch
 
 from .. import resolve_device
-from . import transformer
+from . import transformer, whisper
 from .common import init_tree
 
 
@@ -29,7 +30,13 @@ from .common import init_tree
 class Model:
     cfg: object
 
+    @property
+    def audio(self) -> bool:
+        return self.cfg.family == "audio"
+
     def param_specs(self):
+        if self.audio:
+            return whisper.whisper_specs(self.cfg)
         return transformer.lm_specs(self.cfg)
 
     def init_params(self, generator: torch.Generator):
@@ -38,24 +45,78 @@ class Model:
         return init_tree(self.param_specs(), generator, self.cfg.pdtype())
 
     def forward(self, params, batch):
-        return transformer.forward(self.cfg, params, batch["tokens"])
+        if self.audio:
+            return whisper.forward(self.cfg, params, batch["frames"], batch["tokens"])
+        return transformer.forward(self.cfg, params, batch["tokens"],
+                                   prefix_embeds=batch.get("prefix"))
+
+    def _stream_len(self, max_seq: int) -> int:
+        """The vlm family's stream holds the image prefix and the text."""
+        if self.cfg.family == "vlm":
+            return max_seq + self.cfg.n_prefix_tokens
+        return max_seq
 
     def cache_specs(self, batch, max_seq):
-        return transformer.cache_specs(self.cfg, batch, max_seq)
+        if self.audio:
+            return whisper.cache_specs(self.cfg, batch, max_seq)
+        return transformer.cache_specs(self.cfg, batch, self._stream_len(max_seq))
 
     def init_cache(self, batch, max_seq, dtype=None, device="cuda"):
-        return transformer.init_cache(self.cfg, batch, max_seq, dtype or self.cfg.cdtype(),
-                                      resolve_device(device))
+        dtype, device = dtype or self.cfg.cdtype(), resolve_device(device)
+        if self.audio:
+            return whisper.init_cache(self.cfg, batch, max_seq, dtype, device)
+        return transformer.init_cache(self.cfg, batch, self._stream_len(max_seq), dtype, device)
 
     def prefill(self, params, batch, cache):
-        return transformer.prefill(self.cfg, params, batch["tokens"], cache)
+        if self.audio:
+            return whisper.prefill(self.cfg, params, batch["frames"], batch["tokens"], cache)
+        return transformer.prefill(self.cfg, params, batch["tokens"], cache,
+                                   prefix_embeds=batch.get("prefix"))
 
     def decode_step(self, params, tokens, cache):
+        if self.audio:
+            return whisper.decode_step(self.cfg, params, tokens, cache)
         return transformer.decode_step(self.cfg, params, tokens, cache)
+
+    def input_specs(self, shape, *, abstract=True, generator: torch.Generator | None = None):
+        """The model's inputs for a ``ShapeConfig``, the reference's shapes
+        and dtypes: ``meta`` tensors where ``abstract``, else values drawn
+        from ``generator`` on its device, in key order (tokens and labels
+        uniform over the vocabulary, embeddings standard normal). The vlm
+        family's text is the stream less the prefix (at least 1 token); its
+        prefix, and the audio family's frames, are left out of decode
+        shapes."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        cd = cfg.cdtype()
+        out = {}
+        if cfg.family == "vlm":
+            out["tokens"] = ((B, max(S - cfg.n_prefix_tokens, 1)), torch.int32)
+            if shape.kind != "decode":
+                out["prefix"] = ((B, cfg.n_prefix_tokens, cfg.d_model), cd)
+        else:
+            out["tokens"] = ((B, S), torch.int32)
+            if self.audio and shape.kind != "decode":
+                out["frames"] = ((B, cfg.n_prefix_tokens, cfg.d_model), cd)
+        if shape.kind == "train":
+            out["labels"] = out["tokens"]
+        if not abstract and generator is None:
+            raise ValueError("concrete inputs need a generator")
+
+        def make(shp, dt):
+            if abstract:
+                return torch.empty(shp, dtype=dt, device="meta")
+            device = generator.device
+            if dt == torch.int32:
+                return torch.randint(0, cfg.vocab, shp, generator=generator, device=device,
+                                     dtype=torch.int32)
+            return torch.randn(shp, generator=generator, device=device).to(dt)
+
+        return {k: make(*v) for k, v in out.items()}
 
 
 def build_model(cfg) -> Model:
-    """The model of ``cfg``; ``NotImplementedError`` naming the ROADMAP item
-    for the families the port does not run yet (vlm, audio)."""
+    """The model of ``cfg`` (`transformer.check_supported` raises for a
+    family the port has no model of)."""
     transformer.check_supported(cfg)
     return Model(cfg)

@@ -43,8 +43,9 @@ def loss_and_grads(loss_fn, params, batch, microbatches: int = 1):
     the gradients summed in float32 and divided by M, and the loss is the
     mean of the M losses (the reference's ``lax.scan``); with M = 1 the
     gradients stay in the parameters' dtype (``jax.value_and_grad``'s).
-    Each parameter becomes a leaf that requires grad; its ``.grad`` is None
-    afterwards."""
+    A parameter the loss does not use (the vlm family's ``vision_proj`` on a
+    batch without a prefix) gets a zero gradient, as in JAX. Each parameter
+    becomes a leaf that requires grad; its ``.grad`` is None afterwards."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -52,7 +53,7 @@ def loss_and_grads(loss_fn, params, batch, microbatches: int = 1):
     if M == 1:
         loss, _ = loss_fn(params, batch)
         loss.backward()
-        grads = [p.grad for p in leaves]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
     else:
         grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
         lsum = None
@@ -61,7 +62,8 @@ def loss_and_grads(loss_fn, params, batch, microbatches: int = 1):
             part, _ = loss_fn(params, mb)
             part.backward()
             for a, p in zip(grads, leaves):
-                a.add_(p.grad.to(torch.float32))
+                if p.grad is not None:
+                    a.add_(p.grad.to(torch.float32))
                 p.grad = None
             part = part.detach()
             lsum = part if lsum is None else lsum + part

@@ -326,6 +326,8 @@ DECODE_SHAPES = [
     (1, 16, 2, 128, 1024),   # large G
     (2, 32, 32, 96, 300),    # phi3-mini's D = 96
     (2, 24, 2, 128, 333),    # starcoder2-3b's G = 12
+    (2, 8, 1, 256, 400),     # paligemma-3b's G = 8, D = 256
+    (2, 12, 12, 64, 1500),   # whisper-small's cross-attention over its 1,500 frames
 ]
 
 

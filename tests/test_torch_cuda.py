@@ -423,7 +423,7 @@ def test_flash_decode_kernel_matches_plain(card, B, Hq, Hkv, D, S, dtype):
 
 
 @pytest.mark.parametrize("G", [1, 2, 3, 4, 6, 8, 12, 16, 64])
-@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_split_edges(card, G, D, dtype):
     """The split kernel at the edges of its chunks: kv_len chunk - 1, chunk,
@@ -907,6 +907,79 @@ def test_moe_decode_step_on_the_card_makes_no_host_sync(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert cache["pos"].tolist() == [11] * 4
+
+
+# -- the vlm prefix and whisper, on the card -----------------------------------------
+
+def _stub_lm(arch, card, dtype="float32"):
+    """The smoke config of ``arch`` at a head dim K5 takes: paligemma's at
+    256 with 8 query heads over its 1 KV head (G 8, its full width's), or
+    whisper's at 64 (4 heads, G 1); weights from seed 0 on the card, and
+    the stub frontend's embeddings (B 2) from numpy's seed 1."""
+    vlm = arch == "paligemma-3b"
+    cfg = dataclasses.replace(smoke_config(arch), head_dim=256 if vlm else 64,
+                              n_heads=8 if vlm else 4, param_dtype=dtype, compute_dtype=dtype)
+    model = build_model(cfg)
+    emb = np.random.default_rng(1).standard_normal((LM_B, cfg.n_prefix_tokens, cfg.d_model))
+    batch = {"tokens": _lm_tokens(cfg, card),
+             "prefix" if vlm else "frames": torch.from_numpy(emb.astype(np.float32)).to(card)}
+    return cfg, model, model.init_params(torch.Generator(device=card).manual_seed(0)), batch
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-small"])
+def test_stub_lm_decode_on_the_card_matches_the_cpu(card, arch):
+    """float32: prefill of 8 tokens (after the image prefix, or beside the
+    frames), then 4 decode steps into a cache of 10 text positions, the last
+    two past its end, on the card within 1e-4 of the CPU, logits and every
+    cache leaf; K5 launched once per layer and step (paligemma), twice
+    (whisper: self and cross), never by prefill."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, model, params, batch = _stub_lm(arch, card)
+    per_step = cfg.n_layers * (2 if cfg.family == "audio" else 1)
+
+    def run(device, p):
+        b = {k: v.to(device) for k, v in batch.items()}
+        cache = model.init_cache(LM_B, 10, device=device)
+        ops.reset_launch_counts()
+        lg, cache = model.prefill(p, dict(b, tokens=b["tokens"][:, :LM_P]), cache)
+        assert ops.launch_counts()["flash_decode"] == 0
+        out = [lg]
+        for t in range(LM_P, LM_S):
+            lg, cache = model.decode_step(p, b["tokens"][:, t:t + 1], cache)
+            out.append(lg)
+        return torch.stack(out), cache
+    got, cache = run(card, params)
+    assert ops.launch_counts()["flash_decode"] == per_step * (LM_S - LM_P)
+    want, want_cache = run("cpu", tree_map(lambda t: t.cpu(), params))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    for a, b in zip(tree_leaves(cache), tree_leaves(want_cache)):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-small"])
+def test_stub_lm_decode_step_on_the_card_makes_no_host_sync(card, arch):
+    """bfloat16: three decode steps under ``torch.cuda.set_sync_debug_mode
+    ("error")`` raise on no synchronizing call (whisper's cross-attention
+    length is made on the card), and follow the teacher-forced forward
+    within 2e-2 of the largest |logit|."""
+    cfg, model, params, batch = _stub_lm(arch, card, "bfloat16")
+    cache = model.init_cache(LM_B, LM_S, device=card)
+    lg, cache = model.prefill(params, dict(batch, tokens=batch["tokens"][:, :LM_P]), cache)
+    out = [lg]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(LM_P, LM_P + 3):
+            lg, cache = model.decode_step(params, batch["tokens"][:, t:t + 1], cache)
+            out.append(lg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    full, _ = model.forward(params, dict(batch, tokens=batch["tokens"][:, :LM_P + 3]))
+    offset = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+    want = full[:, offset + LM_P - 1:].transpose(0, 1).float()
+    got = torch.stack(out).float()
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
 
 
 # -- training and checkpoint, on the card ----------------------------------------------

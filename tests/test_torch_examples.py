@@ -19,7 +19,9 @@ from repro.core import jaxsim, traces
 from repro.core.jaxsim import JaxSimConfig
 
 ROOT = Path(__file__).resolve().parents[1]
-BLOCK_ARCHS = ["granite-moe-3b-a800m", "recurrentgemma-2b", "rwkv6-3b"]
+# the LM examples' archs beyond the dense family; paligemma-3b served and trained on
+# tokens alone, as the JAX examples run it (they give whisper-small no frames)
+BLOCK_ARCHS = ["granite-moe-3b-a800m", "recurrentgemma-2b", "rwkv6-3b", "paligemma-3b"]
 
 
 def _example(name: str):

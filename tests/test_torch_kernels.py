@@ -209,6 +209,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(_port_sources()) > 10
     assert ROOT / "src" / "repro_torch" / "kernels" / "replay.py" in _port_sources()
     assert ROOT / "src" / "repro_torch" / "core" / "fleetshard.py" in _port_sources()
+    assert ROOT / "src" / "repro_torch" / "models" / "whisper.py" in _port_sources()
     assert all(path.exists() for path in _port_sources())
     assert not bad, bad
 

@@ -21,10 +21,10 @@ from repro.models import common as jcommon
 from repro_torch import configs, convert
 from repro_torch.kernels import decode_attn, ops
 from repro_torch.kernels import ref as tref
-from repro_torch.models import build_model, common, transformer
+from repro_torch.models import build_model, common
 
 DENSE = ["qwen3-32b", "stablelm-1.6b", "starcoder2-3b", "phi3-mini-3.8b"]
-NOT_PORTED = ["paligemma-3b", "whisper-small"]       # the vlm prefix and whisper, item 9.3
+STUBS = ["paligemma-3b", "whisper-small"]   # the stub frontends: tests/test_torch_vlm_audio.py
 BLOCKS = ["granite-moe-3b-a800m", "grok-1-314b", "recurrentgemma-2b", "rwkv6-3b"]
 TOL = 2e-4          # tests/test_models.py's decode-vs-forward tolerance, float32
 B, S, P = 2, 12, 8  # tests/test_models.py's decode pattern: prompt P, then S - P steps
@@ -198,12 +198,19 @@ def test_lm_params_from_numpy_rejects_another_tree(case):
         convert.lm_params_from_numpy(cfg, tree, "cpu")
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
+@pytest.mark.parametrize("arch", STUBS)
 def test_what_is_not_ported_raises_naming_its_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 9\.3"):
-        build_model(configs.smoke_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.lm_specs(configs.smoke_config(arch))
+    """The two archs that raised until item 9.3 now build at full and smoke
+    size, and their parameter trees are JAX's: keys, nesting and shapes
+    (``vision_proj`` for the vlm prefix; whisper's encoder and decoder)."""
+    for get in ("get_config", "smoke_config"):
+        model = build_model(getattr(configs, get)(arch))
+        shapes = jax.tree.map(lambda s: s.shape,
+                              jbuild_model(getattr(jconfigs, get)(arch)).param_specs(),
+                              is_leaf=lambda x: isinstance(x, jcommon.ParamSpec))
+        assert common.tree_map(lambda s: s.shape, model.param_specs()) == shapes
+    assert ("vision_proj" in shapes) == (arch == "paligemma-3b")
+    assert ("encoder" in shapes) == (arch == "whisper-small")
 
 
 def _np(*shape, seed=0):
@@ -298,7 +305,7 @@ def test_make_param_follows_the_reference_rule(spec, std):
                                                                           dtype=torch.bfloat16))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-32b"] + BLOCKS)
+@pytest.mark.parametrize("arch", ["qwen3-32b"] + BLOCKS + STUBS)
 def test_init_params_shapes_and_cache_layout(arch):
     """The port's parameter tree has JAX's shapes; its cache has JAX's
     leaves, shapes and dtypes (but RG-LRU's ``h``, float32 in the port:
