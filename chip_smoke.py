@@ -73,21 +73,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    step (self and cross); (d) one AdamW step of each at full width on
    ``input_specs``' inputs, loss and grad norm finite, no host sync; (e) K5
    timed at the three served shapes beside scaled_dot_product_attention;
-9. analysis: the paper's §3 at its own scale (n = 10 * 2^18): the eight
+9. dist: the distribution layer: (a) stablelm-1.6b at full width and
+   depth in bfloat16 served through ``make_prefill_fn`` / ``make_decode_fn``
+   with a ``Sharder`` on the (1, 1) mesh of a one-rank NCCL group
+   (``launch.make_host_mesh``), B 8, prompt 128, 32 greedy steps: every
+   logit bit-equal to the same calls without a sharder, K5 24 times a step,
+   no host sync, the step against its bytes bound; (b) the int8
+   error-feedback all-reduce over that group on a float32 tree of its
+   parameter shapes: q and scales card = CPU, sent + residual == y exactly,
+   20 rounds' mean within one quantum of the gradient, a round's GB/s
+   against its bytes bound; (c) the dry run's command line in a subprocess
+   (a fake process group of 256 ranks, meta tensors) at qwen3-32b's
+   train_4k, prefill_32k and decode_32k on the 16 x 16 mesh, every cell ok,
+   its per-chip bytes against the card's memory and FLOPs against 2 N T
+   (6 or 8 N T), then the H100 roofline table;
+10. analysis: the paper's §3 at its own scale (n = 10 * 2^18): the eight
    Fig 8 / Fig 10 points of the repository's benchmark, five of them held
    to the paper's values, all four figure grids through the Zipf kernel
    (one launch per pmf: 11 in each figure's part; every point counted;
    points shared by two calls equal bit for bit; the pmf made on the card
    compared with numpy's, printed), and Figs 9 / 11 on the benchmark-grade
    volume pool, equal on the card and on the CPU;
-10. engine parity: a reduced fleet replayed on the card by the replay kernel
+11. engine parity: a reduced fleet replayed on the card by the replay kernel
    and by the step engine (kernels K1 and K3 between PyTorch ops) must end
    in states bit-equal to the step engine's on the CPU; one volume replayed
    alone on the card under both engines (the replay kernel at V = 1, and the
    single-volume victim kernel K2) must equal its row of the fleet; in the
    free-pool exhaustion corner the replay kernel must equal the CPU and the
    step engine keep its envelope;
-11. main run: the 186-volume mixed corpus tiled over the four GC thresholds
+12. main run: the 186-volume mixed corpus tiled over the four GC thresholds
    of the repository's gcbench (744 volumes of 64 MiB at 4 KiB blocks),
    SepBIT with cost-benefit selection, replayed by the replay kernel; the
    step engine on its first 24,576 steps, every final key equal to the
@@ -95,17 +109,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    replayed over the whole trace by the step engine on the CPU, the replay
    kernel's plain version, equal to their rows; the replay kernel timed
    alone on both inputs;
-12. scale: the replay kernel alone on 32 volumes of 1 GiB, held to the
+13. scale: the replay kernel alone on 32 volumes of 1 GiB, held to the
    state invariants, its time and its victim scans' bytes per user write;
-13. profile: steady windows of both engines under torch.profiler;
-14. schemes: the paper's 14-scheme comparison (Exp#1): the 186-volume
+14. profile: steady windows of both engines under torch.profiler;
+15. schemes: the paper's 14-scheme comparison (Exp#1): the 186-volume
     corpus (8 MiB volumes) under each of the 14 placement schemes, 2,604
     volumes in one fleet through the step engine on the card (K1 and K3,
     the nine stateful schemes' branches between them); WA per scheme,
     ranked; one volume per scheme equal to the step engine on the CPU on
     every key, the elementwise volumes equal to the replay kernel's replay
     of them, which refuses the mixed fleet; a profiled steady window;
-15. sweep: the heterogeneous sweep of ``core/fleetshard.py`` at full width,
+16. sweep: the heterogeneous sweep of ``core/fleetshard.py`` at full width,
     the main run's corpus under 5 elementwise schemes x 2 selectors x GP
     0.10 / 0.15 / 0.20 (5,580 volumes of 64 MiB), timing model on, through
     the replay kernel's timing instance: grouped (one launch per scheme)
@@ -113,19 +127,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     (scheme, selector) pair equal to the step engine on the CPU (run in a
     worker beside the card), the accounting conserved; per cell WA, mean
     +- CI and p50 / p99; the kernel timed alone with timing on and off;
-16. latency: the committed ``BENCH_gc_latency.json`` reproduced on every
+17. latency: the committed ``BENCH_gc_latency.json`` reproduced on every
     field (nosep / sepgc / sepbit on the replay kernel, fk on the step
     engine), then greedy / rate_limited / idle_window x nosep / sepgc /
     sepbit at full width (1,674 volumes): overflow 0, rate_limited's GC
     writes equal to greedy's, the accounting conserved, one volume per cell
     equal to the CPU on every key;
-17. gcbench: the JAX package's gcbench fleet (16 volumes of 1 MiB, segment
+18. gcbench: the JAX package's gcbench fleet (16 volumes of 1 MiB, segment
     32, sepbit, cost-benefit, GC thresholds 0.08-0.22) under the legacy GC
     engine on the step engine and the tick engine on the replay kernel, each
     reproducing ``BENCH_fleet_gc.json``'s per-volume reclaimed counts, WA and
     GC writes, equal to each other on every key, with each engine's steady
     volumes/s; one volume alone under legacy (K2) equal to its fleet row;
-18. legacy: the main run's 744 volumes through a prefix of their steps
+19. legacy: the main run's 744 volumes through a prefix of their steps
     under the legacy GC engine on the card's step engine (K1 at loop entry on
     every write, K3 on every rewrite), equal on every key to the replay
     kernel on the same prefix and, on eight volumes, to the legacy engine on
@@ -2850,8 +2864,8 @@ class _AuxRecorder:
     def __init__(self, model):
         self.model, self.aux = model, []
 
-    def forward(self, params, batch):
-        logits, aux = self.model.forward(params, batch)
+    def forward(self, params, batch, sharder=None):
+        logits, aux = self.model.forward(params, batch, sharder)
         self.aux.append(aux.detach())
         return logits, aux
 
@@ -3309,6 +3323,275 @@ def phase_vlm_audio() -> dict:
     return {"vlm_path": paths[VLM_ARCH], "audio_path": paths[AUDIO_ARCH]}
 
 
+DIST_ARCH = "stablelm-1.6b"     # [dist] (a): served through the sharder at full width and depth
+DIST_SEED = 24
+DIST_B, DIST_PROMPT, DIST_STEPS = 8, 128, 32
+DIST_ROUNDS = 20               # (b): error-feedback rounds with a fixed gradient
+DIST_BLOCK = 256               # (b): the int8 quantization's block, the reference's default
+DIST_DRY_ARCH = "qwen3-32b"    # (c): the dry run's cells on the 16 x 16 production mesh
+DIST_DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DIST_FLOPS = {"decode": (0.99, 1.1), "prefill": (0.9, 1.3), "train": (0.9, 1.3)}
+#   (c): FLOPs per chip over the useful ones plus the attention's share (`_dist_dry_check`);
+#   N counts the embedding table, which costs no product
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _attention_flops(cfg, shape) -> float:
+    """The score and value products of every attention layer over the whole
+    step, which 2 N T leaves out: 4 hd FLOPs per query head, query token and
+    key; prefill and train over the whole S x S (the port masks it, it does
+    not skip it), train three times over (forward, two in backward) plus
+    one with remat; decode one query against S keys."""
+    B, S = shape.global_batch, shape.seq_len
+    per_key = 4 * cfg.n_heads * cfg.hd * cfg.n_layers
+    if shape.kind == "decode":
+        return per_key * B * S
+    return per_key * B * S * S * ((4 if cfg.remat else 3) if shape.kind == "train" else 1)
+
+
+def _dist_serve(smi: str, sharder) -> dict:
+    """(a) DIST_ARCH at full width and depth in bfloat16 (weights random from
+    a seeded generator on the card), DIST_B rows of a DIST_PROMPT-token
+    prompt and DIST_STEPS greedy decode steps through ``make_prefill_fn`` /
+    ``make_decode_fn(model, cfg, sharder)`` on the one-rank mesh (the main
+    path: K5's counts from 0), then the same calls without a sharder: every
+    logit equal bit for bit, K5 once per layer and step, no host sync."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import place_params
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serving import make_decode_fn, make_prefill_fn
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(DIST_ARCH)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(DIST_SEED))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    toks = torch.randint(0, cfg.vocab, (DIST_B, DIST_PROMPT), device="cuda", dtype=torch.int32,
+                         generator=torch.Generator(device="cuda").manual_seed(DIST_SEED))
+    max_seq = DIST_PROMPT + DIST_STEPS + 8
+
+    def serve(sh, timer=None):
+        p = params if sh is None else place_params(params, sh, model.param_specs())
+        prefill = make_prefill_fn(model, cfg, sh)
+        decode = make_decode_fn(model, cfg, sh)
+        step = decode if timer is None else timer(decode)
+        cache = model.init_cache(DIST_B, max_seq, device="cuda")
+        lg, cache = prefill(p, {"tokens": toks}, cache)
+        out = [lg]
+        cur = lg.argmax(-1).to(torch.int32)[:, None]
+        _take_launches()
+
+        def loop():
+            nonlocal cur, cache
+            for _ in range(DIST_STEPS):
+                nxt, lg, cache = step(p, cur, cache)
+                out.append(lg)
+                cur = nxt[:, None]
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, syncs = _count_syncs(loop, "[dist]")
+        wall = time.perf_counter() - t0
+        return torch.stack(out), syncs, _take_launches(), wall, step
+
+    got, syncs, launches, wall, timer = serve(sharder, _StepTimer)
+    want, _, _, _, _ = serve(None)
+    equal = bool(torch.equal(got, want))
+    step_ms = timer.device_ms()
+    kv_lens = [DIST_PROMPT + t for t in range(1, DIST_STEPS + 1)]
+    limit = float(np.mean([decode_step_bound(cfg, params, [n] * DIST_B)["bound_ms"]
+                           for n in kv_lens]))
+    by = decode_step_bound(cfg, params, [kv_lens[0]] * DIST_B)["bound_by"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[dist] (a) {smi}; {DIST_ARCH} bfloat16, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params:,} parameters from seed {DIST_SEED} on the {sharder.axis_sizes} "
+        f"mesh (attn_mode {sharder.attn_mode}); B {DIST_B}, prompt {DIST_PROMPT}, {DIST_STEPS} "
+        f"decode steps through the sharded serving functions in {wall:.3f} s, {step_ms:.3f} ms "
+        f"per step on the device ({1e3 * float(np.mean(timer.host)):.3f} ms to enqueue), bound "
+        f"{limit:.3f} ms ({by}) = {step_ms / limit:.3f}x; flash_decode launches {launches} = "
+        f"{cfg.n_layers} x {DIST_STEPS}: {launches == cfg.n_layers * DIST_STEPS}; host syncs "
+        f"{syncs}; every logit of {tuple(got.shape)} equal to the unsharded calls': {equal}; "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    if not (equal and syncs == 0 and launches == cfg.n_layers * DIST_STEPS):
+        raise AssertionError("[dist] (a): the sharded serving path differs from the unsharded "
+                             "one, synced with the host or missed K5 launches")
+    return {"launches": launches, "decode_steps": DIST_STEPS, "step_ms": step_ms,
+            "step_bound_ms": limit, "host_syncs": syncs}
+
+
+def _dist_allreduce(smi: str) -> dict:
+    """(b) `compressed_allreduce` over the one-rank NCCL group on a float32
+    tree of DIST_ARCH's parameter shapes from a seed: q and the scales on the
+    card bit-equal to the CPU's on three leaves; sent + residual == y on
+    every leaf, exactly; over DIST_ROUNDS rounds with a fixed gradient, the
+    mean of the reduced values within one quantum of the gradient; each
+    round timed against the bytes it must move (x, the residual and the
+    outputs: 16 bytes a value)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    specs = tree_leaves(build_model(get_config(DIST_ARCH)).param_specs())
+    gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+    grads = [torch.randn(s.shape, generator=gen, device="cuda") * 1e-3 for s in specs]
+    n = sum(g.numel() for g in grads)
+    for g in sorted(grads, key=lambda t: -t.numel())[:3]:     # the three largest leaves
+        q, scale = collectives.quantize_int8(g, DIST_BLOCK)
+        cq, cscale = collectives.quantize_int8(g.cpu(), DIST_BLOCK)
+        if not (torch.equal(q.cpu(), cq) and torch.equal(scale.cpu(), cscale)):
+            raise AssertionError("[dist] (b): quantize_int8 on the card differs from the CPU")
+    resid = [torch.zeros_like(g) for g in grads]
+    total = [torch.zeros_like(g) for g in grads]
+    exact = True
+    ms = []
+    for r in range(DIST_ROUNDS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = [collectives.compressed_allreduce(g, e, block=DIST_BLOCK)
+                for g, e in zip(grads, resid)]
+        end.record()
+        if r == 0:      # one rank: the reduced value is the sent one
+            exact = all(bool(torch.equal(m + e2, g + e)) for (m, e2), g, e in
+                        zip(outs, grads, resid))
+        for t, (m, _) in zip(total, outs):
+            t.add_(m)
+        resid = [e2 for _, e2 in outs]
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    worst = 0.0
+    for t, g in zip(total, grads):
+        _, scale = collectives.quantize_int8(g, DIST_BLOCK)
+        err = collectives.quantize_int8((t / DIST_ROUNDS - g).abs(), DIST_BLOCK)[1]
+        worst = max(worst, float((err * 127.0 / scale).max()))    # |mean - g| in quanta
+    limit = bound(16 * n)
+    round_ms = float(np.median(ms))
+    log(f"[dist] (b) {smi}; int8 error-feedback all-reduce over the one-rank NCCL group, "
+        f"{len(grads)} float32 leaves of {DIST_ARCH}'s shapes ({n:,} values), block "
+        f"{DIST_BLOCK}: q and scales card = CPU on the three largest leaves; sent + residual "
+        f"== y on every leaf: {exact}; after {DIST_ROUNDS} rounds the mean of the reduced "
+        f"values lies within {worst:.4f} quanta of the gradient; a round {round_ms:.3f} ms "
+        f"(median), {16 * n / round_ms / 1e6:.1f} GB/s against the bytes bound "
+        f"{limit['bound_ms']:.3f} ms at 3.35 TB/s = {round_ms / limit['bound_ms']:.2f}x")
+    if not (exact and worst <= 1.0):
+        raise AssertionError("[dist] (b): the residual or the error feedback is off")
+    return {"round_ms": round_ms, "bound_ms": limit["bound_ms"], "quanta": worst}
+
+
+def _dist_dry_check(smi: str, proc, path: str) -> dict:
+    """(c) the dry run's records (`dryrun`'s command line, started in a
+    subprocess at the phase's start: a fake process group cannot share a
+    process with the NCCL one), then ``roofline.build_table`` on them:
+    every cell ok, its per-chip argument bytes against the card's memory,
+    its FLOPs per chip within DIST_FLOPS of the useful 2 N_active T / chips
+    (6 or 8 N T for train) plus the attention's share: the chip's share of
+    the products (prefill and train: q split over every chip), or in
+    head_dim mode's decode K5 on whole heads on every rank of the model axis
+    (the products of B / data rows, the model axis's width times a chip's
+    share). The axes' widths come from the record's mesh."""
+    import torch
+
+    from repro_torch import roofline
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed import Sharder, ShapeMesh
+    from repro_torch.launch import dryrun
+    out, _ = proc.communicate(timeout=600)
+    for line in out.splitlines()[-8:]:
+        log(f"[dist] (c)   {line[:300]}")
+    with open(path) as f:
+        recs = {r["shape"]: r for r in json.load(f)}
+    cfg = get_config(DIST_DRY_ARCH)
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    ok = True
+    for name in DIST_DRY_SHAPES:
+        rec = recs.get(name, {"status": "missing"})
+        if rec["status"] != "ok":
+            log(f"[dist] (c) {name}: {rec}")
+            ok = False
+            continue
+        shape, chips = SHAPES[name], rec["n_chips"]
+        widths = tuple(int(n) for n in rec["mesh"].split("x"))
+        mesh = ShapeMesh(("pod", "data", "model")[-len(widths):], widths)
+        whole = shape.kind == "decode" and Sharder(mesh, cfg).attn_mode == "head_dim"
+        useful = dryrun.model_flops_per_chip(cfg, shape, chips)
+        attn = _attention_flops(cfg, shape) * (widths[-1] if whole else 1) / chips
+        lo, hi = [f * (useful + attn) for f in DIST_FLOPS[shape.kind]]
+        fits = rec["memory"]["argument_bytes"] < total_mem
+        ok &= lo <= rec["flops"] <= hi
+        coll = rec["collective_bytes"]
+        log(f"[dist] (c) {smi}; {DIST_DRY_ARCH} {name} on {rec['mesh']} ({chips} chips, fake "
+            f"group, meta tensors): argument bytes per chip {rec['memory']['argument_bytes']:,} "
+            f"against the card's {total_mem:,} (fits: {fits}), output "
+            f"{rec['memory']['output_bytes']:,}; "
+            f"FLOPs per chip {rec['flops']:.4e} = {rec['flops'] / useful:.3f}x the useful "
+            f"{useful:.4e}, {rec['flops'] / (useful + attn):.3f}x it plus the attention's share "
+            f"{attn:.4e}, within [{lo:.4e}, {hi:.4e}]: {lo <= rec['flops'] <= hi}; bytes "
+            f"accessed {rec['bytes_accessed']:.4e}; collectives {coll['total']:,} bytes "
+            f"(all-gather {coll['all-gather']:,}, all-reduce {coll['all-reduce']:,}, "
+            f"reduce-scatter {coll['reduce-scatter']:,}, all-to-all {coll['all-to-all']:,}); "
+            f"traced in {rec['compile_s'] + rec['analysis_compile_s']:.1f} s")
+    rows = roofline.build_table(path)
+    for line in roofline.format_table(rows).splitlines():
+        log(f"[dist] (c) roofline (H100: {roofline.PEAK_FLOPS:.3g} FLOP/s, HBM "
+            f"{roofline.HBM_BW:.3g} B/s, NVLink {roofline.LINK_BW:.3g} B/s) {line}")
+    if not (ok and proc.returncode == 0 and len(rows) == len(DIST_DRY_SHAPES)):
+        raise AssertionError("[dist] (c): a dry-run cell failed or its FLOPs left their bounds")
+    return {name: recs[name] for name in DIST_DRY_SHAPES}
+
+
+def phase_dist() -> dict:
+    """The distribution layer on the card: (c)'s dry run starts in a
+    subprocess on the CPU; (a) the sharded serving path on a one-rank NCCL
+    group's (1, 1) mesh (``launch.make_host_mesh``); (b) the int8
+    error-feedback all-reduce over that group; then (c)'s records and the
+    roofline. Returns K5's counts on (a)'s path."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import Sharder
+    from repro_torch.launch import make_host_mesh
+    t_phase = time.perf_counter()
+    smi = _smi()
+    root = Path(__file__).resolve().parent
+    out_dir = root / "build"
+    out_dir.mkdir(exist_ok=True)
+    path = str(out_dir / "dryrun_qwen3.json")
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                             DIST_DRY_ARCH, "--out", path], cwd=root, text=True,
+                            env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        torch.cuda.empty_cache()
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                                world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_host_mesh()
+            path_a = _dist_serve(smi, Sharder(mesh, get_config(DIST_ARCH)))
+            torch.cuda.empty_cache()
+            _dist_allreduce(smi)
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        _dist_dry_check(smi, proc, path)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"[dist] {smi}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return path_a
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3331,6 +3614,7 @@ def main() -> int:
     phase_train()
     blocks = phase_blocks()
     decode_row.update(phase_vlm_audio())
+    decode_row["dist_path"] = phase_dist()
     decode_row["serve_path"] = {key: serve[key] for key in ("launches", "decode_steps", "served",
                                                            "long_context")}
     decode_row["moe_serve_path"] = {key: blocks[key] for key in ("launches", "decode_steps",

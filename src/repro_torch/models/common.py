@@ -14,8 +14,13 @@ original takes no window) and is plain PyTorch on either device. Prefill
 attention, the projections, the MLP and the MoE block are plain matrix
 products, as the JAX package leaves them to XLA.
 
-Not ported yet: the sequence-parallel branch of ``mha`` (ROADMAP Queue 1
-item 9.8).
+Every function that takes a ``sharder`` (``distributed.sharding.Sharder``)
+puts the reference's sharding constraints at the reference's places
+(`constrain`), ``mha``'s sequence-parallel branch included, and runs the
+head projections, the attention core and K5 on each rank's local shards
+(``distributed.local.shard_local``: DTensor has no rule for K5, and its
+view rules cannot split every head layout); without one, or on a one-rank
+mesh, each is the plain function and nothing changes.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed.local import shard_local
 from ..kernels import decode_attn
 
 INIT_CHUNK = 1 << 26            # normal draws per call, so no float32 copy of a whole tensor
@@ -212,13 +218,26 @@ def attention_specs(cfg):
     return specs
 
 
-def heads_in(x, w):
-    """einsum("bsd,dhk->bshk"): one matrix product over the flattened heads."""
+def heads_in(x, w, sharder=None, heads="heads"):
+    """einsum("bsd,dhk->bshk"): one matrix product over the flattened heads,
+    on each rank's shards of ``heads`` ("heads" or "kv_heads") and the head
+    dim with w's embed dim gathered (FSDP's gather on use)."""
+    return shard_local(sharder, _heads_in, ("batch", "seq", heads, "head_dim"),
+                       (("batch", "seq", None), (None, heads, "head_dim")))(x, w)
+
+
+def _heads_in(x, w):
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
-def heads_out(o, w):
-    """einsum("bshk,hkd->bsd"): one matrix product over the flattened heads."""
+def heads_out(o, w, sharder=None):
+    """einsum("bshk,hkd->bsd"): one matrix product over the flattened heads;
+    on each rank's shards of the heads or the head dim, a pending sum."""
+    return shard_local(sharder, _heads_out, ("batch", "seq", None),
+                       (("batch", "seq", "heads", "head_dim"), ("heads", "head_dim", None)))(o, w)
+
+
+def _heads_out(o, w):
     return o.flatten(-2) @ w.reshape(-1, w.shape[-1])
 
 
@@ -229,16 +248,16 @@ def rope_for(cfg, positions):
     return rope_angles(positions, cfg.hd, cfg.rope_fraction, cfg.rope_theta)
 
 
-def qkv(cfg, p, x, rope, kv=None):
+def qkv(cfg, p, x, rope, kv=None, sharder=None):
     """q, k, v of the attention block, biased, qk-normed and rotated by
     ``rope`` (`rope_for`) as the reference's ``mha``, ``_prefill_block`` and
     ``_decode_block`` each do; k and v from ``kv`` where it is given
     (cross-attention, whose caller passes no ``rope``)."""
     cd = x.dtype
     src = x if kv is None else kv
-    q = heads_in(x, p["wq"].to(cd))
-    k = heads_in(src, p["wk"].to(cd))
-    v = heads_in(src, p["wv"].to(cd))
+    q = heads_in(x, p["wq"].to(cd), sharder)
+    k = heads_in(src, p["wk"].to(cd), sharder, "kv_heads")
+    v = heads_in(src, p["wv"].to(cd), sharder, "kv_heads")
     if cfg.use_bias:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
@@ -249,11 +268,16 @@ def qkv(cfg, p, x, rope, kv=None):
     return rotate(q, rope), rotate(k, rope), v
 
 
-def attn_out(cfg, p, out):
-    y = heads_out(out, p["wo"].to(out.dtype))
+def attn_out(cfg, p, out, sharder=None):
+    y = heads_out(out, p["wo"].to(out.dtype), sharder)
     if cfg.use_bias:
         y = y + p["bo"].to(out.dtype)
     return y
+
+
+def constrain(sharder, x, *axes):
+    """``sharder.constraint(x, *axes)``, or x itself without a sharder."""
+    return x if sharder is None else sharder.constraint(x, *axes)
 
 
 def _mask_bias(mode, q_pos, k_pos, window=0):
@@ -268,22 +292,53 @@ def _mask_bias(mode, q_pos, k_pos, window=0):
     return torch.where(ok, 0.0, -1e30)
 
 
-def mha(cfg, p, x, positions, *, mode="causal", kv=None, kv_positions=None, prefix_len=None,
-        window=0):
+def mha(cfg, p, x, positions, *, sharder=None, mode="causal", kv=None, kv_positions=None,
+        prefix_len=None, window=0):
     """Attention. x: (B, S, D) -> (B, S, D). With ``kv`` (B, T, D), k and v
     come from it (cross-attention at ``kv_positions``) and RoPE applies to
-    neither side, as in the reference."""
-    q, k, v = qkv(cfg, p, x, rope_for(cfg, positions) if kv is None else None, kv)
+    neither side, as in the reference. A ``sharder`` constrains q, k, v and
+    the output as the reference does; in head_dim mode with
+    ``sp_attention``, outside windowed attention, the sequence-parallel
+    branch keeps q sequence-sharded with whole heads, so the scores never
+    cross ranks."""
+    q, k, v = qkv(cfg, p, x, rope_for(cfg, positions) if kv is None else None, kv, sharder)
+    use_sp = (getattr(getattr(sharder, "options", None), "sp_attention", False)
+              and getattr(sharder, "attn_mode", "heads") == "head_dim"
+              and mode != "window" and window == 0)
+    if use_sp:
+        q = constrain(sharder, q, "batch", "seq_attn", "heads_full", "head_dim_full")
+        k = constrain(sharder, k, "batch", None, "heads_full", "head_dim_full")
+        v = constrain(sharder, v, "batch", None, "heads_full", "head_dim_full")
+    else:
+        q = constrain(sharder, q, "batch", "seq", "heads", "head_dim")
+        k = constrain(sharder, k, "batch", "seq", "kv_heads", "head_dim")
     out = gqa_attend(q, k, v, mode=mode, q_pos=positions,
                      k_pos=positions if kv_positions is None else kv_positions,
-                     prefix_len=prefix_len, window=window)
-    return attn_out(cfg, p, out)
+                     prefix_len=prefix_len, window=window, sharder=sharder)
+    if use_sp:
+        out = constrain(sharder, out, "batch", "seq_attn", "heads_full", "head_dim_full")
+    out = constrain(sharder, out, "batch", "seq", "heads", "head_dim")
+    return attn_out(cfg, p, out, sharder)
 
 
-def gqa_attend(q, k, v, *, mode, q_pos, k_pos, prefix_len=None, window=0):
+Q_AXES = ("batch", "seq_attn", "heads", None)    # the attention core's layouts on the
+KV_AXES = ("batch", None, "kv_heads", None)     # ranks: whole head dims
+DECODE_Q_AXES = ("batch", None, "heads", None)
+
+
+def gqa_attend(q, k, v, *, mode, q_pos, k_pos, prefix_len=None, window=0, sharder=None):
     """(B,Sq,H,hd) x (B,Sk,Hk,hd) -> (B,Sq,H,hd), fp32 softmax. The float32
     scores are scaled and masked in place (the reference's values; one
-    (B, Hk, G, Sq, Sk) float32 buffer fewer)."""
+    (B, Hk, G, Sq, Sk) float32 buffer fewer). With a ``sharder``, on each
+    rank's shards: q on its batch and its heads (heads mode) or its sequence
+    (head_dim mode's sequence-parallel layout), k and v whole along theirs,
+    so the scores never cross ranks."""
+    return shard_local(sharder, _gqa_attend, Q_AXES,
+                       (Q_AXES, KV_AXES, KV_AXES, Q_AXES[:2], KV_AXES[:2], ("batch",)))(
+        q, k, v, q_pos, k_pos, prefix_len, mode=mode, window=window)
+
+
+def _gqa_attend(q, k, v, q_pos, k_pos, prefix_len, *, mode, window):
     B, Sq, H, hd = q.shape
     Hk = k.shape[2]
     G = H // Hk
@@ -308,7 +363,7 @@ def gqa_attend(q, k, v, *, mode, q_pos, k_pos, prefix_len=None, window=0):
     return out.reshape(B, Sq, H, hd)
 
 
-def decode_attend(q, k_cache, v_cache, kv_len, *, window=0):
+def decode_attend(q, k_cache, v_cache, kv_len, *, window=0, sharder=None):
     """Single-token decode. q: (B,1,H,hd); caches: (B,S,Hk,hd), contiguous;
     kv_len (B,) int32, each at least 1. Without a window: K5 on CUDA
     tensors, its plain version on CPU ones; both keep the softmax weights in
@@ -317,20 +372,33 @@ def decode_attend(q, k_cache, v_cache, kv_len, *, window=0):
     ``window`` W: the reference's plain computation, positions in
     ``[kv_len - W, kv_len)`` attended, on either device; K5's TPU original
     takes no window, so no kernel computes this. Reads nothing from the
-    device."""
-    B, _, H, hd = q.shape
+    device. With a ``sharder``, K5 runs on each rank's local whole heads:
+    its batch rows and KV heads (heads mode), or every head, gathered over
+    the model axis (head_dim mode)."""
     if window:
         return _windowed_decode_attend(q, k_cache, v_cache, kv_len, window)
-    out = decode_attn.flash_decode_unread(q.reshape(B, H, hd).contiguous(), k_cache, v_cache,
-                                          kv_len)
+    return shard_local(sharder, _flash_decode, DECODE_Q_AXES,
+                       (DECODE_Q_AXES, KV_AXES, KV_AXES, ("batch",)))(
+        q, k_cache, v_cache, kv_len)
+
+
+def _flash_decode(q, k_cache, v_cache, kv_len):
+    B, _, H, hd = q.shape
+    q3 = q.reshape(B, H, hd).contiguous()
+    if q.device.type == "meta":     # the dry run: shapes only, no kernel runs on meta
+        out = decode_attn.flash_decode_ref(q3, k_cache, v_cache, kv_len)
+    else:
+        out = decode_attn.flash_decode_unread(q3, k_cache, v_cache, kv_len)
     return out.reshape(B, 1, H, hd)
 
 
-def write_row(cache, rows, at, inside, new):
+def write_row(cache, at, inside, new, *, rows):
     """``cache[b, at[b]] = new[b, 0]`` in place for every row b ``inside``
     the cache, ``at`` being ``pos`` clamped to the last slot; a row at or
     past the end writes its old value back, as the reference's scatter
-    drops an index out of range: no read of the device."""
+    drops an index out of range: no read of the device. ``rows`` is
+    ``arange(B)``, made once per step (``distributed.local.local_write``
+    runs this on each rank's rows)."""
     cache[rows, at] = torch.where(inside, new[:, 0].to(cache.dtype), cache[rows, at])
 
 
@@ -376,7 +444,7 @@ def mlp_specs(cfg):
     return specs
 
 
-def mlp(cfg, p, x):
+def mlp(cfg, p, x, *, sharder=None):
     cd = x.dtype
     h = x @ p["wi"].to(cd)
     if cfg.use_bias:
@@ -385,6 +453,7 @@ def mlp(cfg, p, x):
         h = F.silu(x @ p["wg"].to(cd)) * h
     else:
         h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default
+    h = constrain(sharder, h, "batch", "seq", "ffn")
     y = h @ p["wo"].to(cd)
     if cfg.use_bias:
         y = y + p["bo"].to(cd)
@@ -414,7 +483,7 @@ def top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_block(cfg, p, x, *, capacity_factor=1.25):
+def moe_block(cfg, p, x, *, sharder=None, capacity_factor=1.25):
     """Top-k MoE with capacity-based one-hot dispatch, the reference's
     ``moe_block``: tokens go to an (E, capacity) buffer in sequence order,
     overflow tokens are dropped and pass through the residual only. Returns
@@ -433,8 +502,11 @@ def moe_block(cfg, p, x, *, capacity_factor=1.25):
     B, S, D = x.shape
     G = cfg.moe.route_group
     if G and G < S and S % G == 0:
-        y, aux = moe_block(dataclasses_replace_route(cfg), p, x.reshape(B * (S // G), G, D),
+        xg = x.reshape(B * (S // G), G, D)
+        y, aux = moe_block(dataclasses_replace_route(cfg), p, xg, sharder=sharder,
                            capacity_factor=capacity_factor)
+        # back to the groups' batch layout, which unflattens cleanly
+        y = constrain(sharder, y, "batch", "seq", "act_embed")
         return y.reshape(B, S, D), aux
     E, K = cfg.moe.n_experts, cfg.moe.experts_per_token
     cd = x.dtype
@@ -457,10 +529,14 @@ def moe_block(cfg, p, x, *, capacity_factor=1.25):
     combine = (gate_vals[..., None] * onehot).sum(2)[..., None] * dispatch  # (B,S,E,C)
 
     xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(cd), x)          # (E,B,C,D)
+    if getattr(getattr(sharder, "options", None), "moe_2d", False):
+        # 2D weight-stationary experts: d_model data-sharded like the weights
+        xin = constrain(sharder, xin, "experts", None, None, "embed")
     xin = xin.reshape(E, B * C, D)
     h = torch.bmm(xin, p["wi"].to(cd))
     g = torch.bmm(xin, p["wg"].to(cd))
-    h = F.silu(g) * h
+    h = (F.silu(g) * h).reshape(E, B, C, -1)
+    h = constrain(sharder, h, "experts", "batch", None, "ffn").flatten(1, 2)
     eout = torch.bmm(h, p["wo"].to(cd)).reshape(E, B, C, D)
     y = torch.einsum("bsec,ebcd->bsd", combine.to(cd), eout)
 

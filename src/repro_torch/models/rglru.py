@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec
+from ..distributed.local import shard_local
+from .common import ParamSpec, constrain
 
 C_RGLRU = 8.0
 CONV_W = 4
@@ -43,10 +44,12 @@ def rglru_specs(cfg):
     }
 
 
-def _gates(p, u, cd):
+def _gates(p, u, cd, sharder=None):
     r = torch.sigmoid(u @ p["w_r"].to(cd) + p["b_r"].to(cd))
     i = torch.sigmoid(u @ p["w_i"].to(cd) + p["b_i"].to(cd))
-    log_a_base = F.logsigmoid(p["lam"].to(torch.float32))
+    # on each rank's shard: DTensor has no rule for log_sigmoid's backward
+    log_a_base = shard_local(sharder, F.logsigmoid, ("lru",), (("lru",),))(
+        p["lam"].to(torch.float32))
     log_a = C_RGLRU * r.to(torch.float32) * log_a_base   # (..., w)
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) * \
@@ -89,15 +92,16 @@ def linear_scan(a, b):
     return b
 
 
-def rglru_forward(cfg, p, x, *, h0=None, conv0=None, return_state=False):
+def rglru_forward(cfg, p, x, *, sharder=None, h0=None, conv0=None, return_state=False):
     """Full-sequence block. x: (B, S, d_model) -> (B, S, d_model). With
     ``return_state``, also (h at the last position in x's dtype, the conv
     window carry)."""
     cd = x.dtype
     gate = F.gelu(x @ p["w_gate"].to(cd), approximate="tanh")   # jax.nn.gelu's default
     u = x @ p["w_in"].to(cd)
+    u = constrain(sharder, u, "batch", "seq", "lru")
     u, conv_carry = _causal_conv(p, u, cd, conv0)
-    a, b = _gates(p, u, cd)
+    a, b = _gates(p, u, cd, sharder)
     if h0 is not None:
         b = torch.cat([b[:, :1] + a[:, :1] * h0.to(torch.float32)[:, None], b[:, 1:]], dim=1)
     h = linear_scan(a, b).to(cd)
@@ -107,7 +111,7 @@ def rglru_forward(cfg, p, x, *, h0=None, conv0=None, return_state=False):
     return y
 
 
-def rglru_decode(cfg, p, x_t, state):
+def rglru_decode(cfg, p, x_t, state, sharder=None):
     """One step. x_t: (B, 1, d). state: (h (B,w), conv (B,3,w)). Returns
     (y, (h float32, the new conv window in x's dtype))."""
     cd = x_t.dtype
@@ -116,7 +120,7 @@ def rglru_decode(cfg, p, x_t, state):
     u = x_t @ p["w_in"].to(cd)                          # (B,1,w)
     window = torch.cat([conv_prev.to(cd), u], dim=1)    # (B,4,w)
     u_c = _conv_taps(window, p["conv"].to(cd), 1)       # (B,1,w)
-    a, b = _gates(p, u_c, cd)
+    a, b = _gates(p, u_c, cd, sharder)
     h = a[:, 0] * h_prev.to(torch.float32) + b[:, 0]
     y = (h[:, None].to(cd) * gate) @ p["w_out"].to(cd)
     return y, (h, window[:, 1:])

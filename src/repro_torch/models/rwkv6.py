@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.local import shard_local
 from .common import ParamSpec
 
 CHUNK = 64
@@ -88,9 +89,21 @@ def _group_norm(o, p, cd):
     return o.to(cd) * p["ln_x_scale"].to(cd)
 
 
-def rwkv_time_mix(cfg, p, x, *, state=None, shift_prev=None, return_state=False):
+BATCH = ("batch",)      # a sharder's layout of the blocks: each rank its batch rows, the
+#                         parameters gathered whole (the heads' reshapes do not shard:
+#                         RWKV-6's 40 heads over a model axis of 16)
+
+
+def rwkv_time_mix(cfg, p, x, *, state=None, shift_prev=None, return_state=False, sharder=None):
     """x: (B, S, D). state: (B, H, N, N) carried k→v outer-product memory.
-    With ``return_state``, also (the state after the last chunk, x[:, -1:])."""
+    With ``return_state``, also (the state after the last chunk, x[:, -1:]).
+    With a ``sharder``, on each rank's batch rows (`BATCH`)."""
+    return shard_local(sharder, _time_mix, [BATCH] * (3 if return_state else 1),
+                       (None, (), BATCH, BATCH, BATCH))(cfg, p, x, state, shift_prev,
+                                                        return_state=return_state)
+
+
+def _time_mix(cfg, p, x, state, shift_prev, *, return_state):
     B, S, D = x.shape
     H, N = cfg.n_heads, cfg.rnn_head_dim
     cd = x.dtype
@@ -152,7 +165,12 @@ def rwkv_time_mix(cfg, p, x, *, state=None, shift_prev=None, return_state=False)
     return y
 
 
-def rwkv_channel_mix(cfg, p, x, shift_prev=None, return_state=False):
+def rwkv_channel_mix(cfg, p, x, shift_prev=None, return_state=False, sharder=None):
+    return shard_local(sharder, _channel_mix, [BATCH] * (2 if return_state else 1),
+                       ((), BATCH, BATCH))(p, x, shift_prev, return_state=return_state)
+
+
+def _channel_mix(p, x, shift_prev, *, return_state):
     cd = x.dtype
     xk = _token_shift(x, p["cmix_k"], shift_prev)
     h = torch.square(torch.relu(xk @ p["w_ck"].to(cd)))
@@ -162,9 +180,15 @@ def rwkv_channel_mix(cfg, p, x, shift_prev=None, return_state=False):
     return y
 
 
-def rwkv_decode(cfg, p, x_t, state):
+def rwkv_decode(cfg, p, x_t, state, sharder=None):
     """One token. state: (S (B,H,N,N) fp32, tm_prev (B,1,D), cm_prev (B,1,D)).
-    Returns (y, (the new S, x_t))."""
+    Returns (y, (the new S, x_t)). With a ``sharder``, on each rank's batch
+    rows (`BATCH`)."""
+    return shard_local(sharder, _decode, [BATCH] * 3, (None, (), BATCH, BATCH))(cfg, p, x_t,
+                                                                               state)
+
+
+def _decode(cfg, p, x_t, state):
     B, _, D = x_t.shape
     H, N = cfg.n_heads, cfg.rnn_head_dim
     cd = x_t.dtype

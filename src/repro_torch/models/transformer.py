@@ -16,20 +16,29 @@ The cache is written in place (JAX returns a new one): ``prefill`` and
 they lie, with a new ``pos``. The vlm family's stub image prefix comes in
 through ``forward`` and ``prefill``'s ``prefix_embeds``; the audio family is
 ``models/whisper.py``.
+
+Each entry point takes the reference's ``sharder`` (keyword, default None)
+and puts its constraints where the reference does: the embedded stream,
+each block's output in ``forward``, the logits, and inside ``mha``, ``mlp``,
+``moe_block`` and ``rglru_forward``. On a multi-rank mesh the parameters
+and caches are DTensors (``distributed.sharding.place_params``) and the
+entry points run under ``Sharder.scope``.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.local import assign, local_write, vocab_embed
+from ..distributed.sharding import scope
 from . import rglru, rwkv6
 from .common import (
     ParamSpec,
     apply_norm,
     attention_specs,
     attn_out,
+    constrain,
     decode_attend,
     gqa_attend,
     masked_attend,
@@ -125,21 +134,21 @@ def lm_specs(cfg):
 
 # -- block application ---------------------------------------------------------
 
-def _embed(cfg, params, tokens):
+def _embed(cfg, params, tokens, sharder=None):
     cd = cfg.cdtype()
-    h = F.embedding(tokens, params["embed"]).to(cd)
+    h = vocab_embed(sharder, tokens, params["embed"]).to(cd)
     if cfg.tie_embeddings:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=cd)
     return h
 
 
-def _stream(cfg, params, tokens, prefix_embeds):
+def _stream(cfg, params, tokens, prefix_embeds, sharder=None):
     """The embedded stream (B, P + S, D) and its prefix lengths: the
     tokens' embeddings after the stub frontend's ``prefix_embeds`` (B, P, D),
     cast to the compute dtype and projected by ``vision_proj`` where the
     model has one (no √d scaling), with ``prefix_len`` a (B,) int32 tensor of
     P; without a prefix, the tokens' embeddings and None."""
-    h = _embed(cfg, params, tokens)
+    h = _embed(cfg, params, tokens, sharder)
     if prefix_embeds is None:
         return h, None
     pe = prefix_embeds.to(h.dtype)
@@ -150,44 +159,47 @@ def _stream(cfg, params, tokens, prefix_embeds):
     return torch.cat([pe, h], dim=1), prefix_len
 
 
-def _second_half(cfg, kind, p, h, c=None, carry=False):
+def _second_half(cfg, kind, p, h, c=None, carry=False, sharder=None):
     """``h`` plus the block's second half: rwkv's channel mix, the MoE block
     or the MLP, each after ``ln2``. Returns (h, the MoE aux or None). Given
     a layer cache ``c``, rwkv's channel-mix shift ``cm`` is written there,
     and with ``carry`` also read from there first (decode)."""
+    h = constrain(sharder, h, "batch", "seq", "act_embed")
     y = apply_norm(cfg, p["ln2"], h)
     aux = None
     if kind == "rwkv":
         if c is None:
-            y = rwkv6.rwkv_channel_mix(cfg, p["time_mix"], y)
+            y = rwkv6.rwkv_channel_mix(cfg, p["time_mix"], y, sharder=sharder)
         else:
             y, cm = rwkv6.rwkv_channel_mix(cfg, p["time_mix"], y,
                                            shift_prev=c["cm"] if carry else None,
-                                           return_state=True)
-            c["cm"].copy_(cm)
+                                           return_state=True, sharder=sharder)
+            assign(sharder, c["cm"], cm)
     elif cfg.moe is not None:
-        y, aux = moe_block(cfg, p["moe"], y)
+        y, aux = moe_block(cfg, p["moe"], y, sharder=sharder)
     else:
-        y = mlp(cfg, p["mlp"], y)
+        y = mlp(cfg, p["mlp"], y, sharder=sharder)
     return h + y, aux
 
 
-def _apply_block(cfg, kind, p, h, positions, aux, prefix_len=None):
+def _apply_block(cfg, kind, p, h, positions, aux, prefix_len=None, sharder=None):
     """One block of `forward`: (h, aux plus the block's MoE aux)."""
     y = apply_norm(cfg, p["ln1"], h)
     if kind in ("attn", "attn_local"):
         local = kind == "attn_local"
-        y = mha(cfg, p["attn"], y, positions, mode="window" if local else "causal",
+        y = mha(cfg, p["attn"], y, positions, sharder=sharder,
+                mode="window" if local else "causal",
                 prefix_len=prefix_len, window=cfg.window if local else 0)
     elif kind == "rglru":
-        y = rglru.rglru_forward(cfg, p["rec"], y)
+        y = rglru.rglru_forward(cfg, p["rec"], y, sharder=sharder)
     else:
-        y = rwkv6.rwkv_time_mix(cfg, p["time_mix"], y)
-    h, a = _second_half(cfg, kind, p, h + y)
+        y = rwkv6.rwkv_time_mix(cfg, p["time_mix"], y, sharder=sharder)
+    h, a = _second_half(cfg, kind, p, h + y, sharder=sharder)
+    h = constrain(sharder, h, "batch", "seq", "act_embed")
     return h, aux if a is None else aux + a
 
 
-def forward(cfg, params, tokens, *, prefix_embeds=None):
+def forward(cfg, params, tokens, sharder=None, *, prefix_embeds=None):
     """tokens: (B, S) int; ``prefix_embeds`` (B, P, D), the vlm stub
     frontend's embeddings, go before them (`_stream`), bidirectional among
     themselves (the prefix-LM mask). Returns (logits (B, P + S, V), aux_loss),
@@ -196,24 +208,26 @@ def forward(cfg, params, tokens, *, prefix_embeds=None):
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of each
     block): its activations are recomputed in the backward pass, the values
     unchanged."""
-    h, prefix_len = _stream(cfg, params, tokens, prefix_embeds)
-    B, S, _ = h.shape
-    positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
-    if cfg.pos == "sinusoidal":
-        h = h + sinusoidal_pos(positions, cfg.d_model).to(h.dtype)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    remat = cfg.remat and torch.is_grad_enabled()
-    for kind, p, _ in _layers(cfg, params):
-        if remat:
-            h, aux = checkpoint(_apply_block, cfg, kind, p, h, positions, aux, prefix_len,
-                                use_reentrant=False)
-        else:
-            h, aux = _apply_block(cfg, kind, p, h, positions, aux, prefix_len)
-    h = apply_norm(cfg, params["final_norm"], h)
-    return _lm_logits(cfg, params, h), aux
+    with scope(sharder):
+        h, prefix_len = _stream(cfg, params, tokens, prefix_embeds, sharder)
+        B, S, _ = h.shape
+        positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
+        if cfg.pos == "sinusoidal":
+            h = h + sinusoidal_pos(positions, cfg.d_model).to(h.dtype)
+        h = constrain(sharder, h, "batch", "seq", "act_embed")
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for kind, p, _ in _layers(cfg, params):
+            if remat:
+                h, aux = checkpoint(_apply_block, cfg, kind, p, h, positions, aux, prefix_len,
+                                    sharder, use_reentrant=False)
+            else:
+                h, aux = _apply_block(cfg, kind, p, h, positions, aux, prefix_len, sharder)
+        h = apply_norm(cfg, params["final_norm"], h)
+        return _lm_logits(cfg, params, h, sharder), aux
 
 
-def _lm_logits(cfg, params, h):
+def _lm_logits(cfg, params, h, sharder=None):
     cd = h.dtype
     if cfg.tie_embeddings:
         logits = h @ params["embed"].to(cd).T
@@ -222,7 +236,7 @@ def _lm_logits(cfg, params, h):
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = torch.tanh(logits / c) * c
-    return logits
+    return constrain(sharder, logits, "batch", "seq", "vocab")
 
 
 # -- KV / recurrent cache ------------------------------------------------------
@@ -297,58 +311,71 @@ def init_cache(cfg, batch, max_seq, dtype, device):
 
 # -- prefill / decode ----------------------------------------------------------
 
-def _ring_fill(c, k, v, positions):
+def _ring_fill(ck, cv, cp, k, v, positions):
     """The last ``min(S, W)`` positions' k and v into ring slots ``p % W``,
     with the position map: token p lives in slot p % W, and decode
     continues the same ring."""
-    W = c["k"].shape[1]
+    W = ck.shape[1]
     last = min(k.shape[1], W)
     rows = torch.arange(k.shape[0], device=k.device)[:, None]
     pw = positions[:, -last:]
     slots = pw % W
-    c["k"][rows, slots] = k[:, -last:].to(c["k"].dtype)
-    c["v"][rows, slots] = v[:, -last:].to(c["v"].dtype)
-    c["pos"][rows, slots] = pw
+    ck[rows, slots] = k[:, -last:].to(ck.dtype)
+    cv[rows, slots] = v[:, -last:].to(cv.dtype)
+    cp[rows, slots] = pw
 
 
-def prefill(cfg, params, tokens, cache, *, prefix_embeds=None):
+def _fill_prefix(ck, cv, k, v):
+    S = k.shape[1]
+    ck[:, :S] = k
+    cv[:, :S] = v
+
+
+def prefill(cfg, params, tokens, cache, sharder=None, *, prefix_embeds=None):
     """Run the prompt, after ``prefix_embeds`` where given (`forward`'s),
     from a fresh state, fill the caches in place (global attention's first
     S positions of the stream, the rings, the recurrent states), set every
     row's ``pos`` to S, the stream's length; return last-position logits
     (B, V) and the cache."""
-    h, prefix_len = _stream(cfg, params, tokens, prefix_embeds)
-    B, S, _ = h.shape
-    positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
-    if cfg.pos == "sinusoidal":
-        h = h + sinusoidal_pos(positions, cfg.d_model).to(h.dtype)
-    rope = rope_for(cfg, positions)
-    for kind, p, c in _layers(cfg, params, cache):
-        y = apply_norm(cfg, p["ln1"], h)
-        if kind in ("attn", "attn_local"):
-            q, k, v = qkv(cfg, p["attn"], y, rope)
-            local = kind == "attn_local"
-            out = gqa_attend(q, k, v, mode="window" if local else "causal", q_pos=positions,
-                             k_pos=positions, prefix_len=prefix_len, window=cfg.window)
-            if local:
-                _ring_fill(c, k, v, positions)
+    with scope(sharder):
+        h, prefix_len = _stream(cfg, params, tokens, prefix_embeds, sharder)
+        B, S, _ = h.shape
+        positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
+        if cfg.pos == "sinusoidal":
+            h = h + sinusoidal_pos(positions, cfg.d_model).to(h.dtype)
+        h = constrain(sharder, h, "batch", "seq", "act_embed")
+        rope = rope_for(cfg, positions)
+        for kind, p, c in _layers(cfg, params, cache):
+            y = apply_norm(cfg, p["ln1"], h)
+            if kind in ("attn", "attn_local"):
+                q, k, v = qkv(cfg, p["attn"], y, rope, sharder=sharder)
+                local = kind == "attn_local"
+                out = gqa_attend(q, k, v, mode="window" if local else "causal",
+                                 q_pos=positions, k_pos=positions, prefix_len=prefix_len,
+                                 window=cfg.window, sharder=sharder)
+                if local:
+                    local_write(sharder, _ring_fill, [c["k"], c["v"], c["pos"]],
+                                [k, v, positions])
+                else:
+                    local_write(sharder, _fill_prefix, [c["k"], c["v"]], [k, v])
+                y = attn_out(cfg, p["attn"], out, sharder)
+            elif kind == "rglru":
+                y, (hs, conv) = rglru.rglru_forward(cfg, p["rec"], y, sharder=sharder,
+                                                    return_state=True)
+                # h in the compute dtype, then float32, as the reference
+                assign(sharder, c["h"], hs)
+                assign(sharder, c["conv"], conv)
             else:
-                c["k"][:, :S] = k
-                c["v"][:, :S] = v
-            y = attn_out(cfg, p["attn"], out)
-        elif kind == "rglru":
-            y, (hs, conv) = rglru.rglru_forward(cfg, p["rec"], y, return_state=True)
-            c["h"].copy_(hs)          # h in the compute dtype, then float32, as the reference
-            c["conv"].copy_(conv)
-        else:
-            y, (st, tm) = rwkv6.rwkv_time_mix(cfg, p["time_mix"], y, return_state=True)
-            c["s"].copy_(st)
-            c["tm"].copy_(tm)
-        h, _ = _second_half(cfg, kind, p, h + y, c)
-    h = apply_norm(cfg, params["final_norm"], h[:, -1:])
-    logits = _lm_logits(cfg, params, h)
-    cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=h.device)
-    return logits[:, 0], cache
+                y, (st, tm) = rwkv6.rwkv_time_mix(cfg, p["time_mix"], y, return_state=True,
+                                                  sharder=sharder)
+                assign(sharder, c["s"], st)
+                assign(sharder, c["tm"], tm)
+            h, _ = _second_half(cfg, kind, p, h + y, c, sharder=sharder)
+            h = constrain(sharder, h, "batch", "seq", "act_embed")
+        h = apply_norm(cfg, params["final_norm"], h[:, -1:])
+        logits = _lm_logits(cfg, params, h, sharder)
+        cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=h.device)
+        return logits[:, 0], cache
 
 
 def _max_seq(cfg, cache):
@@ -364,16 +391,20 @@ def _max_seq(cfg, cache):
     return None
 
 
-def _ring_decode(cfg, c, q, k, v, rows, pos):
+def _ring_write(ck, cv, cp, k, v, pos, *, rows):
+    slot = pos % ck.shape[1]
+    ck[rows, slot] = k[:, 0].to(ck.dtype)
+    cv[rows, slot] = v[:, 0].to(cv.dtype)
+    cp[rows, slot] = pos
+
+
+def _ring_decode(cfg, c, q, k, v, rows, pos, sharder=None):
     """Local attention's decode step: k, v and ``pos`` into ring slot
     ``pos % W``, then attention over the slots whose position lies in
     ``(pos - W, pos]``, the reference's plain ring attention (K5 takes no
     window)."""
     W = c["k"].shape[1]
-    slot = pos % W
-    c["k"][rows, slot] = k[:, 0].to(c["k"].dtype)
-    c["v"][rows, slot] = v[:, 0].to(c["v"].dtype)
-    c["pos"][rows, slot] = pos
+    local_write(sharder, _ring_write, [c["k"], c["v"], c["pos"]], [k, v, pos], rows=rows)
     B, _, H, hd = q.shape
     Hk = cfg.n_kv_heads
     qg = q.reshape(B, Hk, H // Hk, hd)
@@ -383,7 +414,7 @@ def _ring_decode(cfg, c, q, k, v, rows, pos):
     return masked_attend(scores, ok, c["v"], q.dtype).reshape(B, 1, H, hd)
 
 
-def decode_step(cfg, params, tokens, cache):
+def decode_step(cfg, params, tokens, cache, sharder=None):
     """tokens: (B, 1) -> (logits (B, V), cache), every layer's state updated
     in place at each row's own ``pos`` (continuous batching): global
     attention writes k and v at ``pos`` and attends over ``kv_len = pos + 1``
@@ -391,37 +422,42 @@ def decode_step(cfg, params, tokens, cache):
     attends over the whole cache, as in the reference); local attention
     writes its ring slot; the recurrent blocks step their states. ``pos``
     advances. Reads nothing from the device."""
-    pos = cache["pos"]
-    kv_len = pos + 1
-    h = _embed(cfg, params, tokens)
-    if cfg.pos == "sinusoidal":
-        h = h + sinusoidal_pos(pos[:, None], cfg.d_model).to(h.dtype)
-    rows = torch.arange(h.shape[0], device=h.device)
-    S = _max_seq(cfg, cache)
-    if S is not None:
-        at, inside = pos.clamp(max=S - 1), (pos < S)[:, None, None]
-    rope = rope_for(cfg, pos[:, None])
-    for kind, p, c in _layers(cfg, params, cache):
-        y = apply_norm(cfg, p["ln1"], h)
-        if kind in ("attn", "attn_local"):
-            q, k, v = qkv(cfg, p["attn"], y, rope)
-            if kind == "attn":
-                write_row(c["k"], rows, at, inside, k)
-                write_row(c["v"], rows, at, inside, v)
-                out = decode_attend(q, c["k"], c["v"], kv_len)
+    with scope(sharder):
+        pos = cache["pos"]
+        kv_len = pos + 1
+        h = _embed(cfg, params, tokens, sharder)
+        if cfg.pos == "sinusoidal":
+            h = h + sinusoidal_pos(pos[:, None], cfg.d_model).to(h.dtype)
+        h = constrain(sharder, h, "batch", "seq", "act_embed")
+        rows = torch.arange(h.shape[0], device=h.device)
+        S = _max_seq(cfg, cache)
+        if S is not None:
+            at, inside = pos.clamp(max=S - 1), (pos < S)[:, None, None]
+        rope = rope_for(cfg, pos[:, None])
+        for kind, p, c in _layers(cfg, params, cache):
+            y = apply_norm(cfg, p["ln1"], h)
+            if kind in ("attn", "attn_local"):
+                q, k, v = qkv(cfg, p["attn"], y, rope, sharder=sharder)
+                if kind == "attn":
+                    local_write(sharder, write_row, [c["k"]], [at, inside, k], rows=rows)
+                    local_write(sharder, write_row, [c["v"]], [at, inside, v], rows=rows)
+                    out = decode_attend(q, c["k"], c["v"], kv_len, sharder=sharder)
+                else:
+                    out = _ring_decode(cfg, c, q, k, v, rows, pos, sharder)
+                y = attn_out(cfg, p["attn"], out, sharder)
+            elif kind == "rglru":
+                y, (hs, conv) = rglru.rglru_decode(cfg, p["rec"], y, (c["h"], c["conv"]),
+                                                   sharder)
+                assign(sharder, c["h"], hs)
+                assign(sharder, c["conv"], conv)
             else:
-                out = _ring_decode(cfg, c, q, k, v, rows, pos)
-            y = attn_out(cfg, p["attn"], out)
-        elif kind == "rglru":
-            y, (hs, conv) = rglru.rglru_decode(cfg, p["rec"], y, (c["h"], c["conv"]))
-            c["h"].copy_(hs)
-            c["conv"].copy_(conv)
-        else:
-            y, (st, tm) = rwkv6.rwkv_decode(cfg, p["time_mix"], y, (c["s"], c["tm"], None))
-            c["s"].copy_(st)
-            c["tm"].copy_(tm)
-        h, _ = _second_half(cfg, kind, p, h + y, c, carry=True)
-    h = apply_norm(cfg, params["final_norm"], h)
-    logits = _lm_logits(cfg, params, h)
-    cache["pos"] = kv_len
-    return logits[:, 0], cache
+                y, (st, tm) = rwkv6.rwkv_decode(cfg, p["time_mix"], y, (c["s"], c["tm"], None),
+                                                sharder)
+                assign(sharder, c["s"], st)
+                assign(sharder, c["tm"], tm)
+            h, _ = _second_half(cfg, kind, p, h + y, c, carry=True, sharder=sharder)
+            h = constrain(sharder, h, "batch", "seq", "act_embed")
+        h = apply_norm(cfg, params["final_norm"], h)
+        logits = _lm_logits(cfg, params, h, sharder)
+        cache["pos"] = kv_len
+        return logits[:, 0], cache

@@ -19,19 +19,23 @@ reference, ``prefill`` caches the self and cross K and V without the
 biases ``bk`` and ``bv``, where ``mha`` and the decode step's own K and V
 add them (equal under `init_params`' zero biases). The decode step's two
 attentions are K5 (`common.decode_attend`), cross-attention over every one
-of the T rows; it reads nothing from the device.
+of the T rows; it reads nothing from the device. Each entry point takes the
+reference's ``sharder`` and constrains the streams and logits where the
+reference does (see ``transformer.py``).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
+from ..distributed.local import local_write, vocab_embed
+from ..distributed.sharding import scope
 from .common import (
     ParamSpec,
     apply_norm,
     attention_specs,
     attn_out,
+    constrain,
     decode_attend,
     heads_in,
     mha,
@@ -72,37 +76,39 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
-def encode(cfg, params, frames):
+def encode(cfg, params, frames, sharder=None):
     """frames: (B, T, D) stub frontend embeddings -> (B, T, D)."""
     cd = cfg.cdtype()
-    h = frames.to(cd) @ params["enc_in"].to(cd)
-    B, T, _ = h.shape
-    positions = _positions(B, T, h.device)
-    h = h + sinusoidal_pos(positions, cfg.d_model).to(cd)
-    for p in tree_unstack(params["encoder"], cfg.encoder_layers):
-        y = apply_norm(cfg, p["ln1"], h)
-        h = h + mha(cfg, p["attn"], y, positions, mode="full")
-        y = apply_norm(cfg, p["ln2"], h)
-        h = h + mlp(cfg, p["mlp"], y)
-    return apply_norm(cfg, params["enc_norm"], h)
+    with scope(sharder):
+        h = frames.to(cd) @ params["enc_in"].to(cd)
+        B, T, _ = h.shape
+        positions = _positions(B, T, h.device)
+        h = h + sinusoidal_pos(positions, cfg.d_model).to(cd)
+        h = constrain(sharder, h, "batch", "seq", "act_embed")
+        for p in tree_unstack(params["encoder"], cfg.encoder_layers):
+            y = apply_norm(cfg, p["ln1"], h)
+            h = h + mha(cfg, p["attn"], y, positions, sharder=sharder, mode="full")
+            y = apply_norm(cfg, p["ln2"], h)
+            h = h + mlp(cfg, p["mlp"], y, sharder=sharder)
+        return apply_norm(cfg, params["enc_norm"], h)
 
 
-def _embed(cfg, params, tokens, positions):
+def _embed(cfg, params, tokens, positions, sharder=None):
     """The tokens' embeddings in the compute dtype plus their sinusoidal
     positions (B, S) -> (B, S, D)."""
     cd = cfg.cdtype()
-    h = F.embedding(tokens, params["embed"]).to(cd)
+    h = vocab_embed(sharder, tokens, params["embed"]).to(cd)
     return h + sinusoidal_pos(positions, cfg.d_model).to(cd)
 
 
-def _dec_layer(cfg, p, h, positions, enc_out, enc_positions):
+def _dec_layer(cfg, p, h, positions, enc_out, enc_positions, sharder=None):
     y = apply_norm(cfg, p["ln1"], h)
-    h = h + mha(cfg, p["attn"], y, positions, mode="causal")
+    h = h + mha(cfg, p["attn"], y, positions, sharder=sharder, mode="causal")
     y = apply_norm(cfg, p["ln_cross"], h)
-    h = h + mha(cfg, p["cross"], y, positions, mode="full", kv=enc_out,
+    h = h + mha(cfg, p["cross"], y, positions, sharder=sharder, mode="full", kv=enc_out,
                 kv_positions=enc_positions)
     y = apply_norm(cfg, p["ln2"], h)
-    return h + mlp(cfg, p["mlp"], y)
+    return h + mlp(cfg, p["mlp"], y, sharder=sharder)
 
 
 def _logits(cfg, params, h):
@@ -110,16 +116,19 @@ def _logits(cfg, params, h):
     return h @ params["lm_head"].to(h.dtype)
 
 
-def forward(cfg, params, frames, tokens):
+def forward(cfg, params, frames, tokens, sharder=None):
     """Teacher-forced pass -> (logits (B, S, V), aux = float32 0)."""
-    enc_out = encode(cfg, params, frames)
-    B, T, _ = enc_out.shape
-    enc_pos = _positions(B, T, enc_out.device)
-    positions = _positions(B, tokens.shape[1], enc_out.device)
-    h = _embed(cfg, params, tokens, positions)
-    for p in tree_unstack(params["decoder"], cfg.n_layers):
-        h = _dec_layer(cfg, p, h, positions, enc_out, enc_pos)
-    return _logits(cfg, params, h), torch.zeros((), dtype=torch.float32, device=h.device)
+    with scope(sharder):
+        enc_out = encode(cfg, params, frames, sharder)
+        B, T, _ = enc_out.shape
+        enc_pos = _positions(B, T, enc_out.device)
+        positions = _positions(B, tokens.shape[1], enc_out.device)
+        h = _embed(cfg, params, tokens, positions, sharder)
+        h = constrain(sharder, h, "batch", "seq", "act_embed")
+        for p in tree_unstack(params["decoder"], cfg.n_layers):
+            h = _dec_layer(cfg, p, h, positions, enc_out, enc_pos, sharder)
+        logits = constrain(sharder, _logits(cfg, params, h), "batch", "seq", "vocab")
+        return logits, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def cache_specs(cfg, batch: int, max_seq: int):
@@ -143,60 +152,78 @@ def init_cache(cfg, batch, max_seq, dtype, device):
             for key, spec in cache_specs(cfg, batch, max_seq).items()}
 
 
-def prefill(cfg, params, frames, tokens, cache):
+def _fill_self(sk, sv, k, v):
+    S = k.shape[1]
+    sk[:, :S] = k
+    sk[:, S:] = 0
+    sv[:, :S] = v
+    sv[:, S:] = 0
+
+
+def _fill_cross(ck, cv, k, v):
+    ck.copy_(k)
+    cv.copy_(v)
+
+
+def prefill(cfg, params, frames, tokens, cache, sharder=None):
     """Encode the frames, fill the cross cache with every layer's K and V of
     the encoder's output, run the decoder's prompt into the self cache
     (zeros past it), set every row's ``pos`` to S; return last-position
     logits (B, V) and the cache."""
     cd = cfg.cdtype()
-    enc_out = encode(cfg, params, frames)
-    B, T, _ = enc_out.shape
-    if T != cache["cross_k"].shape[2]:
-        raise ValueError(f"{T} frames, the cross cache holds {cache['cross_k'].shape[2]}")
-    enc_pos = _positions(B, T, enc_out.device)
-    S = tokens.shape[1]
-    positions = _positions(B, S, enc_out.device)
-    h = _embed(cfg, params, tokens, positions)
-    for l, p in enumerate(tree_unstack(params["decoder"], cfg.n_layers)):
-        y = apply_norm(cfg, p["ln1"], h)
-        for key, w in (("self_k", "wk"), ("self_v", "wv")):
-            cache[key][l, :, :S] = heads_in(y, p["attn"][w].to(cd))
-            cache[key][l, :, S:] = 0
-        for key, w in (("cross_k", "wk"), ("cross_v", "wv")):
-            cache[key][l] = heads_in(enc_out, p["cross"][w].to(cd))
-        h = _dec_layer(cfg, p, h, positions, enc_out, enc_pos)
-    cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=h.device)
-    return _logits(cfg, params, h[:, -1:])[:, 0], cache
+    with scope(sharder):
+        enc_out = encode(cfg, params, frames, sharder)
+        B, T, _ = enc_out.shape
+        if T != cache["cross_k"].shape[2]:
+            raise ValueError(f"{T} frames, the cross cache holds {cache['cross_k'].shape[2]}")
+        enc_pos = _positions(B, T, enc_out.device)
+        S = tokens.shape[1]
+        positions = _positions(B, S, enc_out.device)
+        h = _embed(cfg, params, tokens, positions, sharder)
+        for l, p in enumerate(tree_unstack(params["decoder"], cfg.n_layers)):
+            y = apply_norm(cfg, p["ln1"], h)
+            local_write(sharder, _fill_self, [cache["self_k"][l], cache["self_v"][l]],
+                        [heads_in(y, p["attn"][w].to(cd), sharder, "kv_heads")
+                         for w in ("wk", "wv")])
+            local_write(sharder, _fill_cross, [cache["cross_k"][l], cache["cross_v"][l]],
+                        [heads_in(enc_out, p["cross"][w].to(cd), sharder, "kv_heads")
+                         for w in ("wk", "wv")])
+            h = _dec_layer(cfg, p, h, positions, enc_out, enc_pos, sharder)
+        cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=h.device)
+        return _logits(cfg, params, h[:, -1:])[:, 0], cache
 
 
-def decode_step(cfg, params, tokens, cache):
+def decode_step(cfg, params, tokens, cache, sharder=None):
     """tokens (B, 1) -> (logits (B, V), cache): each layer writes its self K
     and V at each row's ``pos`` (nothing at or past the cache's end) and
     attends over ``pos + 1`` rows, then over all T cross rows, both by K5 on
     CUDA; ``pos`` advances. Reads nothing from the device."""
     cd = cfg.cdtype()
-    pos = cache["pos"]
-    kv_len = pos + 1
-    B = tokens.shape[0]
-    h = _embed(cfg, params, tokens, pos[:, None])
-    rows = torch.arange(B, device=h.device)
-    S, T = cache["self_k"].shape[2], cache["cross_k"].shape[2]
-    at, inside = pos.clamp(max=S - 1), (pos < S)[:, None, None]
-    cross_len = torch.full((B,), T, dtype=torch.int32, device=h.device)
-    for l, p in enumerate(tree_unstack(params["decoder"], cfg.n_layers)):
-        sk, sv = cache["self_k"][l], cache["self_v"][l]
-        y = apply_norm(cfg, p["ln1"], h)
-        q, k, v = qkv(cfg, p["attn"], y, None)
-        write_row(sk, rows, at, inside, k)
-        write_row(sv, rows, at, inside, v)
-        h = h + attn_out(cfg, p["attn"], decode_attend(q, sk, sv, kv_len))
-        y = apply_norm(cfg, p["ln_cross"], h)
-        qc = heads_in(y, p["cross"]["wq"].to(cd))
-        if cfg.use_bias:
-            qc = qc + p["cross"]["bq"].to(cd)
-        out = decode_attend(qc, cache["cross_k"][l], cache["cross_v"][l], cross_len)
-        h = h + attn_out(cfg, p["cross"], out)
-        y = apply_norm(cfg, p["ln2"], h)
-        h = h + mlp(cfg, p["mlp"], y)
-    cache["pos"] = kv_len
-    return _logits(cfg, params, h)[:, 0], cache
+    with scope(sharder):
+        pos = cache["pos"]
+        kv_len = pos + 1
+        B = tokens.shape[0]
+        h = _embed(cfg, params, tokens, pos[:, None], sharder)
+        rows = torch.arange(B, device=h.device)
+        S, T = cache["self_k"].shape[2], cache["cross_k"].shape[2]
+        at, inside = pos.clamp(max=S - 1), (pos < S)[:, None, None]
+        cross_len = torch.full((B,), T, dtype=torch.int32, device=h.device)
+        for l, p in enumerate(tree_unstack(params["decoder"], cfg.n_layers)):
+            sk, sv = cache["self_k"][l], cache["self_v"][l]
+            y = apply_norm(cfg, p["ln1"], h)
+            q, k, v = qkv(cfg, p["attn"], y, None, sharder=sharder)
+            local_write(sharder, write_row, [sk], [at, inside, k], rows=rows)
+            local_write(sharder, write_row, [sv], [at, inside, v], rows=rows)
+            h = h + attn_out(cfg, p["attn"], decode_attend(q, sk, sv, kv_len, sharder=sharder),
+                             sharder)
+            y = apply_norm(cfg, p["ln_cross"], h)
+            qc = heads_in(y, p["cross"]["wq"].to(cd), sharder)
+            if cfg.use_bias:
+                qc = qc + p["cross"]["bq"].to(cd)
+            out = decode_attend(qc, cache["cross_k"][l], cache["cross_v"][l], cross_len,
+                                sharder=sharder)
+            h = h + attn_out(cfg, p["cross"], out, sharder)
+            y = apply_norm(cfg, p["ln2"], h)
+            h = h + mlp(cfg, p["mlp"], y, sharder=sharder)
+        cache["pos"] = kv_len
+        return _logits(cfg, params, h)[:, 0], cache

@@ -4,15 +4,18 @@ the JAX package's ``models/zoo.py``.
     model  = build_model(cfg)
     specs  = model.param_specs()            # ParamSpec tree
     params = model.init_params(generator)   # on the generator's device
-    logits, aux = model.forward(params, batch)
+    logits, aux = model.forward(params, batch, sharder)
     cache  = model.init_cache(B, S, device=...)
-    logits, cache = model.prefill(params, batch, cache)
-    logits, cache = model.decode_step(params, tokens, cache)
+    logits, cache = model.prefill(params, batch, cache, sharder)
+    logits, cache = model.decode_step(params, tokens, cache, sharder)
     batch  = model.input_specs(shape, abstract=False, generator=g)
 
 ``batch`` is a dict: ``tokens`` (B, S) always; ``prefix`` (B, P, D) for the
 vlm family and ``frames`` (B, T, D) for the audio family, the stub
-frontends' embeddings. There is no sharder until ROADMAP Queue 1 item 9.8.
+frontends' embeddings. ``sharder`` (``distributed.sharding.Sharder``,
+default None) puts the reference's sharding constraints in; on a
+multi-rank mesh the parameters, caches and batch are DTensors
+(``sharding.place_params``).
 """
 
 from __future__ import annotations
@@ -44,10 +47,10 @@ class Model:
         the reference's rule (`common.make_param`); not JAX's values."""
         return init_tree(self.param_specs(), generator, self.cfg.pdtype())
 
-    def forward(self, params, batch):
+    def forward(self, params, batch, sharder=None):
         if self.audio:
-            return whisper.forward(self.cfg, params, batch["frames"], batch["tokens"])
-        return transformer.forward(self.cfg, params, batch["tokens"],
+            return whisper.forward(self.cfg, params, batch["frames"], batch["tokens"], sharder)
+        return transformer.forward(self.cfg, params, batch["tokens"], sharder,
                                    prefix_embeds=batch.get("prefix"))
 
     def _stream_len(self, max_seq: int) -> int:
@@ -67,16 +70,17 @@ class Model:
             return whisper.init_cache(self.cfg, batch, max_seq, dtype, device)
         return transformer.init_cache(self.cfg, batch, self._stream_len(max_seq), dtype, device)
 
-    def prefill(self, params, batch, cache):
+    def prefill(self, params, batch, cache, sharder=None):
         if self.audio:
-            return whisper.prefill(self.cfg, params, batch["frames"], batch["tokens"], cache)
-        return transformer.prefill(self.cfg, params, batch["tokens"], cache,
+            return whisper.prefill(self.cfg, params, batch["frames"], batch["tokens"], cache,
+                                   sharder)
+        return transformer.prefill(self.cfg, params, batch["tokens"], cache, sharder,
                                    prefix_embeds=batch.get("prefix"))
 
-    def decode_step(self, params, tokens, cache):
+    def decode_step(self, params, tokens, cache, sharder=None):
         if self.audio:
-            return whisper.decode_step(self.cfg, params, tokens, cache)
-        return transformer.decode_step(self.cfg, params, tokens, cache)
+            return whisper.decode_step(self.cfg, params, tokens, cache, sharder)
+        return transformer.decode_step(self.cfg, params, tokens, cache, sharder)
 
     def input_specs(self, shape, *, abstract=True, generator: torch.Generator | None = None):
         """The model's inputs for a ``ShapeConfig``, the reference's shapes

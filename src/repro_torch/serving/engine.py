@@ -1,8 +1,11 @@
 """Serving step factories (prefill / decode) and the paged-serving loop.
 
 ``make_prefill_fn`` / ``make_decode_fn`` are the twins of the JAX package's
-``serving/engine.py``: plain functions over the model (PyTorch runs eagerly;
-there is no sharder until ROADMAP Queue 1 item 9.8). `serve_paged` is the
+``serving/engine.py``: plain functions over the model (PyTorch runs eagerly),
+each passing its ``sharder`` (``distributed.sharding.Sharder``, default None)
+to the model, as the reference's do; on a multi-rank mesh the parameters,
+cache and tokens are DTensors and the logits and next tokens come back as
+DTensors too. `serve_paged` is the
 admission loop of the JAX package's ``examples/serve_paged.py``, with the
 SepBIT log-structured KV page store (`logkv`) accounting every page.
 """
@@ -14,21 +17,23 @@ import time
 import numpy as np
 import torch
 
+from ..distributed.sharding import scope
 from .logkv import LogKVConfig, LogKVStore
 
 STORE_FRAMES, STORE_PAGES_PER_FRAME = 48, 16     # the reference example's page store
 
 
-def make_prefill_fn(model, cfg):
+def make_prefill_fn(model, cfg, sharder=None):
     def prefill_fn(params, batch, cache):
-        return model.prefill(params, batch, cache)
+        return model.prefill(params, batch, cache, sharder)
     return prefill_fn
 
 
-def make_decode_fn(model, cfg):
+def make_decode_fn(model, cfg, sharder=None):
     def decode_fn(params, tokens, cache):
-        logits, cache = model.decode_step(params, tokens, cache)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)   # greedy, as int32
+        logits, cache = model.decode_step(params, tokens, cache, sharder)
+        with scope(sharder):
+            next_tok = torch.argmax(logits, dim=-1).to(torch.int32)   # greedy, as int32
         return next_tok, logits, cache
     return decode_fn
 

@@ -4,35 +4,43 @@ AdamW on autograd, the twin of the JAX package's ``training/train_loop.py``.
 ``make_train_step`` returns ``step_fn(state, batch) -> (state, metrics)``:
 the parameters and moments are updated in place, the metrics (``loss``,
 ``grad_norm``, ``lr``) are 0-d device tensors, and nothing is read from the
-device. There is no sharder until ROADMAP Queue 1 item 9.8.
+device. A ``sharder`` (``distributed.sharding.Sharder``) goes to the model's
+forward, as the reference's does; on a multi-rank mesh the state and batch
+are DTensors, placed by ``sharding.place_params``, the step runs under
+``Sharder.scope``, and the gradients come back in the parameters'
+placements (DTensor's backward reduces them across ranks).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..models.common import tree_leaves, tree_map
+from ..distributed.sharding import scope
+from ..models.common import constrain, tree_leaves, tree_map
 from .optimizer import AdamWConfig, adamw_update, init_opt_state
 
 
-def cross_entropy(logits, labels, ignore_index: int = -1):
+def cross_entropy(logits, labels, ignore_index: int = -1, sharder=None):
     """Mean CE over non-ignored labels, with a float32 logsumexp."""
     logits = logits.to(torch.float32)
     mask = labels != ignore_index
     safe = labels.clamp(min=0).to(torch.int64)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    ll = torch.gather(logits, -1, safe[..., None])
+    # along a sharded vocabulary, a pending sum on each rank: reduced here
+    ll = constrain(sharder, ll, "batch", "seq", None)[..., 0]
     nll = (lse - ll) * mask
     return nll.sum() / mask.sum().clamp(min=1).to(torch.float32)
 
 
-def make_loss_fn(model, cfg):
+def make_loss_fn(model, cfg, sharder=None):
     def loss_fn(params, batch):
-        logits, aux = model.forward(params, batch)
-        labels = batch["labels"]
-        logits = logits[:, -labels.shape[1]:]
-        ce = cross_entropy(logits, labels)
-        return ce + aux, {"ce": ce, "aux": aux}
+        with scope(sharder):
+            logits, aux = model.forward(params, batch, sharder)
+            labels = batch["labels"]
+            logits = logits[:, -labels.shape[1]:]
+            ce = cross_entropy(logits, labels, sharder=sharder)
+            return ce + aux, {"ce": ce, "aux": aux}
     return loss_fn
 
 
@@ -76,16 +84,17 @@ def loss_and_grads(loss_fn, params, batch, microbatches: int = 1):
     return loss.detach(), tree_map(lambda _: next(it), params)
 
 
-def make_train_step(model, cfg, opt_cfg: AdamWConfig):
+def make_train_step(model, cfg, opt_cfg: AdamWConfig, sharder=None):
     """``step_fn(state, batch)`` for ``state = {"params", "opt"}`` and a batch
     of ``tokens`` and ``labels`` tensors: `loss_and_grads` over
     ``cfg.microbatches``, then `adamw_update` in place."""
-    loss_fn = make_loss_fn(model, cfg)
+    loss_fn = make_loss_fn(model, cfg, sharder)
 
     def step_fn(state, batch):
         params, opt = state["params"], state["opt"]
-        loss, grads = loss_and_grads(loss_fn, params, batch, cfg.microbatches)
-        _, new_opt, om = adamw_update(opt_cfg, params, grads, opt)
+        with scope(sharder):
+            loss, grads = loss_and_grads(loss_fn, params, batch, cfg.microbatches)
+            _, new_opt, om = adamw_update(opt_cfg, params, grads, opt)
         return {"params": params, "opt": new_opt}, {"loss": loss, **om}
 
     return step_fn

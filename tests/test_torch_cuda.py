@@ -1077,3 +1077,76 @@ def test_train_lm_example_on_the_card_resumes(card, tmp_path, capsys):
     assert "resumed from step 9" in out and out.count("checkpoint-store WA=") == 2
     assert again["start"] == 10 and len(again["losses"]) == 2
     assert np.isfinite(first["losses"] + again["losses"]).all()
+
+
+@pytest.fixture
+def one_rank_nccl(card):
+    """A one-rank NCCL group on the card, destroyed after the test, and its
+    (1, 1) mesh from ``launch.make_host_mesh``."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_host_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield make_host_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_decode_on_the_card_equals_unsharded(one_rank_nccl):
+    """The serving functions with a sharder on the one-rank mesh: logits and
+    tokens bit-equal to the same calls without one, K5 once per layer and
+    step."""
+    from repro_torch.distributed import Sharder, place_params
+    from repro_torch.serving import make_decode_fn, make_prefill_fn
+    cfg, model, params = _narrow_lm(torch.device("cuda"), "bfloat16")
+    sh = Sharder(one_rank_nccl, cfg)
+    assert one_rank_nccl.device_type == "cuda" and tuple(one_rank_nccl.shape) == (1, 1)
+    toks = _lm_tokens(cfg, torch.device("cuda"))
+
+    def serve(sharder):
+        p = place_params(params, sharder, model.param_specs()) if sharder is not None \
+            else params
+        prefill, decode = make_prefill_fn(model, cfg, sharder), make_decode_fn(model, cfg, sharder)
+        cache = model.init_cache(LM_B, LM_S + 4, device="cuda")
+        lg, cache = prefill(p, {"tokens": toks[:, :LM_P]}, cache)
+        out, cur = [lg], lg.argmax(-1).to(torch.int32)[:, None]
+        ops.reset_launch_counts()
+        for _ in range(LM_S - LM_P):
+            nxt, lg, cache = decode(p, cur, cache)
+            out.append(lg)
+            cur = nxt[:, None]
+        return torch.stack(out), ops.launch_counts()["flash_decode"]
+    got, launches = serve(sh)
+    want, _ = serve(None)
+    assert torch.equal(got, want) and launches == cfg.n_layers * (LM_S - LM_P)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_int8_on_the_card_equals_the_cpu(card, dtype):
+    from repro_torch.distributed import collectives
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randn(70_001, generator=g) * torch.rand(70_001, generator=g) * 50).to(dtype)
+    x[512:768] = 0                          # an all-zero block
+    q, scale = collectives.quantize_int8(x.to(card))
+    cq, cscale = collectives.quantize_int8(x)
+    assert torch.equal(q.cpu(), cq) and torch.equal(scale.cpu(), cscale)
+    assert torch.equal(collectives.dequantize_int8(q, scale, x.shape).cpu(),
+                       collectives.dequantize_int8(cq, cscale, x.shape))
+
+
+def test_compressed_allreduce_on_the_card_keeps_the_residual(one_rank_nccl):
+    from repro_torch.distributed import collectives
+    x = torch.randn(10_000, generator=torch.Generator(device="cuda").manual_seed(6),
+                    device="cuda")
+    resid = torch.zeros_like(x)
+    for _ in range(3):
+        mean, new = collectives.compressed_allreduce(x, resid)
+        assert torch.equal(mean + new, x + resid)
+        resid = new
