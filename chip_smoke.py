@@ -100,7 +100,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    alone on the card under both engines (the replay kernel at V = 1, and the
    single-volume victim kernel K2) must equal its row of the fleet; in the
    free-pool exhaustion corner the replay kernel must equal the CPU and the
-   step engine keep its envelope;
+   step engine keep its envelope; a fleet of all 14 schemes, one volume
+   each, through the replay kernel's stateful instance must equal the CPU
+   on every key, sch_* included;
 12. main run: the 186-volume mixed corpus tiled over the four GC thresholds
    of the repository's gcbench (744 volumes of 64 MiB at 4 KiB blocks),
    SepBIT with cost-benefit selection, replayed by the replay kernel; the
@@ -113,12 +115,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    state invariants, its time and its victim scans' bytes per user write;
 14. profile: steady windows of both engines under torch.profiler;
 15. schemes: the paper's 14-scheme comparison (Exp#1): the 186-volume
-    corpus (8 MiB volumes) under each of the 14 placement schemes, 2,604
-    volumes in one fleet through the step engine on the card (K1 and K3,
-    the nine stateful schemes' branches between them); WA per scheme,
-    ranked; one volume per scheme equal to the step engine on the CPU on
-    every key, the elementwise volumes equal to the replay kernel's replay
-    of them, which refuses the mixed fleet; a profiled steady window;
+    corpus under each of the 14 placement schemes, 2,604 volumes in one
+    launch of the replay kernel (its stateful instance). (a) 8 MiB
+    volumes: WA per scheme, ranked; one volume per scheme equal to the step
+    engine on the CPU on every key; every volume equal to the card's step
+    engine (K1 and K3, the stateful branches between them) over steps
+    4,096-5,119 from the kernel's state; a profiled steady window of the
+    step engine. (b) 64 MiB volumes (the main run's), the kernel alone: WA
+    per scheme, ranked, the invariants, the rows of one volume per stateful
+    scheme equal to the CPU over the whole trace (three workers); the
+    kernel timed at both sizes;
 16. sweep: the heterogeneous sweep of ``core/fleetshard.py`` at full width,
     the main run's corpus under 5 elementwise schemes x 2 selectors x GP
     0.10 / 0.15 / 0.20 (5,580 volumes of 64 MiB), timing model on, through
@@ -173,13 +179,18 @@ MAIN_GPS = (0.08, 0.12, 0.16, 0.22)   # gcbench's GC thresholds
 MAIN_N_LBAS = 16384            # 64 MiB volumes at 4 KiB blocks
 MAIN_SEGMENT = 128
 PARITY_N_LBAS = 2048           # the card-against-CPU fleet's volumes
+PARITY_SFS_RESAMPLE = 256      # [parity]'s 14-scheme fleet: sfs refreshes every 256 writes
 PROFILE_REPLAY_STEPS = 8192    # the profiled steady windows after the main run, per engine
 PROFILE_STEP_STEPS = 25        # the profiler's analysis of a step-engine window grows with it
 PLAIN_VOLUMES_PER_TILE = 2     # main-run volumes per GC threshold replayed by the CPU step engine
 MAIN_STEP_PREFIX = 24576       # the main run's steps the card's step engine replays ([legacy]'s)
 SCHEMES_VOLUMES_PER_SCHEME = 186   # [schemes]: the corpus, replayed under each of the 14 schemes
-SCHEMES_N_LBAS = 2048          # [schemes]: 8 MiB volumes at 4 KiB blocks; the step engine is
-                               # host-bound per step: 7,144 steps, against 14,287 at 16 MiB
+SCHEMES_N_LBAS = 2048          # [schemes] (a): 8 MiB volumes at 4 KiB blocks
+SCHEMES_WINDOW_START = 4096    # (a): the card's step engine replays steps 4,096-5,119 (host-bound
+SCHEMES_STEP_WINDOW = 1024     # per step), past every volume's first GC, from the kernel's state
+SCHEMES_CPU_WORKERS = 3        # (b): 64 MiB; the CPU step engine's workers, each replaying three
+                               # of the nine stateful volumes over the whole trace
+SCHEMES_TIMED = 3              # (b): launches of the replay kernel timed, each on a fresh state
 SCHEMES_GP = 0.15
 SCHEMES_PROFILE_STEPS = 25
 REPLAY_TIMED = 5               # launches of the replay kernel timed, each on a fresh state
@@ -952,6 +963,12 @@ def phase_parity() -> tuple[int, int]:
     cfg = fleet_config(n)
     traces = make_fleet("mixed", V, n, 2 * n, jitter=0.25, seed=29)
     policies = fleet_policies(cfg, [MAIN_GPS[i % len(MAIN_GPS)] for i in range(V)])
+    # the 14-scheme fleet's CPU replay, in a worker beside the rest of the phase
+    cfg14 = schemes_config(n, sfs_resample=PARITY_SFS_RESAMPLE)
+    traces14 = torchsim.coerce_fleet(make_fleet("mixed", 14, n, 2 * n, jitter=0.25, seed=31))
+    pol14 = schemes_policies(cfg14, 1)
+    worker = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    cpu14 = worker.submit(_replay_on_cpu, cfg14, traces14, pol14)
     t0 = time.perf_counter()
     cpu = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, policies, device="cpu",
                                                     engine="step"))
@@ -1016,22 +1033,52 @@ def phase_parity() -> tuple[int, int]:
         f"ok={ok}")
     if not ok:
         raise AssertionError("free-pool exhaustion envelope broken on the card")
+
+    # all 14 schemes, one volume each, through the replay kernel's stateful
+    # instance (sfs refreshing every PARITY_SFS_RESAMPLE writes)
+    ops.reset_launch_counts()
+    got = convert.state_to_numpy(torchsim.run_fleet(cfg14, traces14, pol14, device="cuda"))
+    counts = ops.launch_counts()
+    with worker:
+        want, cpu_wall = cpu14.result()
+    bad = _differing_keys(got, want)
+    log(f"[parity] 14-scheme fleet n_lbas={n} (sfs_resample {cfg14.sfs_resample}), engine=replay "
+        f"on the card vs the step engine on the cpu ({cpu_wall:.1f} s, in a worker): differing "
+        f"keys {bad} of {len(want)} ({sum(k.startswith('sch_') for k in want)} sch_*); launches "
+        f"{counts}; reclaimed {want['reclaimed'].tolist()}")
+    if bad or counts["replay"] != 1 or not (want["reclaimed"] > 0).all():
+        raise AssertionError(f"the replay kernel's 14-scheme fleet differs from the CPU in {bad}")
+    check_integrity(cfg14, got, traces14, "parity 14-scheme fleet")
     torch.cuda.synchronize()
     return cfg.n_rows, k2_launches
 
 
-def replay_bound(st: dict, trace, timing: bool = False, defer: bool = False) -> dict:
+def replay_bound(st: dict, trace, timing: bool = False, defer: bool = False,
+                 stateful: bool = False, nxt=None) -> dict:
     """The replay kernel's bound: the trace and every state key the kernel
     instance takes read once, every key it writes (all but the policy's
     ``p_*``) and its (T,) iteration counts written once. The timing model's
     keys count only for the timing instance, ``p_gcsched`` only for it or
-    the deferring one."""
-    from repro_torch.kernels.replay import STATE_FIELDS, TIMING_FIELDS
+    the deferring one, and the stateful schemes' ``sch_*`` keys only for the
+    stateful instance, each only in the rows of the volumes whose scheme
+    owns it (the kernel touches no other scheme's tables); fk's next-write
+    stream ``nxt``, where the fleet has one, is read once in the fk volumes'
+    rows."""
+    from repro_torch.core.config import TorchSimConfig
+    from repro_torch.core.placement import stateful as schemes
+    from repro_torch.kernels.replay import FK, SCHEME_FIELDS, STATE_FIELDS, TIMING_FIELDS
+    V = trace.shape[0]
+    sch = st["p_scheme"]
+    owners = {k: int((sch == sid).sum()) for sid, impl in schemes.STATEFUL.items()
+              for k in impl.spec(TorchSimConfig(n_lbas=1))}
+    n_fk = int((sch == FK).sum())
     fields = [k for k in STATE_FIELDS if (timing or k not in TIMING_FIELDS)
-              and (timing or defer or k != "p_gcsched")]
-    n_bytes = (trace.nbytes + sum(st[k].nbytes for k in fields)
-               + sum(st[k].nbytes for k in fields if not k.startswith("p_"))
-               + 4 * trace.shape[1])
+              and (timing or defer or k != "p_gcsched") and (stateful or k not in SCHEME_FIELDS)]
+    size = {k: st[k].nbytes // V * owners[k] if k in SCHEME_FIELDS else st[k].nbytes
+            for k in fields}
+    n_bytes = (trace.nbytes + sum(size.values())
+               + sum(size[k] for k in fields if not k.startswith("p_"))
+               + 4 * trace.shape[1] + (0 if nxt is None else nxt.nbytes // V * n_fk))
     return {**bound(n_bytes), "bytes": n_bytes}
 
 
@@ -1042,11 +1089,13 @@ def scan_bytes_per_write(cfg, final: dict) -> float:
     return 16 * cfg.n_rows * float(final["reclaimed"].sum()) / float(final["user_writes"].sum())
 
 
-def time_replay(cfg, policies, trace, want: dict, reps: int = REPLAY_TIMED) -> float:
+def time_replay(cfg, policies, trace, want: dict, reps: int = REPLAY_TIMED, nxt=None) -> float:
     """Median device time in ms of ``reps`` launches of the replay kernel,
     each on a fresh state, between two CUDA events; the wrapper's checks,
     the state and the counts buffer are made before the first event. Each
-    final state must equal ``want`` (numpy) bit for bit."""
+    final state must equal ``want`` bit for bit (numpy arrays, or tensors on
+    the card, compared there). ``nxt``: fk's next-write stream, where some
+    volume runs fk."""
     import torch
 
     from repro_torch import convert
@@ -1056,16 +1105,20 @@ def time_replay(cfg, policies, trace, want: dict, reps: int = REPLAY_TIMED) -> f
     times = []
     for _ in range(reps):
         st = torchsim.own_state(init_state(cfg, policies, "cuda"))
-        defer = kreplay.check_inputs(cfg, st, trace)
+        inst = kreplay.check_inputs(cfg, st, trace, nxt)
         iterations = torch.zeros(trace.shape[1], dtype=torch.int32, device="cuda")
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        kreplay.launch(cfg, st, trace, iterations, defer)
+        kreplay.launch(cfg, st, trace, iterations, inst, nxt)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-        if _differing_keys(convert.state_to_numpy(st), want):
+        if isinstance(next(iter(want.values())), torch.Tensor):
+            same = all(torch.equal(st[k], want[k]) for k in want)
+        else:
+            same = not _differing_keys(convert.state_to_numpy(st), want)
+        if not same:
             raise AssertionError("the replay kernel is not bit-identical on a repeat")
         del st
     return float(np.median(times))
@@ -1238,12 +1291,12 @@ def phase_scale() -> None:
     V, T = padded.shape
     trace = torch.from_numpy(np.ascontiguousarray(padded)).cuda()
     st = torchsim.own_state(init_state(cfg, policies, "cuda"))
-    defer = kreplay.check_inputs(cfg, st, trace)
+    inst = kreplay.check_inputs(cfg, st, trace)
     iterations = torch.zeros(T, dtype=torch.int32, device="cuda")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    kreplay.launch(cfg, st, trace, iterations, defer)
+    kreplay.launch(cfg, st, trace, iterations, inst)
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end)
@@ -1329,12 +1382,12 @@ def phase_profile(cfg, st) -> None:
         profile_window(cfg, st, engine, steps, "profile")
 
 
-def schemes_config():
-    """The [schemes] volumes: SCHEMES_N_LBAS blocks, segment 128, cost-benefit,
+def schemes_config(n_lbas: int = SCHEMES_N_LBAS, **kw):
+    """The [schemes] volumes: ``n_lbas`` blocks, segment 128, cost-benefit,
     GP 0.15, nc window 16, six class slots (the widest scheme)."""
     from repro_torch.core.config import TorchSimConfig
-    return TorchSimConfig(n_lbas=SCHEMES_N_LBAS, segment_size=MAIN_SEGMENT, class_slots=6,
-                          gp_threshold=SCHEMES_GP)
+    return TorchSimConfig(n_lbas=n_lbas, segment_size=MAIN_SEGMENT, class_slots=6,
+                          gp_threshold=SCHEMES_GP, **kw)
 
 
 def schemes_policies(cfg, P: int) -> dict:
@@ -1397,96 +1450,48 @@ def _path_kernel_rows(tag, rng, V, S, B, counts, single_rows=None) -> dict:
     return out
 
 
-def _schemes_on_cpu(trace, policies) -> tuple[dict, float]:
-    """The [schemes] volumes ``trace`` replayed by the step engine on the CPU,
-    in a worker process beside the card run: the final state (numpy) and its
-    wall in s."""
+def _replay_row_run(cfg, padded, policies, tag: str, state=None, nxts=None) -> dict:
+    """One replay of a [schemes] fleet by the replay kernel (from ``state``
+    when given, with fk's next-write stream ``nxts`` when given), the launch
+    counts zeroed just before it and read just after: the final state (on
+    the card and as numpy), its counts, stats and wall, held to one launch
+    of the replay kernel and none of K1, K2 or K3."""
     import torch
 
     from repro_torch import convert
     from repro_torch.core import torchsim
-    torch.set_num_threads(1)
-    t0 = time.perf_counter()
-    st = torchsim.run_fleet(schemes_config(), trace, policies, device="cpu", engine="step")
-    return convert.state_to_numpy(st), time.perf_counter() - t0
-
-
-def phase_schemes() -> dict:
-    """The paper's Exp#1 comparison: every one of the 14 schemes replays the
-    main run's 186-volume corpus (at SCHEMES_N_LBAS blocks), 2,604 volumes in
-    one fleet through the step engine on the card (K1 and K3 launched, the
-    stateful schemes' branches between them). Fails unless every volume is
-    within its pool and passes the state invariants, every scheme ran GC, one
-    volume per scheme replayed by the step engine on the CPU equals its row on
-    every key, the elementwise volumes replayed alone by the replay kernel
-    equal their rows (the ``sch_*`` keys at their initial values in both),
-    and the replay kernel refuses the fleet naming its ROADMAP item. The CPU
-    replay runs in a worker process while the card replays (both are bound
-    by one host core each). Returns K1's and K3's rows at this path's
-    shapes, with its launches."""
-    import torch
-
-    from repro_torch import convert
-    from repro_torch.core import torchsim
-    from repro_torch.core.config import SCHEME_NAMES, init_state
-    from repro_torch.core.placement.schemes import ELEMENTWISE_IDS
-    from repro_torch.core.tracegen import tiled_fleet
     from repro_torch.kernels import ops
-    P, n, S = SCHEMES_VOLUMES_PER_SCHEME, SCHEMES_N_LBAS, len(SCHEME_NAMES)
-    t_phase = time.perf_counter()
-    log(f"[schemes] cuts: volumes of {n} blocks ({n * 4 // 1024} MiB at 4 KiB) at 2 * n_lbas "
-        f"updates instead of the main run's 64 MiB, so the step engine's steps fit the smoke's "
-        f"time; ETI's "
-        f"2^15-write and FADaC's 2^16-write decay periods do not elapse in these traces (the "
-        f"CPU tests cover both boundaries)")
+    stats = torchsim.ReplayStats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
-    traces = tiled_fleet("mixed", S, P, n, 2 * n, jitter=0.25, seed=23)
-    cfg = schemes_config()
-    policies = schemes_policies(cfg, P)
-    padded = torchsim.coerce_fleet(traces)
-    V, T = padded.shape
-    log(f"[schemes] {V} volumes ({S} schemes x {P} traces), n_lbas {n}, segment_size "
-        f"{cfg.segment_size}, n_rows {cfg.n_rows}, class slots {cfg.n_class_slots}, "
-        f"sfs_resample {cfg.sfs_resample}, steps {T}, writes {int((padded >= 0).sum())}; traces "
-        f"made in {time.perf_counter() - t0:.1f} s")
-
-    # one volume per scheme (corpus trace 0), by the step engine on the CPU
-    sub = [j * P for j in range(S)]
-    workers = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
-    with workers:
-        on_cpu = workers.submit(_schemes_on_cpu, np.ascontiguousarray(padded[sub]),
-                                {k: x[sub] for k, x in policies.items()})
-        stats = torchsim.ReplayStats()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        st = torchsim.run_fleet(cfg, padded, policies, device="cuda", stats=stats,
-                                engine="step")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        cpu, cpu_wall = on_cpu.result()
-        waited = time.perf_counter() - t0
+    st = torchsim.run_fleet(cfg, padded, policies, device="cuda", state=state, stats=stats,
+                            nxts=nxts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    final = convert.state_to_numpy(st)
-    res = torchsim.summarize_fleet(cfg, st, V)
-    writes = res["fleet"]["user_writes"]
-    steps = stats.steps
-    log(f"[schemes] engine=step on the card: wall {wall:.3f} s, steps {steps}, s/step "
-        f"{wall / steps:.9f}, volume-writes {writes}, volume-writes/s {writes / wall:.1f}")
-    log(f"[schemes] tick iterations {stats.tick_iterations} ({stats.tick_iterations / steps:.4f} "
-        f"per step), host syncs {stats.host_syncs} ({stats.host_syncs / steps:.7f} per step), "
-        f"reclaimed {int(final['reclaimed'].sum())}, overflow {res['fleet']['overflow']}, peak "
-        f"device memory {peak / 2**30:.2f} GiB")
-    k_launches = sum(counts[k] for k in ("segment_select_batch", "classify_gc", "classify_user"))
-    log(f"[schemes] kernel launches {counts}: K1 + K3 {k_launches / steps:.4f} per step")
-    if counts["replay"] or 0 in (counts["segment_select_batch"], counts["classify_gc"],
-                                 counts["classify_user"]):
-        raise AssertionError("the [schemes] run did not go through K1 and K3 alone")
+    log(f"[schemes] {tag}: engine=replay on the card: wall {wall:.3f} s (trace upload, fk's "
+        f"next-write stream, the state's copies and one launch), steps {stats.steps}, tick "
+        f"iterations {stats.tick_iterations}, host syncs {stats.host_syncs}, peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {counts}")
+    if counts["replay"] != 1 or any(counts[k] for k in ("segment_select_batch", "segment_select",
+                                                        "classify_gc", "classify_user")):
+        raise AssertionError(f"[schemes] {tag} did not go through the replay kernel alone")
+    return {"st": st, "final": convert.state_to_numpy(st), "counts": counts, "stats": stats,
+            "wall": wall, "peak": peak}
 
-    # WA per scheme, ranked by fleet WA
+
+def _schemes_table(tag: str, cfg, run: dict, traces, P: int) -> None:
+    """The WA of each scheme over its P volumes, ranked; fails unless no
+    volume overflowed its pool, every scheme ran GC and every volume passes
+    the state invariants."""
+    from repro_torch.core import torchsim
+    from repro_torch.core.config import SCHEME_NAMES
+    final = run["final"]
+    V = final["t"].shape[0]
+    res = torchsim.summarize_fleet(cfg, final, V)
     vols = res["volumes"]
     table = []
     for j, name in enumerate(SCHEME_NAMES):
@@ -1495,62 +1500,192 @@ def phase_schemes() -> dict:
         gc = sum(v["gc_writes"] for v in mine)
         table.append((name, (user + gc) / user, float(np.median([v["wa"] for v in mine])), gc))
     for rank, (name, wa, med, gc) in enumerate(sorted(table, key=lambda r: r[1]), 1):
-        log(f"[schemes] rank {rank:2d} {name:7s} fleet WA {wa:.6f}, median WA {med:.6f}, "
+        log(f"[schemes] {tag}: rank {rank:2d} {name:7s} fleet WA {wa:.6f}, median WA {med:.6f}, "
             f"GC writes {gc}")
-    log(f"[schemes] fleet WA over all {V} volumes {res['fleet']['wa']:.6f}")
+    writes = res["fleet"]["user_writes"]
+    log(f"[schemes] {tag}: fleet WA over all {V} volumes {res['fleet']['wa']:.6f}, volume-writes "
+        f"{writes}, volume-writes/s {writes / run['wall']:.1f} (run_fleet's wall), reclaimed "
+        f"{int(final['reclaimed'].sum())}, overflow {res['fleet']['overflow']}")
     if res["fleet"]["overflow"] != 0 or (final["overflow"] != 0).any():
-        raise AssertionError("a [schemes] volume overflowed its segment pool")
+        raise AssertionError(f"a [schemes] {tag} volume overflowed its segment pool")
     if any(gc == 0 for *_, gc in table):
-        raise AssertionError("a scheme never ran GC in [schemes]")
-    check_integrity(cfg, final, traces, "[schemes]")
-
-    bad = [k for k in cpu if not np.array_equal(final[k][sub], cpu[k])
-           or final[k].dtype != cpu[k].dtype]
-    log(f"[schemes] volumes {sub} (one per scheme) by the step engine on the cpu in "
-        f"{cpu_wall:.1f} s, in a worker beside the card run (waited {waited:.1f} s after it): "
-        f"differing keys against the card {bad}, of {len(cpu)} "
-        f"({sum(k.startswith('sch_') for k in cpu)} sch_*)")
-    if bad:
-        raise AssertionError(f"[schemes] card and CPU differ in {bad}")
-
-    # the elementwise volumes alone, by the replay kernel
-    ew = [j * P + i for j in ELEMENTWISE_IDS for i in range(P)]
-    ew_pol = {k: x[ew] for k, x in policies.items()}
-    ops.reset_launch_counts()
+        raise AssertionError(f"a scheme never ran GC in [schemes] {tag}")
     t0 = time.perf_counter()
-    rep = convert.state_to_numpy(torchsim.run_fleet(cfg, np.ascontiguousarray(padded[ew]),
-                                                    ew_pol, device="cuda", engine="replay"))
-    rep_wall = time.perf_counter() - t0
-    rep_launches = ops.launch_counts()["replay"]
-    init = convert.state_to_numpy(init_state(cfg, ew_pol, "cpu"))
-    bad = [k for k in rep if not k.startswith("sch_") and not np.array_equal(final[k][ew], rep[k])]
-    stale = [k for k in rep if k.startswith("sch_") and not (
-        np.array_equal(rep[k], init[k]) and np.array_equal(final[k][ew], init[k]))]
-    log(f"[schemes] the {len(ew)} elementwise volumes alone by the replay kernel ({rep_launches} "
-        f"launch, {rep_wall:.3f} s): differing keys {bad}; sch_* keys off their initial values "
-        f"{stale}")
-    if bad or stale or rep_launches != 1:
-        raise AssertionError(f"[schemes] replay kernel and step engine differ: {bad}, {stale}")
+    check_integrity(cfg, final, traces, f"[schemes] {tag}")
+    log(f"[schemes] {tag}: state invariants hold on every volume "
+        f"({time.perf_counter() - t0:.1f} s)")
 
-    # the replay kernel refuses the mixed fleet, before any launch
-    ops.reset_launch_counts()
-    try:
-        torchsim.run_fleet(cfg, padded, policies, device="cuda", engine="replay")
-    except NotImplementedError as err:
-        refused = str(err)
-    else:
-        raise AssertionError("the replay kernel took a fleet with stateful schemes")
-    log(f"[schemes] engine=replay on the mixed fleet raises NotImplementedError: {refused}")
-    if "item 4b" not in refused or ops.launch_counts()["replay"] != 0:
-        raise AssertionError("the replay kernel's refusal does not name item 4b, or it launched")
 
+def phase_schemes() -> dict:
+    """The paper's Exp#1 comparison through the replay kernel: every one of
+    the 14 schemes replays the main run's 186-volume corpus, 2,604 volumes in
+    one launch. (a) At SCHEMES_N_LBAS blocks: one volume per scheme replayed
+    by the step engine on the CPU over the whole trace equals its row on
+    every key, and the step engine on the card (K1, K3 and the stateful
+    branches between them) over SCHEMES_STEP_WINDOW steps from
+    SCHEMES_WINDOW_START, past the first GC, equals the kernel's replay of
+    that window from the same state on every key; a profiled window of
+    the step engine. (b) At the main run's MAIN_N_LBAS blocks, the kernel
+    alone: the ranked WA table, the invariants, and the rows of one volume
+    per stateful scheme held to the CPU step engine over the whole trace
+    (SCHEMES_CPU_WORKERS workers), so the launch that is timed is the one
+    that is checked. The CPU replays run in worker processes beside the
+    card runs. Returns K1's and K3's rows at (a)'s
+    window with its launches, and the kernel table's ``replay_stateful``
+    row."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import annotate, torchsim
+    from repro_torch.core.config import SCHEME_NAMES
+    from repro_torch.core.placement.schemes import ELEMENTWISE_IDS
+    from repro_torch.core.tracegen import tiled_fleet
+    from repro_torch.kernels import ops
+    P, n, S = SCHEMES_VOLUMES_PER_SCHEME, SCHEMES_N_LBAS, len(SCHEME_NAMES)
+    t_phase = time.perf_counter()
+    log(f"[schemes] cuts: (a) volumes of {n} blocks ({n * 4 // 1024} MiB at 4 KiB) at 2 * n_lbas "
+        f"updates, the card's step engine on {SCHEMES_STEP_WINDOW} steps from step "
+        f"{SCHEMES_WINDOW_START} (past the first GC); (b) "
+        f"volumes of {MAIN_N_LBAS} blocks (64 MiB, the main run's), the CPU check on one volume "
+        f"per stateful scheme over the whole trace. ETI's 2^15-write decay period elapses only "
+        f"in (b)'s traces, FADaC's 2^16-write half-life in neither (the card tests start a "
+        f"state near both boundaries)")
     t0 = time.perf_counter()
-    profile_window(cfg, st, "step", SCHEMES_PROFILE_STEPS, "schemes")
-    log(f"[schemes] profiled window with its analysis {time.perf_counter() - t0:.1f} s")
+    cfg = schemes_config()
+    policies = schemes_policies(cfg, P)
+    traces = tiled_fleet("mixed", S, P, n, 2 * n, jitter=0.25, seed=23)
+    padded = torchsim.coerce_fleet(traces)
+    V, T = padded.shape
+    big_cfg = schemes_config(MAIN_N_LBAS)
+    big_traces = tiled_fleet("mixed", S, P, MAIN_N_LBAS, 2 * MAIN_N_LBAS, jitter=0.25, seed=23)
+    big = torchsim.coerce_fleet(big_traces)
+    log(f"[schemes] (a) {V} volumes ({S} schemes x {P} traces), n_lbas {n}, segment_size "
+        f"{cfg.segment_size}, n_rows {cfg.n_rows}, class slots {cfg.n_class_slots}, "
+        f"sfs_resample {cfg.sfs_resample}, steps {T}, writes {int((padded >= 0).sum())}; (b) "
+        f"n_lbas {MAIN_N_LBAS}, n_rows {big_cfg.n_rows}, steps {big.shape[1]}, writes "
+        f"{int((big >= 0).sum())}; traces made in {time.perf_counter() - t0:.1f} s")
+
+    # the CPU subsets: (a) one volume per scheme (corpus trace 0) over the
+    # whole trace, (b) one per stateful scheme over the whole trace, in
+    # SCHEMES_CPU_WORKERS chunks, without the fleet's pad steps past the
+    # subset's last write (no-ops for a volume)
+    sub = [j * P for j in range(S)]
+    big_sub = [j * P for j in range(S) if j not in ELEMENTWISE_IDS]
+    chunks = [big_sub[i::SCHEMES_CPU_WORKERS] for i in range(SCHEMES_CPU_WORKERS)]
+    big_steps = int((big[big_sub] >= 0).sum(1).max())
+    sub_pol = {k: x[sub] for k, x in policies.items()}
+    big_pol = {k: x[big_sub] for k, x in policies.items()}
+    workers = ProcessPoolExecutor(1 + SCHEMES_CPU_WORKERS,
+                                  mp_context=multiprocessing.get_context("spawn"))
+    with workers:
+        on_cpu = workers.submit(_replay_on_cpu, cfg, np.ascontiguousarray(padded[sub]), sub_pol)
+        big_on_cpu = [workers.submit(_replay_on_cpu, big_cfg,
+                                     np.ascontiguousarray(big[chunk, :big_steps]),
+                                     {k: x[chunk] for k, x in policies.items()})
+                      for chunk in chunks]
+
+        # (a) the kernel over the whole trace
+        run = _replay_row_run(cfg, padded, policies, "(a) 8 MiB")
+        _schemes_table("(a) 8 MiB", cfg, run, traces, P)
+        _check_subset("schemes", run["final"], sub, on_cpu)
+        # the card's step engine, and the kernel, on a window of steps past
+        # the first GC, both from the kernel's state at the window's start;
+        # fk reads the whole trace's next-write stream, sliced
+        W0, W1 = SCHEMES_WINDOW_START, SCHEMES_WINDOW_START + SCHEMES_STEP_WINDOW
+        nxts = annotate.fleet_annotations(padded, policies["p_scheme"])
+        start = _replay_row_run(cfg, np.ascontiguousarray(padded[:, :W0]), policies,
+                                f"(a) steps 0-{W0 - 1}", nxts=np.ascontiguousarray(nxts[:, :W0]))
+        window = np.ascontiguousarray(padded[:, W0:W1])
+        window_nxts = np.ascontiguousarray(nxts[:, W0:W1])
+        ops.reset_launch_counts()
+        stats = torchsim.ReplayStats()
+        t0 = time.perf_counter()
+        step = torchsim.run_fleet(cfg, window, device="cuda", state=start["st"], stats=stats,
+                                  engine="step", nxts=window_nxts)
+        torch.cuda.synchronize()
+        step_wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        step = convert.state_to_numpy(step)
+        head = _replay_row_run(cfg, window, None, f"(a) steps {W0}-{W1 - 1}", state=start["st"],
+                               nxts=window_nxts)
+        bad = _differing_keys(head["final"], step)
+        same = (head["stats"].steps, head["stats"].gc_ticks, head["stats"].tick_iterations) == (
+            stats.steps, stats.gc_ticks, stats.tick_iterations)
+        k_launches = sum(counts[k] for k in ("segment_select_batch", "classify_gc",
+                                             "classify_user"))
+        log(f"[schemes] (a) engine=step on the card, steps {W0}-{W1 - 1}: wall "
+            f"{step_wall:.3f} s, s/step {step_wall / stats.steps:.9f}, tick iterations "
+            f"{stats.tick_iterations}, host syncs {stats.host_syncs}; launches {counts}: K1 + K3 "
+            f"{k_launches / stats.steps:.4f} per step; against the replay kernel on the same "
+            f"steps: differing keys {bad}, same steps, GC ticks and tick iterations: {same}; "
+            f"kernel wall {head['wall']:.3f} s = {step_wall / head['wall']:.1f}x faster")
+        if bad or not same or 0 in (counts["segment_select_batch"], counts["classify_gc"],
+                                    counts["classify_user"]):
+            raise AssertionError(f"[schemes] the step engine and the replay kernel differ on the "
+                                 f"window ({bad}, stats {same}), or K1 / K3 did not run")
+        del step, head, start
+        t0 = time.perf_counter()
+        profile_window(cfg, run["st"], "step", SCHEMES_PROFILE_STEPS, "schemes")
+        log(f"[schemes] profiled window with its analysis {time.perf_counter() - t0:.1f} s")
+        trace = torch.from_numpy(np.ascontiguousarray(padded)).cuda()
+        nxt = torchsim._next_writes(run["st"], trace)
+        ms_small = time_replay(cfg, policies, trace, run["st"], reps=SCHEMES_TIMED, nxt=nxt)
+        bound_small = replay_bound(run["st"], trace, stateful=True, nxt=nxt)
+        del run, trace, nxt
+        torch.cuda.empty_cache()
+
+        # (b) the kernel alone at the main run's 64 MiB
+        run = _replay_row_run(big_cfg, big, policies, "(b) 64 MiB")
+        launches = run["counts"]["replay"]
+        _schemes_table("(b) 64 MiB", big_cfg, run, big_traces, P)
+        cpu_walls = [_check_subset("schemes", run["final"], chunk, on)[0]
+                     for chunk, on in zip(chunks, big_on_cpu)]
+        err = max(max_abs_err(torch.from_numpy(run["final"][k][chunk].astype(np.float64)),
+                              torch.from_numpy(x.astype(np.float64)))
+                  for chunk, on in zip(chunks, big_on_cpu) for k, x in on.result()[0].items())
+        if not (run["final"]["reclaimed"][big_sub] > 0).all():
+            raise AssertionError(f"[schemes] (b) a volume of {big_sub} ran no GC")
+    trace = torch.from_numpy(np.ascontiguousarray(big)).cuda()
+    nxt = torchsim._next_writes(run["st"], trace)
+    ms = time_replay(big_cfg, policies, trace, run["st"], reps=SCHEMES_TIMED, nxt=nxt)
+    limit = replay_bound(run["st"], trace, stateful=True, nxt=nxt)
+    sub_trace = torch.from_numpy(np.ascontiguousarray(big[big_sub, :big_steps])).cuda()
+    sub_pol = {"p_scheme": torch.from_numpy(big_pol["p_scheme"]).cuda()}
+    ms_sub = time_replay(big_cfg, big_pol, sub_trace,
+                         {k: x[big_sub] for k, x in run["final"].items()},
+                         nxt=torchsim._next_writes(sub_pol, sub_trace))
+    row = {"name": "replay_stateful", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/replay.cu (kStateful instance); "
+                     "src/repro_torch/kernels/csrc/stateful_ops.cuh",
+           "replaces": "src/repro/kernels/segsel.py:150; src/repro/kernels/classify.py:49",
+           "shape": [V, int(big.shape[1])], "n_lbas": MAIN_N_LBAS, "launches": launches,
+           "max_abs_err": err, "ms": ms, "plain_ms": 1e3 * sum(cpu_walls),
+           "plain_volumes": big_sub, "plain_steps": big_steps,
+           "plain_workers": SCHEMES_CPU_WORKERS,
+           "ms_plain_volumes": ms_sub,
+           **limit, "shape_8mib": [V, T], "ms_8mib": ms_small,
+           "bound_ms_8mib": bound_small["bound_ms"],
+           "tolerance": "bit-equal on every state key, sch_* included: at 8 MiB to the step "
+                        "engine on the CPU (14 volumes, every step) and on the card (every "
+                        f"volume, {SCHEMES_STEP_WINDOW} steps from step {SCHEMES_WINDOW_START}); "
+                        "at 64 MiB, the timed launch's rows plain_volumes to the step engine "
+                        "on the CPU over the whole trace (plain_steps, its last write; "
+                        "plain_ms: the sum of plain_workers "
+                        "workers' walls, against the kernel's ms_plain_volumes)",
+           "library_ms": None}
+    log(f"[kernels] replay_stateful ({V}, {big.shape[1]}) at 64 MiB: {ms:.3f} ms per replay "
+        f"(median of {SCHEMES_TIMED}, checks outside), repeats bit-identical; bound "
+        f"{limit['bound_ms']:.3f} ms ({limit['bound_by']}, {limit['bytes']} bytes) = "
+        f"{ms / limit['bound_ms']:.1f}x; at 8 MiB ({V}, {T}): {ms_small:.3f} ms, bound "
+        f"{bound_small['bound_ms']:.3f} ms = {ms_small / bound_small['bound_ms']:.1f}x; volumes "
+        f"{big_sub} alone: {ms_sub:.3f} ms, step engine on the cpu {1e3 * sum(cpu_walls):.1f} ms "
+        f"(the sum of {SCHEMES_CPU_WORKERS} workers' walls)")
+    del run, trace, sub_trace
+    torch.cuda.empty_cache()
     rows = _path_kernel_rows("schemes", np.random.default_rng(3), V, cfg.n_rows,
                              cfg.segment_size, counts)
     log(f"[schemes] phase wall {time.perf_counter() - t_phase:.1f} s")
-    return rows
+    return {"path_rows": rows, "row": row}
 
 
 SWEEP_SCHEMES = ("nosep", "sepgc", "sepbit", "uw", "gw")   # [sweep]: the elementwise schemes
@@ -3629,8 +3764,10 @@ def main() -> int:
     phase_scale()
     phase_profile(cfg, st)
     del st
-    sweep_row, schemes_rows = phase_sweep_and_latency(before=phase_schemes)
+    sweep_row, schemes = phase_sweep_and_latency(before=phase_schemes)
+    schemes_rows = schemes["path_rows"]
     kernels.append(sweep_row)
+    kernels.append(schemes["row"])
     gcbench = phase_gcbench(device["smi"])
     legacy = phase_legacy()
     legacy_rows = _path_kernel_rows(

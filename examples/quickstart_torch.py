@@ -7,14 +7,11 @@ The counterpart of ``examples/quickstart.py``, with its six schemes, its
 trace (``mixed_trace(n, 8 * n, seed=7, burst_echo_prob=0.4)``) and its knobs
 (segment 128, GP 0.15, cost-benefit selection). The six schemes replay the
 trace as one heterogeneous fleet, one volume each, sharing the fleet's
-shapes: nosep, sepgc and sepbit on the replay kernel (``engine="replay"``),
-dac, warcip and fk on the step engine (``engine="step"``), which the example
-picks for them because the replay kernel does not take the stateful schemes
-yet (ROADMAP Queue 1 item 4b). Each row names its engine. It runs on the
-card unless ``--device cpu`` is given; on the CPU both engines are the step
-engine. At the default 16,384 blocks the step engine's three volumes take
-minutes on the card (it replays the trace's 147,456 steps in sequence);
-``--n-lbas 2048`` is quick.
+shapes, on the default engine: on the card one launch of the replay kernel
+for all six, stateful (dac, warcip, fk) and elementwise (nosep, sepgc,
+sepbit) alike. Each row names its engine. It runs on the card unless
+``--device cpu`` is given; on the CPU the engine is the step engine, the
+replay kernel's plain version.
 """
 
 import argparse
@@ -24,8 +21,7 @@ from repro_torch.core.config import TorchSimConfig
 from repro_torch.core.traces import mixed_trace, trace_stats
 
 SCHEMES = ("nosep", "sepgc", "dac", "warcip", "sepbit", "fk")
-ENGINE = {"nosep": "replay", "sepgc": "replay", "sepbit": "replay",
-          "dac": "step", "warcip": "step", "fk": "step"}
+ENGINE = "replay"      # torchsim's default engine
 
 
 def rows(trace, n_lbas: int, device: str) -> list[dict]:
@@ -33,20 +29,12 @@ def rows(trace, n_lbas: int, device: str) -> list[dict]:
     ``jaxsim.simulate_jax``) with the engine that replayed it, in SCHEMES'
     order. The fleet's shared config (class slots and segment pool sized
     over all six) is the ``cfg`` key of each row."""
-    def policy(schemes):
-        return fleetshard.encode_policies(len(schemes), schemes=list(schemes),
-                                          selectors="cost_benefit", gp_thresholds=0.15)
-
-    cfg = fleetshard.hetero_config(TorchSimConfig(n_lbas=n_lbas, segment_size=128),
-                                   policy(SCHEMES))
-    out = {}
-    for engine in ("replay", "step"):
-        mine = [s for s in SCHEMES if ENGINE[s] == engine]
-        res = fleetshard.simulate_fleet_hetero([trace] * len(mine), cfg, policy(mine),
-                                               engine=engine, device=device)
-        for name, vol in zip(mine, res["volumes"]):
-            out[name] = {**vol, "engine": engine, "cfg": cfg}
-    return [out[s] for s in SCHEMES]
+    policy = fleetshard.encode_policies(len(SCHEMES), schemes=list(SCHEMES),
+                                        selectors="cost_benefit", gp_thresholds=0.15)
+    cfg = fleetshard.hetero_config(TorchSimConfig(n_lbas=n_lbas, segment_size=128), policy)
+    res = fleetshard.simulate_fleet_hetero([trace] * len(SCHEMES), cfg, policy, group=False,
+                                           device=device)
+    return [{**vol, "engine": ENGINE, "cfg": cfg} for vol in res["volumes"]]
 
 
 def main(argv=None) -> list[dict]:

@@ -8,13 +8,11 @@ command line) on the PyTorch / CUDA port.
 The counterpart of ``examples/trace_sim.py``, with its flags and its table:
 each scheme replays the trace on one volume (``torchsim.simulate``), and the
 row gives its WA, GC writes and wall time. ``--engine`` picks the engine of
-every scheme; without it the example picks, in the open, the replay kernel
-for the elementwise schemes and the step engine for the stateful ones (fk,
-dac, ml, sfs, eti, mq, sfr, fadac, warcip), which the replay kernel does not
-take yet (ROADMAP Queue 1 item 4b); each row names its engine. It runs on
-the card unless ``--device cpu`` is given; on the CPU both engines are the
-step engine. ``--alibaba-csv`` replays a trace in the Alibaba Cloud
-block-trace format instead of a synthetic one.
+every scheme: the replay kernel by default, which takes all 14 schemes, or
+the step engine; each row names its engine. It runs on the card unless
+``--device cpu`` is given; on the CPU both engines are the step engine.
+``--alibaba-csv`` replays a trace in the Alibaba Cloud block-trace format
+instead of a synthetic one.
 """
 
 import argparse
@@ -22,19 +20,10 @@ import time
 
 from repro_torch.core import torchsim
 from repro_torch.core.config import SCHEME_NAMES, TorchSimConfig
-from repro_torch.core.placement.schemes import ELEMENTWISE_IDS, SCHEME_IDS
 from repro_torch.core.traces import GENERATORS, load_alibaba_csv, trace_stats
 
 
-def engine_for(scheme: str, engine: str | None) -> str:
-    """``engine`` when given, else the replay kernel for an elementwise
-    scheme and the step engine for a stateful one."""
-    if engine is not None:
-        return engine
-    return "replay" if SCHEME_IDS[scheme] in ELEMENTWISE_IDS else "step"
-
-
-def rows(trace, schemes, *, segment: int, gp: float, selector: str, engine: str | None,
+def rows(trace, schemes, *, segment: int, gp: float, selector: str, engine: str,
          device: str) -> list[dict]:
     """One summary per scheme (``torchsim``'s fields, those of
     ``jaxsim.simulate_jax``), with its engine and wall time in s."""
@@ -43,10 +32,9 @@ def rows(trace, schemes, *, segment: int, gp: float, selector: str, engine: str 
     for scheme in schemes:
         cfg = TorchSimConfig(n_lbas=n_lbas, segment_size=segment, gp_threshold=gp,
                              selector=selector, scheme=scheme)
-        eng = engine_for(scheme, engine)
         t0 = time.perf_counter()
-        r = torchsim.simulate(trace, cfg, device=device, engine=eng)
-        out.append({**r, "engine": eng, "wall_s": time.perf_counter() - t0})
+        r = torchsim.simulate(trace, cfg, device=device, engine=engine)
+        out.append({**r, "engine": engine, "wall_s": time.perf_counter() - t0})
     return out
 
 
@@ -63,9 +51,8 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--schemes", default=",".join(SCHEME_NAMES))
     ap.add_argument("--alibaba-csv", default=None,
                     help="replay a real Alibaba-format block trace instead")
-    ap.add_argument("--engine", default=None, choices=list(torchsim.ENGINES),
-                    help="the engine of every scheme (default: replay for the elementwise "
-                         "schemes, step for the stateful ones)")
+    ap.add_argument("--engine", default="replay", choices=list(torchsim.ENGINES),
+                    help="the engine of every scheme (default: replay, the replay kernel)")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 

@@ -26,8 +26,8 @@ over one fleet:
    grouping prunes nothing here: it runs one replay per group.
 
 ``engine`` is `torchsim.run_fleet`'s: ``"replay"`` (the replay kernel on the
-card, which refuses a fleet or group holding a stateful scheme, ROADMAP
-Queue 1 item 4b) or ``"step"``. Nothing is rerouted from one to the other.
+card, one launch per group and device chunk whatever its schemes) or
+``"step"``. Nothing is rerouted from one to the other.
 """
 
 from __future__ import annotations

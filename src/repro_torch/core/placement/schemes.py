@@ -9,8 +9,8 @@ The elementwise schemes (nosep, sepgc, sepbit and the Exp#4 ablations uw and
 gw) are stateless given the shared ℓ estimate: one
 ``fn(v, g, from_c1, is_gc, ell) -> cls`` serves user writes (``is_gc = 0``)
 and GC rewrites (``is_gc = 1``). The nine stateful schemes keep per-LBA
-tables in the state and run on the step engine (`stateful`); the replay
-kernel does not take them yet (`require_elementwise`).
+tables in the state: `stateful` on the step engine, and
+``kernels/csrc/stateful_ops.cuh`` in the replay kernel.
 """
 
 from __future__ import annotations
@@ -21,9 +21,6 @@ from typing import Callable
 import torch
 
 NOBIT = 2 ** 30          # int32 "no next write" sentinel
-
-STATEFUL_ITEM = ("ROADMAP.md Queue 1 item 4b (the replay kernel takes the stateful schemes: "
-                 "fk, dac, ml, sfs, eti, mq, sfr, fadac, warcip)")
 
 
 def _ew_nosep(v, g, from_c1, is_gc, ell):
@@ -100,17 +97,6 @@ def check_ids(ids) -> None:
     for sid in ids:
         if not 0 <= int(sid) < len(SCHEMES):
             raise ValueError(f"scheme id {int(sid)} is outside the table (0..{len(SCHEMES) - 1})")
-
-
-def require_elementwise(ids) -> None:
-    """Raise for any scheme id the replay kernel cannot run: outside the
-    table, or a stateful scheme (those run under ``engine="step"``)."""
-    check_ids(ids)
-    for sid in ids:
-        if SCHEMES[int(sid)].elementwise is None:
-            raise NotImplementedError(
-                f"scheme {SCHEME_NAMES[int(sid)]!r} keeps per-LBA state, which the replay "
-                f"kernel does not take yet ({STATEFUL_ITEM}); run it with engine='step'")
 
 
 def elementwise_chain(scheme_id, v, g, from_c1, is_gc, ell, scheme_ids=None):

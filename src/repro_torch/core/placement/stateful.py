@@ -18,7 +18,9 @@ and has three parts:
 A branch computes over every volume of the fleet and the dispatch
 (`user_classes`, `gc_classes`) keeps its classes for the scheme's own
 volumes, as JAX's ``lax.switch`` under ``vmap`` (a select) does. Its
-masked writes go through the spare element of `inplace.put`.
+masked writes go through the spare element of `inplace.put`. This module is
+the plain version of the replay kernel's stateful instance
+(``kernels/csrc/stateful_ops.cuh``), which follows its formulas op by op.
 """
 
 from __future__ import annotations

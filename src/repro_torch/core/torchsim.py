@@ -45,11 +45,11 @@ none. `ReplayStats` counts steps, iterations and host syncs.
 
 That is the step engine (``engine="step"``). By default (``engine="replay"``)
 `run` and `run_fleet` hand a state on the card to the replay kernel
-(`kernels.replay`): one launch replays every volume, with no host sync per
-step; it takes the elementwise schemes and the tick engine only, and
-refuses a stateful scheme (ROADMAP Queue 1 item 4b) and the legacy engine
-rather than hand them to the step engine. For a state on the CPU they run
-the kernel's plain version, the step engine (`step_replay`).
+(`kernels.replay`): one launch replays every volume under any of the 14
+schemes, fk's ``nxt`` beside the trace, with no host sync per step; it takes
+the tick engine only, and refuses the legacy engine rather than hand it to
+the step engine. For a state on the CPU they run the kernel's plain version,
+the step engine (`step_replay`).
 """
 
 from __future__ import annotations
@@ -571,16 +571,26 @@ def step_replay(cfg: TorchSimConfig, st: dict, trace, stats: ReplayStats | None 
     masked = bool((trace < 0).any())
     lbas_tv = trace.t().contiguous().to(torch.int64)
     k = Consts(cfg, V, st["t"].device, st["p_scheme"], st["p_gcsched"])
-    nxt_tv = None
-    if any(SCHEME_REQUIRES_FUTURE[sid] for sid in k.stateful):
-        if nxt is None:
-            nxt = fleet_annotations(trace.cpu().numpy(), st["p_scheme"].cpu().numpy())
-        nxt_tv = coerce_fleet_annotations(nxt, (V, T), trace.device).t().contiguous()
+    nxt_vt = _next_writes(st, trace, nxt)
+    nxt_tv = None if nxt_vt is None else nxt_vt.t().contiguous()
     refresh = _sfs_refresh_steps(cfg, st, trace, k)
     for i in range(T):
         fleet_step(cfg, st, lbas_tv[i], masked, k, select, stats,
                    None if nxt_tv is None else nxt_tv[i], i in refresh)
     return st
+
+
+def _next_writes(st: dict, trace, nxt=None):
+    """fk's (V, T) int32 next-write stream on the trace's device, contiguous,
+    for both engines: ``nxt`` as given, or made from the trace
+    (`annotate.fleet_annotations`) when none is; None when no volume runs fk
+    (nothing reads it then, and nothing is made)."""
+    schemes = torch.unique(st["p_scheme"]).tolist()
+    if not any(SCHEME_REQUIRES_FUTURE[int(sid)] for sid in schemes):
+        return None
+    if nxt is None:
+        nxt = fleet_annotations(trace.cpu().numpy(), st["p_scheme"].cpu().numpy())
+    return coerce_fleet_annotations(nxt, tuple(trace.shape), trace.device).contiguous()
 
 
 def _check_engine(engine: str) -> None:
@@ -589,11 +599,12 @@ def _check_engine(engine: str) -> None:
 
 
 def _replay(cfg, st, trace, stats, engine, select, nxt=None):
-    """The replay kernel for a state on the card under ``engine="replay"``
-    (which refuses the stateful schemes); else its plain version, the step
-    engine (the only one on the CPU)."""
+    """The replay kernel for a state on the card under ``engine="replay"``,
+    with fk's next-write stream made as the step engine makes it
+    (`_next_writes`); else its plain version, the step engine (the only one
+    on the CPU)."""
     if engine == "replay" and trace.is_cuda:
-        replay_kernel(cfg, st, trace, stats)
+        replay_kernel(cfg, st, trace, stats, _next_writes(st, trace, nxt))
     else:
         step_replay(cfg, st, trace, stats, select, nxt)
     return st

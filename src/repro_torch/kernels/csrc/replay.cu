@@ -74,8 +74,20 @@
 //     above the watermark) joins the GC loop's guard. The free rows are a
 //     per-warp count, made once at the start and kept as rows are promoted
 //     and released, not a scan per GC iteration.
+//   kStateful (some volume runs one of the nine stateful schemes: fk, dac,
+//     ml, sfs, eti, mq, sfr, fadac, warcip; stateful_ops.cuh): such a
+//     volume's user write takes its class from its scheme, which reads and
+//     updates the written LBA's sch_* entries (fk also reads its (V, T)
+//     next-write stream); its GC classes come from the scheme too, every
+//     slot's class read into shared memory before dac and ml update their
+//     tables. The per-volume scalars (sfs's counter, flag and bounds, sfr's
+//     previous LBA, warcip's centroids) stay in registers. sfs refreshes its
+//     bounds from exact order statistics of the hotness of the volume's
+//     seen LBAs, written once per refresh into a scratch with one (n_lbas,)
+//     row per sfs volume (its slot: the sfs volumes before it). The
+//     elementwise volumes of such a fleet run the code above.
 // Every float op is a round-to-nearest intrinsic and the build has no fused
-// multiply-add, so the lat_* keys equal the plain version's bit for bit
+// multiply-add, so the lat_* and sch_* keys equal the plain version's bit for bit
 // (logf can differ from the CPU's log by an ulp: only a latency within an
 // ulp of a bucket edge would see it).
 
@@ -84,6 +96,7 @@
 #include <climits>
 
 #include "engine_ops.cuh"
+#include "stateful_ops.cuh"
 
 // The replay's arguments, passed by value to the kernel. Must match
 // ReplayArgs in kernels/replay.py field for field. Outside the unnamed
@@ -122,6 +135,29 @@ struct ReplayArgs {
   float* lat_sum;
   float* lat_max;
   int* lat_hist;        // (V, lat_buckets)
+  // the stateful schemes' tables, in stateful.state_spec's order
+  int* sch_fk_bit;
+  int* sch_dac_region;
+  int* sch_ml_count;
+  int* sch_ml_level;
+  int* sch_sfs_count;
+  int* sch_sfs_first;
+  int* sch_sfs_since;
+  float* sch_sfs_bounds;
+  unsigned char* sch_sfs_ready;
+  int* sch_eti_count;
+  int* sch_eti_last;
+  int* sch_mq_freq;
+  int* sch_mq_level;
+  int* sch_mq_expire;
+  float* sch_sfr_freq;
+  int* sch_sfr_last;
+  int* sch_sfr_prev;
+  int* sch_fadac_count;
+  int* sch_fadac_last;
+  int* sch_warcip_last;
+  float* sch_warcip_cent;
+  float* sch_warcip_cnt;
   const int* p_scheme;
   const int* p_selector;
   const float* p_gp;
@@ -130,6 +166,8 @@ struct ReplayArgs {
   const int* p_gcsched;
   const int* trace;     // (V, T), -1 = pad step
   int* iterations;      // (T,), zeroed by the caller
+  const int* nxt;       // (V, T) fk's next-write indices; null when no volume runs fk
+  unsigned* sfs_keys;   // (n_sfs, n_lbas) scratch of sfs's quantile refresh; null without sfs
   int n_volumes;
   int n_steps;
   int n_rows;
@@ -148,6 +186,8 @@ struct ReplayArgs {
   float ln2;            // float32(log 2)
   int watermark_rows;
   int lat_buckets;
+  int stateful;         // some volume runs a stateful scheme: the kStateful instance
+  int sfs_resample;
 };
 
 namespace {
@@ -248,7 +288,34 @@ __device__ __forceinline__ int count_free_rows(const int* state, int n_rows) {
   return count;
 }
 
-template <bool kTiming, bool kDefer>
+// Volumes before v that run sfs, summed across the warp: v's row of the
+// refresh scratch, which holds one row per sfs volume.
+__device__ __forceinline__ int sfs_slot(const int* p_scheme, int v) {
+  int count = 0;
+  for (int j = threadIdx.x; j < v; j += 32) count += p_scheme[j] == stateful_ops::kSfs ? 1 : 0;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) count += __shfl_xor_sync(kFull, count, off);
+  return count;
+}
+
+// One volume's rows of the stateful schemes' tables (the whole warp calls it).
+__device__ __forceinline__ stateful_ops::Tables volume_tables(const ReplayArgs& a, int v,
+                                                              int scheme) {
+  const long long n = a.n_lbas;
+  const long long n_ext = (n + stateful_ops::kEtiExtent - 1) / stateful_ops::kEtiExtent;
+  const long long n_ch = (n + stateful_ops::kChunk - 1) / stateful_ops::kChunk;
+  return {a.sch_fk_bit + v * n, a.sch_dac_region + v * n, a.sch_ml_count + v * n,
+          a.sch_ml_level + v * n, a.sch_sfs_count + v * n, a.sch_sfs_first + v * n,
+          scheme == stateful_ops::kSfs ? a.sfs_keys + sfs_slot(a.p_scheme, v) * n : nullptr,
+          a.sch_eti_count + v * n_ext, a.sch_eti_last + v * n_ext,
+          a.sch_mq_freq + v * n, a.sch_mq_level + v * n, a.sch_mq_expire + v * n,
+          a.sch_sfr_freq + v * n_ch, a.sch_sfr_last + v * n_ch,
+          a.sch_fadac_count + v * n_ch, a.sch_fadac_last + v * n_ch,
+          a.sch_warcip_last + v * n, a.n_lbas, static_cast<int>(n_ext), a.seg_size,
+          a.sfs_resample};
+}
+
+template <bool kTiming, bool kDefer, bool kStateful>
 __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
   extern __shared__ int smem[];
   const int s = a.seg_size, R = a.n_rows, C = a.n_classes, pad = R - 1;
@@ -257,7 +324,9 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
   int* sh_free = smem;                       // kMaxClasses
   int* sh_lba = smem + kMaxClasses;          // s
   int* sh_utime = sh_lba + s;                // s
-  unsigned char* sh_valid = reinterpret_cast<unsigned char*>(sh_utime + s);   // s
+  int* sh_cls = sh_utime + s;                // s, kStateful only: the victim slots' classes
+  unsigned char* sh_valid = reinterpret_cast<unsigned char*>(kStateful ? sh_cls + s
+                                                                       : sh_utime + s);   // s
 
   const long long row0 = static_cast<long long>(v) * R;
   const long long lba0 = static_cast<long long>(v) * a.n_lbas;
@@ -295,10 +364,24 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
   int open_sid = has_class ? a.open_sid[cls0 + lane] : 0;
   int class_user = has_class ? a.class_user[cls0 + lane] : 0;
   int class_gc = has_class ? a.class_gc[cls0 + lane] : 0;
+  // a stateful scheme's tables and its scalars (stateful_ops.cuh)
+  const bool stateful = kStateful && stateful_ops::is_stateful(scheme);
+  const bool reads_next = stateful && scheme == stateful_ops::kFk;
+  stateful_ops::Tables tables{};
+  stateful_ops::Scalars scalars{};
+  if (stateful) {
+    tables = volume_tables(a, v, scheme);
+    stateful_ops::load_scalars(scheme, a.sch_sfs_since + v, a.sch_sfs_ready + v,
+                               a.sch_sfs_bounds + v * stateful_ops::kBounds, a.sch_sfr_prev + v,
+                               a.sch_warcip_cent + v * stateful_ops::kCentroids,
+                               a.sch_warcip_cnt + v * stateful_ops::kCentroids, scalars);
+  }
 
   const int* trace = a.trace + static_cast<long long>(v) * a.n_steps;
+  const int* next_row = reads_next ? a.nxt + static_cast<long long>(v) * a.n_steps : nullptr;
   for (int base = 0; base < a.n_steps; base += 32) {
     const int ahead = base + lane < a.n_steps ? trace[base + lane] : -1;
+    const int next_ahead = reads_next && base + lane < a.n_steps ? next_row[base + lane] : 0;
     const int n_here = min(32, a.n_steps - base);
     for (int k = 0; k < n_here; ++k) {
       const int lba = __shfl_sync(kFull, ahead, k);
@@ -309,7 +392,13 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
       const int old_sid = vol.loc_seg[lba], old_off = vol.loc_off[lba];
       const int lifespan = wrap_sub(t, vol.last_uw[lba]);
       const bool had_old = old_sid >= 0;
-      const int cls = engine_ops::classify_one(scheme, ell, lifespan, 0, false, false);
+      int cls;
+      if (stateful) {   // the scheme's class, its tables updated (stateful.user_classes)
+        const int next = reads_next ? __shfl_sync(kFull, next_ahead, k) : 0;
+        cls = stateful_ops::user_class(scheme, tables, scalars, lba, t, next, lane);
+      } else {
+        cls = engine_ops::classify_one(scheme, ell, lifespan, 0, false, false);
+      }
       const int sid = __shfl_sync(kFull, open_sid, cls);
       const int off = vol.n[sid];
       const int n_new = sid == pad ? min(off + 1, s) : off + 1;
@@ -402,6 +491,21 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
           ell_tot = 0.0f;
         }
 
+        if (kStateful) {
+          // every slot's class before any table changes (stateful.gc_classes
+          // reads them all, then dac and ml write theirs): -1 for a dead slot
+          for (int j = lane; j < s; j += 32) {
+            const bool live = sh_valid[j] != 0;
+            sh_cls[j] = !live ? -1
+                        : stateful ? stateful_ops::gc_class(scheme, tables, scalars, sh_lba[j], t)
+                                   : engine_ops::classify_one(scheme, ell, 0,
+                                                              wrap_sub(t, sh_utime[j]), is_c1,
+                                                              true);
+          }
+          __syncwarp();
+          if (stateful) stateful_ops::gc_update(scheme, tables, sh_lba, sh_cls, s, lane);
+        }
+
         // classes, ranks and destinations of the victim's slots, 32 at a time
         const int room = max(s - n0, 0);
         int per_cls = 0;    // lane c: live slots of class c so far
@@ -410,9 +514,10 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
           const bool live = j < s && sh_valid[j] != 0;
           const int blk = j < s ? sh_lba[j] : 0;
           const int ut = j < s ? sh_utime[j] : 0;
-          const int c = live ? engine_ops::classify_one(scheme, ell, 0, wrap_sub(t, ut), is_c1,
-                                                        true)
-                             : -1;
+          const int c = !live ? -1
+                        : kStateful ? sh_cls[j]
+                                    : engine_ops::classify_one(scheme, ell, 0, wrap_sub(t, ut),
+                                                               is_c1, true);
           int rank = 0;
           for (int q = 0; q < C; ++q) {
             const unsigned m = __ballot_sync(kFull, c == q);
@@ -533,6 +638,31 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
     a.class_user[cls0 + lane] = class_user;
     a.class_gc[cls0 + lane] = class_gc;
   }
+  if (stateful && lane == 0) {
+    stateful_ops::store_scalars(scheme, scalars, a.sch_sfs_since + v, a.sch_sfs_ready + v,
+                                a.sch_sfs_bounds + v * stateful_ops::kBounds, a.sch_sfr_prev + v,
+                                a.sch_warcip_cent + v * stateful_ops::kCentroids,
+                                a.sch_warcip_cnt + v * stateful_ops::kCentroids);
+  }
+}
+
+template <bool kTiming, bool kDefer, bool kStateful>
+int launch_instance(const ReplayArgs& a, size_t smem, cudaStream_t st) {
+  auto* kernel = replay_kernel<kTiming, kDefer, kStateful>;
+  if (smem > 48 * 1024) {   // past the default cap of dynamic shared memory
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<a.n_volumes, 32, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kTiming, bool kDefer>
+int launch_stateful_or_not(const ReplayArgs& a, size_t smem, cudaStream_t st) {
+  return a.stateful ? launch_instance<kTiming, kDefer, true>(a, smem, st)
+                    : launch_instance<kTiming, kDefer, false>(a, smem, st);
 }
 
 }  // namespace
@@ -549,18 +679,14 @@ extern "C" int replay_limits(int* max_seg_size, int* max_classes) {
 // block of one warp per volume. Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int replay_launch(const ReplayArgs* args, void* stream) {
-  if (args->n_volumes > 0) {
-    const size_t smem = sizeof(int) * (kMaxClasses + 2 * args->seg_size) + args->seg_size;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (args->timing && args->defer) {
-      replay_kernel<true, true><<<args->n_volumes, 32, smem, st>>>(*args);
-    } else if (args->timing) {
-      replay_kernel<true, false><<<args->n_volumes, 32, smem, st>>>(*args);
-    } else if (args->defer) {
-      replay_kernel<false, true><<<args->n_volumes, 32, smem, st>>>(*args);
-    } else {
-      replay_kernel<false, false><<<args->n_volumes, 32, smem, st>>>(*args);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (args->n_volumes <= 0) return static_cast<int>(cudaGetLastError());
+  const ReplayArgs& a = *args;
+  // the victim's LBAs, times (and, for kStateful, classes) as ints, its valid flags as bytes
+  const size_t smem =
+      sizeof(int) * (kMaxClasses + (a.stateful ? 3 : 2) * a.seg_size) + a.seg_size;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.timing && a.defer) return launch_stateful_or_not<true, true>(a, smem, st);
+  if (a.timing) return launch_stateful_or_not<true, false>(a, smem, st);
+  if (a.defer) return launch_stateful_or_not<false, true>(a, smem, st);
+  return launch_stateful_or_not<false, false>(a, smem, st);
 }

@@ -8,12 +8,14 @@ version is the step engine of `core.torchsim` (`_user_write` and
 on the CPU; this wrapper takes only CUDA tensors and raises on any other.
 There is no fallback from one to the other. With ``cfg.timing`` the kernel
 runs the timing model (its ``lat_*`` keys), and for idle_window volumes the
-GC schedule's deferral, as the step engine does; each is an instance of the
-kernel of its own, so the instance with both off runs none of it. The kernel
-takes the five elementwise schemes; a fleet with a stateful one is refused
-(`NotImplementedError` naming ROADMAP Queue 1 item 4b), and so is the legacy
-GC engine (`ValueError`), never handed to the step engine, which runs both
-under ``engine="step"``. ``launches`` counts the
+GC schedule's deferral, as the step engine does; and where some volume runs
+one of the nine stateful schemes (fk, dac, ml, sfs, eti, mq, sfr, fadac,
+warcip), their classes and ``sch_*`` tables (``csrc/stateful_ops.cuh``).
+Each is an instance of the kernel of its own, so the instance with all
+three off runs none of it. All 14 schemes run in one launch, mixed in one
+fleet as they may be; fk reads its (V, T) next-write stream ``nxt``. The
+legacy GC engine is refused (`ValueError`), never handed to the step
+engine, which runs it under ``engine="step"``. ``launches`` counts the
 kernel's launches: ``replay`` with the timing model off, ``replay_timing``
 with it on.
 """
@@ -22,34 +24,40 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..core.config import GCSCHED_IDS, TorchSimConfig, state_spec
-from ..core.placement.schemes import require_elementwise
+from ..core.placement import stateful
+from ..core.placement.schemes import SCHEME_IDS, SCHEMES, check_ids
 from . import build
 
 launches = {"replay": 0, "replay_timing": 0}   # the timing model's instances apart
 
 # the state keys the kernel reads or writes, in the order of ReplayArgs in
-# csrc/replay.cu; the stateful schemes' sch_* keys it leaves alone. The
-# timing model's keys (TIMING_FIELDS) it touches only with cfg.timing, and
-# p_gcsched only then or when some volume runs idle_window
+# csrc/replay.cu. The timing model's keys (TIMING_FIELDS) it touches only
+# with cfg.timing, p_gcsched only then or when some volume runs
+# idle_window, and the stateful schemes' tables (SCHEME_FIELDS, in
+# stateful.state_spec's order) only where some volume runs their scheme
 TIMING_FIELDS = ("lat_now", "lat_busy", "lat_debt", "lat_charged", "lat_sum", "lat_max",
                  "lat_hist")
+SCHEME_FIELDS = tuple(stateful.state_spec(TorchSimConfig(n_lbas=1)))
 STATE_FIELDS = ("seg_lba", "seg_utime", "seg_valid", "seg_n", "seg_nvalid", "seg_cls",
                 "seg_state", "seg_ctime", "seg_stime", "open_sid", "loc_seg", "loc_off",
                 "last_uw", "t", "total_occ", "total_valid", "user_writes", "gc_writes",
                 "reclaimed", "overflow", "ell", "ell_tot", "nc", "class_user", "class_gc",
-                "lat_dens", *TIMING_FIELDS, "p_scheme", "p_selector", "p_gp", "p_ncw",
-                "p_classes", "p_gcsched")
+                "lat_dens", *TIMING_FIELDS, *SCHEME_FIELDS, "p_scheme", "p_selector", "p_gp",
+                "p_ncw", "p_classes", "p_gcsched")
 IDLE_WINDOW = GCSCHED_IDS["idle_window"]
+FK, SFS = SCHEME_IDS["fk"], SCHEME_IDS["sfs"]
 
 
 class ReplayArgs(ctypes.Structure):
     _fields_ = ([(key, ctypes.c_void_p) for key in STATE_FIELDS]
-                + [("trace", ctypes.c_void_p), ("iterations", ctypes.c_void_p)]
+                + [(name, ctypes.c_void_p) for name in ("trace", "iterations", "nxt",
+                                                        "sfs_keys")]
                 + [(name, ctypes.c_int) for name in ("n_volumes", "n_steps", "n_rows",
                                                      "seg_size", "n_classes", "n_lbas",
                                                      "max_gc")]
@@ -57,23 +65,38 @@ class ReplayArgs(ctypes.Structure):
                    ("timing", ctypes.c_int), ("defer", ctypes.c_int)]
                 + [(name, ctypes.c_float) for name in ("write_cost", "gc_block_cost",
                                                        "charge_cap", "idle_density", "ln2")]
-                + [("watermark_rows", ctypes.c_int), ("lat_buckets", ctypes.c_int)])
+                + [(name, ctypes.c_int) for name in ("watermark_rows", "lat_buckets",
+                                                     "stateful", "sfs_resample")])
+
+
+class Instance(NamedTuple):
+    """What `check_inputs` learned of a fleet, for `launch` (which makes no
+    host sync): whether some volume runs idle_window (the kDefer instance),
+    some volume a stateful scheme (kStateful), some volume fk (the kernel
+    reads ``nxt``) and how many volumes run sfs (its refresh's scratch has
+    a row for each)."""
+
+    defer: bool
+    stateful: bool
+    fk: bool
+    n_sfs: int
 
 
 _SIGNATURES = {"replay_launch": [ctypes.POINTER(ReplayArgs), ctypes.c_void_p],
                "replay_limits": [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]}
 
 
-def check_inputs(cfg: TorchSimConfig, st: dict, trace) -> bool:
+def check_inputs(cfg: TorchSimConfig, st: dict, trace, nxt=None) -> Instance:
     """Raise unless ``cfg`` runs the tick engine (the legacy engine is
     refused first: it runs under ``engine="step"``), every state key is a
     contiguous tensor of its dtype and shape for ``cfg`` with one leading
     volume axis, ``trace`` a contiguous (V, T) int32 tensor of LBAs in
     [-1, n_lbas) (-1: a pad step) on the same device, every volume's scheme
-    elementwise, that device CUDA, and the segment size and class slots
-    within the kernel's limits. Returns whether
-    some volume runs idle_window (`launch`'s ``defer``), read here with the
-    other checks so that the launch itself makes no host sync."""
+    in the table, ``nxt`` (fk's next-write stream; needed when some volume
+    runs fk) a contiguous (V, T) int32 tensor on that device, that device
+    CUDA, and the segment size and class slots within the kernel's limits.
+    Returns the `Instance` the fleet needs, read here with the other checks
+    so that the launch itself makes no host sync."""
     if cfg.gc_engine == "legacy":
         raise ValueError("gc_engine='legacy' is the fused GC rewrite's oracle and runs on the "
                          "step engine: pass engine=\"step\" (the replay kernel implements the "
@@ -99,7 +122,21 @@ def check_inputs(cfg: TorchSimConfig, st: dict, trace) -> bool:
             raise ValueError(f"state[{key!r}] is on {x.device}, the trace on {device}")
     if trace.numel() and bool(((trace < -1) | (trace >= cfg.n_lbas)).any()):
         raise ValueError(f"trace LBAs must lie in [0, {cfg.n_lbas}) or be -1 (a pad step)")
-    require_elementwise(torch.unique(st["p_scheme"]).tolist())
+    ids = torch.unique(st["p_scheme"]).tolist()
+    check_ids(ids)
+    fk = FK in ids
+    if nxt is not None:
+        if not isinstance(nxt, torch.Tensor) or nxt.dtype != torch.int32:
+            raise TypeError("nxt (fk's next-write stream) must be an int32 tensor")
+        if tuple(nxt.shape) != tuple(trace.shape):
+            raise ValueError(f"nxt has shape {tuple(nxt.shape)}, the trace {tuple(trace.shape)}")
+        if not nxt.is_contiguous():
+            raise ValueError("nxt must be contiguous")
+        if nxt.device != device:
+            raise ValueError(f"nxt is on {nxt.device}, the trace on {device}")
+    elif fk:
+        raise ValueError("a volume runs fk, which reads the next-write stream: pass nxt "
+                         "(annotate.fleet_annotations)")
     if device.type != "cuda":
         raise ValueError(f"the replay kernel takes CUDA tensors, not {device}; the step "
                          f"engine (torchsim.step_replay) is its plain version on the CPU")
@@ -109,25 +146,35 @@ def check_inputs(cfg: TorchSimConfig, st: dict, trace) -> bool:
     if cfg.segment_size > max_seg.value or cfg.n_class_slots > max_cls.value:
         raise ValueError(f"the replay kernel takes segment_size <= {max_seg.value} and at most "
                          f"{max_cls.value} class slots")
-    return bool((st["p_gcsched"] == IDLE_WINDOW).any())
+    return Instance(defer=bool((st["p_gcsched"] == IDLE_WINDOW).any()),
+                    stateful=any(SCHEMES[i].elementwise is None for i in ids), fk=fk,
+                    n_sfs=int((st["p_scheme"] == SFS).sum()) if SFS in ids else 0)
 
 
-def launch(cfg: TorchSimConfig, st: dict, trace, iterations, defer: bool) -> None:
+def launch(cfg: TorchSimConfig, st: dict, trace, iterations, inst: Instance,
+           nxt=None) -> None:
     """One launch of the kernel on inputs that passed `check_inputs`, with a
     zeroed (T,) int32 ``iterations`` buffer on the card that receives, per
-    step, the most GC iterations any volume ran, and ``defer`` as
-    `check_inputs` returned it. No host sync."""
+    step, the most GC iterations any volume ran, ``inst`` as `check_inputs`
+    returned it and fk's ``nxt`` (read only when some volume runs fk; a null
+    pointer otherwise). No host sync."""
     V, T = trace.shape
     device = trace.device
     a = np.float32(1.0 / cfg.density_window)
     f32 = [float(np.float32(x)) for x in (cfg.write_cost, cfg.gc_block_cost,
                                           cfg.gc_rate * cfg.gc_block_cost, cfg.idle_density,
                                           math.log(2.0))]
+    # sfs's refresh writes its keys here, a row per sfs volume; nothing reads
+    # them after the launch
+    keys = (torch.empty((inst.n_sfs, cfg.n_lbas), dtype=torch.int32, device=device)
+            if inst.n_sfs else None)
     args = ReplayArgs(*(st[key].data_ptr() for key in STATE_FIELDS), trace.data_ptr(),
-                      iterations.data_ptr(), V, T, cfg.n_rows, cfg.segment_size,
-                      cfg.n_class_slots, cfg.n_lbas, cfg.max_gc_per_step,
-                      float(np.float32(1.0) - a), float(a), int(cfg.timing), int(defer),
-                      *f32, cfg.watermark_rows, cfg.lat_buckets)
+                      iterations.data_ptr(), nxt.data_ptr() if inst.fk else None,
+                      None if keys is None else keys.data_ptr(), V, T, cfg.n_rows,
+                      cfg.segment_size, cfg.n_class_slots, cfg.n_lbas, cfg.max_gc_per_step,
+                      float(np.float32(1.0) - a), float(a), int(cfg.timing), int(inst.defer),
+                      *f32, cfg.watermark_rows, cfg.lat_buckets, int(inst.stateful),
+                      cfg.sfs_resample)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = build.library("replay", _SIGNATURES).replay_launch(ctypes.byref(args), stream)
@@ -137,17 +184,19 @@ def launch(cfg: TorchSimConfig, st: dict, trace, iterations, defer: bool) -> Non
     launches["replay_timing" if cfg.timing else "replay"] += 1 if V else 0
 
 
-def replay(cfg: TorchSimConfig, st: dict, trace, stats=None) -> None:
+def replay(cfg: TorchSimConfig, st: dict, trace, stats=None, nxt=None) -> None:
     """Replay the (V, T) int32 ``trace`` through the state ``st`` (made by
     `torchsim.own_state`, on the card) in place: per step, each volume's
-    user write and its GC loop; a -1 step of a volume is skipped whole. With
-    ``stats`` (a `torchsim.ReplayStats`), adds the steps, the steps whose GC
-    loop ran and the fleet's tick iterations (per step, the most any volume
-    ran), as the step engine counts them; they come back with one read after
-    the launch, the replay's only host sync."""
-    defer = check_inputs(cfg, st, trace)
+    user write and its GC loop; a -1 step of a volume is skipped whole.
+    ``nxt``: fk's (V, T) int32 next-write stream, needed when some volume
+    runs fk (`torchsim._next_writes` makes it). With ``stats`` (a
+    `torchsim.ReplayStats`), adds the steps, the steps whose GC loop ran and
+    the fleet's tick iterations (per step, the most any volume ran), as the
+    step engine counts them; they come back with one read after the launch,
+    the replay's only host sync."""
+    inst = check_inputs(cfg, st, trace, nxt)
     iterations = torch.zeros(trace.shape[1], dtype=torch.int32, device=trace.device)
-    launch(cfg, st, trace, iterations, defer)
+    launch(cfg, st, trace, iterations, inst, nxt)
     if stats is not None:
         per_step = iterations.cpu()
         stats.steps += trace.shape[1]

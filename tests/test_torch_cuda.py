@@ -2,7 +2,7 @@
 version (bit-equal for the replay engine's kernels, within a stated
 tolerance for the float reductions), a fleet replayed through the kernels
 bit-equal to the same fleet replayed on the CPU (the stateful schemes on the
-step engine too), the §3 analysis on the card against the CPU, the LM
+replay kernel and on the step engine), the §3 analysis on the card against the CPU, the LM
 decode step with K5 against its plain attention, and the train step and
 checkpoints on the card against the CPU. Imports no JAX (the machine
 with the card has none); every test skips where ``torch.cuda.is_available()``
@@ -534,12 +534,120 @@ def test_all_schemes_fleet_on_the_card_matches_cpu(card):
         np.testing.assert_array_equal(alone[key], want[key][ew], err_msg=key)
 
 
-def test_replay_kernel_refuses_a_stateful_fleet(card):
-    cfg, traces, pol = _all_schemes_fleet()
+def _kernel_only(counts, name="replay"):
+    """One launch of the replay kernel (``name``: its timing model's count
+    or not) and none of K1, K2 or K3."""
+    assert counts[name] == 1, counts
+    assert counts["segment_select_batch"] == counts["segment_select"] == 0, counts
+    assert counts["classify_gc"] == counts["classify_user"] == 0, counts
+
+
+@pytest.mark.parametrize("scheme", STATEFUL)
+def test_replay_kernel_stateful_scheme_single_volume_matches_cpu(card, scheme):
+    """`run` of one volume under each stateful scheme on the card's default
+    engine: one launch of the replay kernel (V = 1), equal to the CPU step
+    engine on every key, ``sch_*`` included; sfs refreshes its bounds every
+    64 writes (24 times)."""
+    cfg = TorchSimConfig(n_lbas=512, segment_size=16, scheme=scheme, sfs_resample=64)
+    tr = mixed_trace(512, 3 * 512, seed=23)
     ops.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        torchsim.run_fleet(cfg, traces, pol, device=card)
-    assert ops.launch_counts()["replay"] == 0
+    got = convert.state_to_numpy(torchsim.run(cfg, tr, device=card))
+    _kernel_only(ops.launch_counts())
+    want = convert.state_to_numpy(torchsim.run(cfg, tr, device="cpu"))
+    assert int(want["reclaimed"][0]) > 0
+    _assert_same_state(got, want)
+    if scheme == "sfs":
+        assert want["sch_sfs_ready"].all() and (want["sch_sfs_bounds"] > 0).all()
+
+
+def test_replay_kernel_takes_the_14_scheme_fleet(card):
+    """The 14-scheme fleet, which the replay kernel refused before ROADMAP
+    item 4b: one launch, equal on every key to the CPU step engine and to
+    the card's step engine, with the same counts; a repeat bit-identical."""
+    cfg, traces, pol = _all_schemes_fleet()
+    (rep, rstats, rcounts), (step, sstats, _) = _replay_both(cfg, traces, pol, card)
+    _kernel_only(rcounts)
+    want = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device="cpu"))
+    assert (want["reclaimed"] > 0).all()
+    _assert_same_state(rep, want)
+    _assert_same_state(step, want)
+    assert (rstats.steps, rstats.gc_ticks, rstats.tick_iterations) == \
+        (sstats.steps, sstats.gc_ticks, sstats.tick_iterations)
+    _assert_same_state(convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol,
+                                                                 device=card)), rep)
+
+
+@pytest.mark.parametrize("sched", ["greedy", "mixed"])
+def test_replay_kernel_all_schemes_timing_and_idle_window(card, sched):
+    """The 14-scheme fleet with the timing model on, all greedy or mixing
+    the three GC schedules (idle_window volumes among them, so the kernel's
+    kTiming, kDefer and kStateful instance runs): one launch, equal to the
+    CPU on every key, lat_* and sch_* included."""
+    cfg, traces, pol = _all_schemes_fleet()
+    cfg = dataclasses.replace(cfg, timing=True, write_cost=0.7, gc_block_cost=1.3)
+    pol = dict(pol, p_gcsched=np.zeros(14) if sched == "greedy" else np.arange(14) % 3)
+    ops.reset_launch_counts()
+    got = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device=card))
+    _kernel_only(ops.launch_counts(), "replay_timing")
+    want = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device="cpu"))
+    assert (want["reclaimed"] > 0).all() and (want["lat_hist"].sum(1) == want["user_writes"]).all()
+    _assert_same_state(got, want)
+
+
+def _state_near(cfg, pol, t0, tables):
+    """An initial state whose clock ``t`` starts at ``t0`` and whose ``sch_*``
+    entries named in ``tables`` start at the given values."""
+    from repro_torch.core.config import init_state
+    st = init_state(cfg, pol, "cpu")
+    st["t"].fill_(t0)
+    for key, value in tables.items():
+        st[key].copy_(torch.as_tensor(value, dtype=st[key].dtype).expand_as(st[key]))
+    return st
+
+
+@pytest.mark.parametrize("scheme,period", [("eti", 1 << 15), ("fadac", 1 << 16)])
+def test_replay_kernel_stateful_decay_boundaries_match_cpu(card, scheme, period):
+    """eti's 2^15-write and fadac's 2^16-write decay: a replay that starts
+    just below the boundary with every counter at 1-40 (last updated at
+    time, or epoch, 0) crosses it, halving the counters read after it, on
+    the user writes and, for fadac, the GC reads; the kernel equals the CPU
+    on every key."""
+    cfg = TorchSimConfig(n_lbas=512, segment_size=16, scheme=scheme)
+    tr = mixed_trace(512, 3 * 512, seed=31)
+    rng = np.random.default_rng(5)
+    n_tab = -(-512 // (256 if scheme == "eti" else 64))
+    st = _state_near(cfg, None, period - 700, {
+        f"sch_{scheme}_count": rng.integers(1, 41, n_tab), f"sch_{scheme}_last": 0})
+    ops.reset_launch_counts()
+    got = convert.state_to_numpy(torchsim.run(cfg, tr, device=card,
+                                              state={k: v.to(card) for k, v in st.items()}))
+    _kernel_only(ops.launch_counts())
+    want = convert.state_to_numpy(torchsim.run(cfg, tr, device="cpu", state=st))
+    assert int(want["reclaimed"][0]) > 0 and int(want["t"][0]) > period
+    _assert_same_state(got, want)
+
+
+def test_replay_kernel_stateful_fk_next_write_stream(card):
+    """fk reads its next-write stream beside the trace: made by `run_fleet`
+    from the traces (the annotations the CPU makes) or given, here a stream
+    that differs from them; each equal to the CPU step engine with the same
+    stream, one launch each."""
+    from repro_torch.core import annotate
+    cfg, traces, pol = _all_schemes_fleet()
+    padded = torchsim.pad_fleet(traces)
+    made = annotate.fleet_annotations(padded, pol["p_scheme"])
+    rng = np.random.default_rng(9)
+    T = padded.shape[1]
+    odd = np.where(made < 1 << 30, made + rng.integers(0, 64, made.shape), made).astype(np.int32)
+    for nxts in (None, made, odd):
+        ops.reset_launch_counts()
+        got = convert.state_to_numpy(torchsim.run_fleet(cfg, padded, pol, device=card,
+                                                        nxts=nxts))
+        _kernel_only(ops.launch_counts())
+        want = convert.state_to_numpy(torchsim.run_fleet(cfg, padded, pol, device="cpu",
+                                                         nxts=made if nxts is None else nxts))
+        _assert_same_state(got, want)
+    assert T > 1000 and not np.array_equal(odd, made)
 
 
 # -- the timing model and the GC schedules (replay kernel, step engine) ---------
@@ -614,16 +722,37 @@ def test_grouped_sweep_equals_ungrouped_on_the_card(card):
         assert out[name][0]["sweep"] == out["grouped"][0]["sweep"]
 
 
-def test_hetero_replay_refuses_a_stateful_group(card):
+def test_hetero_replay_takes_a_stateful_group(card):
+    """A hetero replay with a stateful group, which the replay kernel refused
+    before ROADMAP item 4b: one launch per scheme group, the fleet equal to
+    the step engine on the card and to the CPU; then a grouped sweep of
+    stateful and elementwise schemes, grouped equal to ungrouped (one
+    launch) and to the CPU on every volume and sweep row."""
     from repro_torch.core import fleetshard
+    from repro_torch.core.tracegen import tiled_fleet
     traces = make_fleet("mixed", 4, 256, 512, seed=3)
     pol = fleetshard.encode_policies(4, schemes=["sepbit", "fk", "sepbit", "nosep"])
     cfg = TorchSimConfig(n_lbas=256, segment_size=16, timing=True)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        fleetshard.simulate_fleet_hetero(traces, cfg, pol, device=card)
-    res = fleetshard.simulate_fleet_hetero(traces, cfg, pol, device=card, engine="step")
+    ops.reset_launch_counts()
+    res = fleetshard.simulate_fleet_hetero(traces, cfg, pol, device=card)
+    assert ops.launch_counts()["replay_timing"] == 3
+    step = fleetshard.simulate_fleet_hetero(traces, cfg, pol, device=card, engine="step")
     want = fleetshard.simulate_fleet_hetero(traces, cfg, pol, device="cpu")
-    assert res["volumes"] == want["volumes"]
+    assert res["volumes"] == want["volumes"] == step["volumes"]
+    args = dict(schemes=["sepbit", "fk", "dac", "sfs", "eti", "warcip"],
+                selectors=["greedy", "cost_benefit"], gp_thresholds=[0.12], gcsched="greedy")
+    traces = tiled_fleet("mixed", 12, 2, 512, 3 * 512, jitter=0.25, seed=59)
+    cfg = TorchSimConfig(n_lbas=512, segment_size=16, sfs_resample=128)
+    out = {}
+    for name, group, device in (("grouped", True, card), ("ungrouped", False, card),
+                                ("cpu", True, "cpu")):
+        ops.reset_launch_counts()
+        out[name] = (fleetshard.simulate_fleet_sweep(traces, cfg, group=group, device=device,
+                                                     **args), ops.launch_counts()["replay"])
+    assert out["grouped"][1] == 6 and out["ungrouped"][1] == 1 and out["cpu"][1] == 0
+    for name in ("ungrouped", "cpu"):
+        assert out[name][0]["volumes"] == out["grouped"][0]["volumes"]
+        assert out[name][0]["sweep"] == out["grouped"][0]["sweep"]
 
 
 # -- the legacy GC engine (the step engine on the card) --------------------------

@@ -189,9 +189,9 @@ def test_unported_config_values_raise(change, item):
     """The knobs of items 5 and 6 (timing, GC schedules, scheme groups) make
     a config that replays equal to JAX; the legacy engine (item 7) makes a
     config, and the replay kernel refuses it before any launch, naming
-    ``engine="step"``, where it runs; the stateful schemes make a config and
-    run on the step engine, and only the replay kernel refuses them (before
-    any launch, naming their ROADMAP item)."""
+    ``engine="step"``, where it runs; the stateful schemes (item 4b) make a
+    config the replay kernel's checks take, scheme and next-write stream
+    alike, refusing only the well-formed state on the CPU, last."""
     if item == "item 7":
         cfg = TorchSimConfig(n_lbas=N, segment_size=SEG, **change)
         st = torchsim.own_state(init_state(cfg, device="cpu"))
@@ -208,8 +208,9 @@ def test_unported_config_values_raise(change, item):
         return
     cfg = TorchSimConfig(n_lbas=N, segment_size=SEG, **change)
     st = torchsim.own_state(init_state(cfg, device="cpu"))
-    with pytest.raises(NotImplementedError, match=item):
-        treplay.check_inputs(cfg, st, torch.from_numpy(TRACES["zipf"][None]))
+    trace = torch.from_numpy(TRACES["zipf"][None])
+    with pytest.raises(ValueError, match="CUDA"):
+        treplay.check_inputs(cfg, st, trace, torchsim._next_writes(st, trace))
 
 
 @pytest.mark.parametrize("engine", ["kernel", "Step", ""])

@@ -43,7 +43,7 @@ def test_quickstart_rows_match_simulate_jax(capsys):
     rows = mod.main(["--device", "cpu", "--n-lbas", str(n)])
     assert "engine" in capsys.readouterr().out
     assert [r["scheme"] for r in rows] == list(mod.SCHEMES)
-    assert [r["engine"] for r in rows] == [mod.ENGINE[s] for s in mod.SCHEMES]
+    assert [r["engine"] for r in rows] == ["replay"] * len(mod.SCHEMES)
     trace = traces.mixed_trace(n, 8 * n, seed=7, burst_echo_prob=0.4)
     policy = jfleetshard.encode_policies(len(mod.SCHEMES), schemes=list(mod.SCHEMES),
                                          selectors="cost_benefit", gp_thresholds=0.15)
@@ -62,7 +62,7 @@ def test_trace_sim_rows_match_simulate_jax(capsys):
                      "--selector", "greedy", "--schemes", "sepbit,fk"])
     assert "best:" in capsys.readouterr().out
     trace = traces.mixed_trace(256, 1024, seed=0, alpha=1.0)
-    assert [r["engine"] for r in rows] == ["replay", "step"]
+    assert [r["engine"] for r in rows] == ["replay", "replay"]
     for row in rows:
         jcfg = JaxSimConfig(n_lbas=256, segment_size=16, selector="greedy", scheme=row["scheme"])
         assert _summary(row) == jaxsim.simulate_jax(trace, jcfg), row["scheme"]

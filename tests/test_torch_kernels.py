@@ -4,6 +4,7 @@ checks, and the port's import hygiene. The CUDA kernels themselves are held
 against their plain versions in test_torch_cuda.py, on a card."""
 
 import ast
+import ctypes
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -233,22 +234,97 @@ def _replay_inputs(V=2, T=12, n=64):
     (lambda cfg, st, tr: (st, torch.full_like(tr, -2)), ValueError, "-1"),
     (lambda cfg, st, tr: (st, tr + cfg.n_lbas), ValueError, "LBAs"),
     (lambda cfg, st, tr: (dict(st, p_scheme=torch.full_like(st["p_scheme"], 3)), tr),
-     NotImplementedError, "4b"),
+     ValueError, "CUDA"),
     (lambda cfg, st, tr: ({k: v for k, v in st.items() if k != "last_uw"}, tr), TypeError,
      "last_uw"),
     (lambda cfg, st, tr: (st, tr), ValueError, "CUDA"),
 ])
 def test_replay_wrapper_rejects_what_the_kernel_does_not_take(bad, err, match):
     """Checked before any launch; the wrapper takes only CUDA tensors, and a
-    well-formed state on the CPU is refused last."""
+    well-formed state on the CPU is refused last, whatever its schemes (an
+    fk fleet with its next-write stream)."""
     cfg, st, trace = _replay_inputs()
     st, trace = bad(cfg, st, trace)
     before = {k: v.clone() for k, v in st.items()}
     ops.reset_launch_counts()
     with pytest.raises(err, match=match):
-        treplay.replay(cfg, st, trace)
+        treplay.replay(cfg, st, trace, nxt=torch.zeros(trace.shape, dtype=torch.int32))
     assert ops.launch_counts()["replay"] == 0
     assert all(torch.equal(before[k], st[k]) for k in st)
+
+
+def _fk_replay_inputs():
+    cfg, st, trace = _replay_inputs()
+    st["p_scheme"].fill_(tschemes.SCHEME_IDS["fk"])
+    return cfg, st, trace
+
+
+@pytest.mark.parametrize("make,err,match", [
+    (lambda tr: torch.zeros(tr.shape, dtype=torch.int64), TypeError, "int32"),
+    (lambda tr: torch.zeros((tr.shape[0], tr.shape[1] + 1), dtype=torch.int32), ValueError,
+     "shape"),
+    (lambda tr: torch.zeros((tr.shape[1], tr.shape[0]), dtype=torch.int32).t(), ValueError,
+     "contiguous"),
+    (lambda tr: torch.zeros(tr.shape, dtype=torch.int32, device="meta"), ValueError, "meta"),
+    (lambda tr: None, ValueError, "fk"),
+])
+def test_replay_wrapper_checks_the_next_write_stream(make, err, match):
+    """fk's next-write stream, which the kernel reads beside the trace: an
+    int32 tensor of the trace's shape, contiguous, on its device, and
+    present when some volume runs fk; checked before the device, so before
+    any launch."""
+    cfg, st, trace = _fk_replay_inputs()
+    ops.reset_launch_counts()
+    with pytest.raises(err, match=match):
+        treplay.replay(cfg, st, trace, nxt=make(trace))
+    assert ops.launch_counts()["replay"] == 0
+    with pytest.raises(ValueError, match="CUDA"):      # a well-formed stream passes
+        treplay.check_inputs(cfg, st, trace, torch.zeros(trace.shape, dtype=torch.int32))
+
+
+def test_replay_args_match_the_kernel_struct():
+    """`ReplayArgs` lists csrc/replay.cu's struct field for field, in order
+    and by type, and its sch_* pointers are the stateful schemes' keys in
+    `stateful.state_spec`'s order, each pointer of its key's dtype."""
+    import re
+
+    from repro_torch.core.placement import stateful
+    src = (build.CSRC / "replay.cu").read_text()
+    body = src[src.index("struct ReplayArgs {"):]
+    body = body[:body.index("};")]
+    decls = re.findall(r"^\s*(?:const )?(unsigned char\*|int\*|float\*|unsigned\*|int|float) "
+                       r"(\w+);", body, re.M)
+    assert [name for _, name in decls] == [name for name, _ in treplay.ReplayArgs._fields_]
+    kinds = {ctypes.c_void_p: ("unsigned char*", "int*", "float*", "unsigned*"),
+             ctypes.c_int: ("int",), ctypes.c_float: ("float",)}
+    for (ctype, name), (_, pytype) in zip(decls, treplay.ReplayArgs._fields_):
+        assert ctype in kinds[pytype], name
+    cfg = TorchSimConfig(n_lbas=300, segment_size=8)
+    spec = stateful.state_spec(cfg)
+    assert treplay.SCHEME_FIELDS == tuple(spec)
+    pointee = {"int*": torch.int32, "float*": torch.float32, "unsigned char*": torch.bool}
+    declared = dict((name, ctype) for ctype, name in decls)
+    for key, (_, dtype, _) in spec.items():
+        assert pointee[declared[key]] == dtype, key
+
+
+def test_next_writes_are_made_only_for_an_fk_volume():
+    """`torchsim._next_writes`, the stream both engines read: None for a
+    fleet without fk (a stream given is not read), the given stream or the
+    annotations of the trace (`annotate.fleet_annotations`) with one, as a
+    contiguous int32 tensor on the trace's device."""
+    from repro_torch.core import annotate
+    cfg, st, trace = _replay_inputs(V=3, T=40)
+    given = torch.arange(120, dtype=torch.int32).reshape(3, 40)
+    assert torchsim._next_writes(st, trace) is None
+    assert torchsim._next_writes(st, trace, given) is None
+    st["p_scheme"][1] = tschemes.SCHEME_IDS["fk"]
+    made = torchsim._next_writes(st, trace)
+    want = annotate.fleet_annotations(trace.numpy(), st["p_scheme"].numpy())
+    assert made.dtype == torch.int32 and made.is_contiguous()
+    assert np.array_equal(made.numpy(), want)
+    assert (made[[0, 2]] == tschemes.NOBIT).all() and (made[1] < tschemes.NOBIT).any()
+    assert torch.equal(torchsim._next_writes(st, trace, given.t().contiguous().t()), given)
 
 
 def test_replay_wrapper_routes_cpu_tensors_to_the_step_engine(monkeypatch):

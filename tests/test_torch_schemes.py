@@ -407,11 +407,22 @@ def test_host_refresh_steps_equal_asking_the_device(fleet14):
 
 
 def test_replay_kernel_refuses_the_stateful_schemes_named_4b(fleet14):
-    jcfg, traces, pol, _, _ = fleet14
+    """The replay kernel's checks take the 14-scheme fleet with fk's
+    next-write stream (`torchsim._next_writes`, the JAX fleet's
+    annotations) and refuse only the well-formed state on the CPU, last;
+    without the stream, the fk volume is refused. (The name is kept from
+    when the kernel refused these schemes, ROADMAP item 4b; the card tests
+    hold the kernel on them to the CPU.)"""
+    jcfg, traces, pol, nxt, _ = fleet14
     cfg = _port_cfg(jcfg)
     st = own_state(torchsim.init_state(cfg, pol, "cpu"))
-    with pytest.raises(NotImplementedError, match="item 4b.*engine='step'"):
-        kreplay.check_inputs(cfg, st, torch.from_numpy(torchsim.pad_fleet(traces)))
+    trace = torch.from_numpy(torchsim.pad_fleet(traces))
+    made = torchsim._next_writes(st, trace)
+    assert np.array_equal(made.numpy(), np.asarray(nxt))
+    with pytest.raises(ValueError, match="CUDA"):
+        kreplay.check_inputs(cfg, st, trace, made)
+    with pytest.raises(ValueError, match="fk"):
+        kreplay.check_inputs(cfg, st, trace)
 
 
 # -- the committed latency bench's greedy cells ------------------------------------
