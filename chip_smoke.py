@@ -124,7 +124,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     step engine. (b) 64 MiB volumes (the main run's), the kernel alone: WA
     per scheme, ranked, the invariants, the rows of one volume per stateful
     scheme equal to the CPU over the whole trace (three workers); the
-    kernel timed at both sizes;
+    kernel timed at both sizes, and at 64 MiB each scheme's 186 volumes
+    alone and the elementwise ones through the stateful instance too, each
+    equal to its rows of the fleet's replay;
 16. sweep: the heterogeneous sweep of ``core/fleetshard.py`` at full width,
     the main run's corpus under 5 elementwise schemes x 2 selectors x GP
     0.10 / 0.15 / 0.20 (5,580 volumes of 64 MiB), timing model on, through
@@ -153,9 +155,17 @@ Phases, in order; any failure raises and the script exits non-zero:
     timed under both GC engines on the step engine; K1, K2 and K3 timed at
     this path's shapes.
 
+Each [kernels] line of the replay kernel (replay, replay_timing,
+replay_stateful) names its instance with its registers, spills, volumes a
+block, shared memory a block, resident volumes and waves.
+
 Before the last line it prints the kernel table as one JSON object; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA it exits 1
 before printing any result.
+
+``python3 chip_smoke.py --replay-times SRC [SRC ...]`` (``PYTHONPATH=src``)
+times the replay kernel of each given source tree instead, in turns on one
+card (`replay_times`).
 """
 
 from __future__ import annotations
@@ -332,6 +342,37 @@ def phase_device() -> dict:
             "smi": smi}
 
 
+REPLAY_PTXAS: dict = {}    # replay kernel instance flags -> ptxas' registers and spill bytes
+
+
+def _replay_ptxas(text: str) -> dict:
+    """ptxas' -v lines of the replay kernel, per instance: the template's
+    flags (kTiming, kDefer, kStateful[, kSharedMeta]) as a string of 0 / 1
+    -> registers, stack frame and spill store / load bytes (a function the
+    instance calls has lines of its own, not counted here)."""
+    import re
+
+    def flags(name):
+        m = re.search(r"replay_kernelI((?:Lb[01]E)+)E", name)
+        return "".join(re.findall(r"Lb([01])E", m[1])) if m else None
+
+    out, cur, props, frame = {}, None, None, None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            cur, frame = flags(m[1]), None
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = flags(m[1])
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                            r"spill loads", line):
+            if props is not None and props == cur:
+                frame = [int(x) for x in m.groups()]
+        elif (m := re.search(r"Used (\d+) registers", line)) and cur is not None:
+            out[cur] = {"registers": int(m[1]), "stack_frame": frame and frame[0],
+                        "spill_stores": frame and frame[1], "spill_loads": frame and frame[2]}
+            cur = None
+    return out
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -344,6 +385,7 @@ def phase_build() -> None:
                 log(f"[build] {name}: {line.split(chr(39))[1][:96]}")
             elif "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build] {name}: {line.strip()}")
+    REPLAY_PTXAS.update(_replay_ptxas(logs.get("replay", "")))
 
 
 def _segsel_inputs(rng, V, S, t_hi=60_000, seg=MAIN_SEGMENT):
@@ -1089,13 +1131,33 @@ def scan_bytes_per_write(cfg, final: dict) -> float:
     return 16 * cfg.n_rows * float(final["reclaimed"].sum()) / float(final["user_writes"].sum())
 
 
-def time_replay(cfg, policies, trace, want: dict, reps: int = REPLAY_TIMED, nxt=None) -> float:
+def _state_digest(st: dict) -> str:
+    """A digest of a state on the card: per key, its bytes as int32 (or
+    bytes) summed with position weights in int64, all keys folded into one
+    hex string; two replays that end bit-equal have equal digests."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for key in sorted(st):
+        x = st[key].reshape(-1)
+        x = x.view(torch.int32) if x.element_size() == 4 else x.to(torch.int32)
+        w = torch.arange(1, x.numel() + 1, dtype=torch.int64, device=x.device) % 1_000_003 + 1
+        h.update(f"{key}:{int((x.to(torch.int64) * w).sum())};".encode())
+    return h.hexdigest()[:16]
+
+
+def time_replay(cfg, policies, trace, want, reps: int = REPLAY_TIMED, nxt=None,
+                stateful=None, info=None) -> float:
     """Median device time in ms of ``reps`` launches of the replay kernel,
     each on a fresh state, between two CUDA events; the wrapper's checks,
     the state and the counts buffer are made before the first event. Each
     final state must equal ``want`` bit for bit (numpy arrays, or tensors on
-    the card, compared there). ``nxt``: fk's next-write stream, where some
-    volume runs fk."""
+    the card, compared there; None: the first launch's, whose digest goes
+    to ``info``). ``nxt``: fk's next-write stream, where some volume runs
+    fk. ``stateful``: run the stateful instance (True) or not (False)
+    whatever the fleet's schemes (the instance `check_inputs` picks when
+    None). ``info``, a dict, receives the instance launched and the times."""
     import torch
 
     from repro_torch import convert
@@ -1106,6 +1168,8 @@ def time_replay(cfg, policies, trace, want: dict, reps: int = REPLAY_TIMED, nxt=
     for _ in range(reps):
         st = torchsim.own_state(init_state(cfg, policies, "cuda"))
         inst = kreplay.check_inputs(cfg, st, trace, nxt)
+        if stateful is not None:
+            inst = inst._replace(stateful=stateful)
         iterations = torch.zeros(trace.shape[1], dtype=torch.int32, device="cuda")
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -1114,6 +1178,10 @@ def time_replay(cfg, policies, trace, want: dict, reps: int = REPLAY_TIMED, nxt=
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+        if want is None:
+            want = {k: x.clone() for k, x in st.items()}
+            if info is not None:
+                info["digest"] = _state_digest(st)
         if isinstance(next(iter(want.values())), torch.Tensor):
             same = all(torch.equal(st[k], want[k]) for k in want)
         else:
@@ -1121,7 +1189,36 @@ def time_replay(cfg, policies, trace, want: dict, reps: int = REPLAY_TIMED, nxt=
         if not same:
             raise AssertionError("the replay kernel is not bit-identical on a repeat")
         del st
+    if info is not None:
+        info.update(inst=inst, times=times)
     return float(np.median(times))
+
+
+def replay_geometry(cfg, V: int, inst, T: int, ms: float, bound_ms: float) -> dict:
+    """The replay kernel instance a launch ran, for its [kernels] line and
+    JSON row: registers and spill bytes (ptxas, from [build]; local memory
+    bytes from the runtime), volumes a block (W), shared memory a block,
+    the volumes resident at once and the waves the fleet took, with the
+    time per step and against its bound."""
+    from repro_torch.kernels import replay as kreplay
+    occ = kreplay.occupancy(cfg, V, inst)
+    flags = "".join(str(int(f)) for f in (cfg.timing, inst.defer, inst.stateful,
+                                          occ["shared_meta"]))
+    ptxas = REPLAY_PTXAS.get(flags, {})
+    return {"instance": flags, "registers": occ["registers"],
+            "spill_stores": ptxas.get("spill_stores"), "spill_loads": ptxas.get("spill_loads"),
+            "local_bytes": occ["local_bytes"], "warps": occ["warps"],
+            "block_bytes": occ["block_bytes"], "blocks_per_sm": occ["blocks_per_sm"],
+            "resident": occ["resident"], "waves": occ["waves"], "us_per_step": 1e3 * ms / T,
+            "x_bound": ms / bound_ms}
+
+
+def geometry_text(g: dict) -> str:
+    return (f"instance TDSM={g['instance']}: {g['registers']} registers, spills "
+            f"{g['spill_stores']} / {g['spill_loads']} B (local {g['local_bytes']} B), W "
+            f"{g['warps']}, {g['block_bytes']} B shared a block, {g['blocks_per_sm']} blocks an "
+            f"SM, {g['resident']} volumes resident, {g['waves']} wave(s); "
+            f"{g['us_per_step']:.4f} us per step, {g['x_bound']:.1f}x its bound")
 
 
 def _main_run(cfg, padded, policies, traces, engine: str, tag: str) -> dict:
@@ -1246,16 +1343,18 @@ def phase_main():
         raise AssertionError(f"the replay kernel differs from the CPU step engine in {bad}")
 
     trace = torch.from_numpy(np.ascontiguousarray(padded)).cuda()
-    ms = time_replay(cfg, policies, trace, replay["final"])
+    info = {}
+    ms = time_replay(cfg, policies, trace, replay["final"], info=info)
     ms_sub = time_replay(cfg, sub_policies, torch.from_numpy(sub_trace).cuda(), cpu)
     T = padded.shape[1]
     limit = replay_bound(replay["st"], trace)
+    geo = replay_geometry(cfg, V, info["inst"], T, ms, limit["bound_ms"])
     row = {"name": "replay", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/replay.cu",
            "replaces": "src/repro/kernels/segsel.py:150; src/repro/kernels/classify.py:49",
            "shape": [V, T], "steps": T, "max_abs_err": err,
            "ms": ms, "ms_per_step": ms / T, "plain_ms": plain_ms, "plain_volumes": sub,
-           "ms_plain_volumes": ms_sub, **limit,
+           "ms_plain_volumes": ms_sub, **limit, **geo, "times_ms": info["times"],
            "tolerance": "bit-equal on every state key: to engine='step' on the card over all "
                         f"volumes and the first {MAIN_STEP_PREFIX} steps, to the step engine on "
                         "the CPU (the plain version; plain_ms) over plain_volumes and every "
@@ -1267,6 +1366,7 @@ def phase_main():
         f"{ms / limit['bound_ms']:.1f}x; victim scans {scan_bytes_per_write(cfg, replay['final']):.1f} "
         f"bytes per user write; on volumes {sub}: {ms_sub:.3f} ms, step engine on the cpu "
         f"{plain_ms:.1f} ms")
+    log(f"[kernels] replay ({V}, {T}): {geometry_text(geo)}")
     return cfg, replay["st"], {k: runs[k]["counts"] for k in runs}, row
 
 
@@ -1647,8 +1747,11 @@ def phase_schemes() -> dict:
             raise AssertionError(f"[schemes] (b) a volume of {big_sub} ran no GC")
     trace = torch.from_numpy(np.ascontiguousarray(big)).cuda()
     nxt = torchsim._next_writes(run["st"], trace)
-    ms = time_replay(big_cfg, policies, trace, run["st"], reps=SCHEMES_TIMED, nxt=nxt)
+    info = {}
+    ms = time_replay(big_cfg, policies, trace, run["st"], reps=SCHEMES_TIMED, nxt=nxt, info=info)
     limit = replay_bound(run["st"], trace, stateful=True, nxt=nxt)
+    geo = replay_geometry(big_cfg, V, info["inst"], int(big.shape[1]), ms, limit["bound_ms"])
+    per_scheme = schemes_alone(big_cfg, policies, trace, run["final"], nxt, P)
     sub_trace = torch.from_numpy(np.ascontiguousarray(big[big_sub, :big_steps])).cuda()
     sub_pol = {"p_scheme": torch.from_numpy(big_pol["p_scheme"]).cuda()}
     ms_sub = time_replay(big_cfg, big_pol, sub_trace,
@@ -1663,7 +1766,8 @@ def phase_schemes() -> dict:
            "plain_volumes": big_sub, "plain_steps": big_steps,
            "plain_workers": SCHEMES_CPU_WORKERS,
            "ms_plain_volumes": ms_sub,
-           **limit, "shape_8mib": [V, T], "ms_8mib": ms_small,
+           **limit, **geo, "times_ms": info["times"], "per_scheme": per_scheme,
+           "shape_8mib": [V, T], "ms_8mib": ms_small,
            "bound_ms_8mib": bound_small["bound_ms"],
            "tolerance": "bit-equal on every state key, sch_* included: at 8 MiB to the step "
                         "engine on the CPU (14 volumes, every step) and on the card (every "
@@ -1680,6 +1784,7 @@ def phase_schemes() -> dict:
         f"{bound_small['bound_ms']:.3f} ms = {ms_small / bound_small['bound_ms']:.1f}x; volumes "
         f"{big_sub} alone: {ms_sub:.3f} ms, step engine on the cpu {1e3 * sum(cpu_walls):.1f} ms "
         f"(the sum of {SCHEMES_CPU_WORKERS} workers' walls)")
+    log(f"[kernels] replay_stateful ({V}, {big.shape[1]}): {geometry_text(geo)}")
     del run, trace, sub_trace
     torch.cuda.empty_cache()
     rows = _path_kernel_rows("schemes", np.random.default_rng(3), V, cfg.n_rows,
@@ -1697,6 +1802,42 @@ LATENCY_SCHEDULES = ("greedy", "rate_limited", "idle_window")
 LATENCY_GP = 0.15              # benchmarks/run.py latbench's threshold
 
 
+def schemes_alone(cfg, policies, trace, final, nxt, P: int, what: str = "[schemes] (b)") -> dict:
+    """Each scheme's P volumes replayed alone through the instance its
+    fleet takes (one launch each, on a fresh state), then the elementwise
+    schemes' volumes once through the elementwise instance and once through
+    the stateful one: where the stateful instance's time goes, scheme by
+    scheme. Every final state equals its rows of ``final`` (numpy), the
+    whole fleet's replay; with ``final`` None, its digest is printed. Returns
+    the times in ms by scheme and instance."""
+    from repro_torch.core.config import SCHEME_NAMES
+    from repro_torch.core.placement.schemes import ELEMENTWISE_IDS
+    T = trace.shape[1]
+    out = {}
+
+    def one(tag, rows, stateful=None):
+        sub = {k: x[rows] for k, x in policies.items()}
+        want = None if final is None else {k: x[rows] for k, x in final.items()}
+        info = {}
+        ms = time_replay(cfg, sub, trace[rows].contiguous(), want, reps=1,
+                         nxt=None if nxt is None else nxt[rows].contiguous(), stateful=stateful,
+                         info=info)
+        inst = info["inst"]
+        out[tag] = {"ms": ms, "us_per_step": 1e3 * ms / T, "volumes": len(rows),
+                    "stateful_instance": bool(inst.stateful)}
+        checked = (f"digest {info['digest']}" if final is None
+                   else "equal to their rows of the fleet's replay")
+        log(f"{what} {tag}: {len(rows)} volumes alone, {ms:.3f} ms, {1e3 * ms / T:.4f} us per "
+            f"step, instance kStateful={int(inst.stateful)}, {checked}")
+
+    for j, name in enumerate(SCHEME_NAMES):
+        one(name, list(range(j * P, (j + 1) * P)))
+    ew = [j * P + i for j in sorted(ELEMENTWISE_IDS) for i in range(P)]
+    one("elementwise", ew)
+    one("elementwise through kStateful", ew, stateful=True)
+    return out
+
+
 def _replay_on_cpu(cfg, trace, policies) -> tuple[dict, float]:
     """``trace`` replayed by the step engine on the CPU, in a worker process
     beside the card run: the final state (numpy) and its wall in s."""
@@ -1710,25 +1851,33 @@ def _replay_on_cpu(cfg, trace, policies) -> tuple[dict, float]:
     return convert.state_to_numpy(st), time.perf_counter() - t0
 
 
-def _full_width_traces(cells: int):
-    """The main run's corpus (186 volumes of 64 MiB, 2 * n_lbas updates,
-    jitter 0.25, seed 23) tiled once per policy cell, padded."""
+def _full_width_traces(cells: int, n: int = MAIN_N_LBAS, per: int = MAIN_VOLUMES_PER_TILE):
+    """The main run's corpus (``per`` volumes of ``n`` blocks, 2 * n
+    updates, jitter 0.25, seed 23; 186 of 64 MiB by default) tiled once per
+    policy cell, padded."""
     from repro_torch.core import torchsim
     from repro_torch.core.tracegen import tiled_fleet
-    return torchsim.coerce_fleet(tiled_fleet("mixed", cells, MAIN_VOLUMES_PER_TILE, MAIN_N_LBAS,
-                                             2 * MAIN_N_LBAS, jitter=0.25, seed=23))
+    return torchsim.coerce_fleet(tiled_fleet("mixed", cells, per, n, 2 * n, jitter=0.25,
+                                             seed=23))
+
+
+def _sweep_policy():
+    """[sweep]'s policy grid and the config its volumes share (timing on),
+    before `fleetshard.hetero_config`."""
+    from repro_torch.core import fleetshard
+    from repro_torch.core.config import TorchSimConfig
+    policy, cells = fleetshard.policy_grid(SWEEP_SCHEMES, SWEEP_SELECTORS, SWEEP_GPS,
+                                           volumes_per_cell=MAIN_VOLUMES_PER_TILE)
+    base = TorchSimConfig(n_lbas=MAIN_N_LBAS, segment_size=MAIN_SEGMENT, timing=True)
+    return base, policy, cells
 
 
 def _sweep_setup():
     """[sweep]'s fleet: the policy grid, its shared config (timing on) and
     the padded traces; the CPU subset: one volume of each (scheme, selector)
     pair, its GC threshold rotating over the grid."""
-    from repro_torch.core import fleetshard
-    from repro_torch.core.config import TorchSimConfig
     P = MAIN_VOLUMES_PER_TILE
-    policy, cells = fleetshard.policy_grid(SWEEP_SCHEMES, SWEEP_SELECTORS, SWEEP_GPS,
-                                           volumes_per_cell=P)
-    base = TorchSimConfig(n_lbas=MAIN_N_LBAS, segment_size=MAIN_SEGMENT, timing=True)
+    base, policy, cells = _sweep_policy()
     padded = _full_width_traces(len(cells))
     pairs = len(SWEEP_SCHEMES) * len(SWEEP_SELECTORS)
     sub = [(j * len(SWEEP_GPS) + j % len(SWEEP_GPS)) * P + j for j in range(pairs)]
@@ -1857,25 +2006,32 @@ def phase_sweep(setup, on_cpu) -> dict:
 
     trace = torch.from_numpy(np.ascontiguousarray(padded)).cuda()
     pol = policy.as_state_arrays()
-    ms = time_replay(cfg, pol, trace, final, reps=SWEEP_TIMED)
+    info, info_off = {}, {}
+    ms = time_replay(cfg, pol, trace, final, reps=SWEEP_TIMED, info=info)
     off = dataclasses.replace(cfg, timing=False)
     ms_off = time_replay(off, pol, trace, {k: x for k, x in final.items()
-                                            if k not in TIMING_FIELDS}, reps=SWEEP_TIMED)
+                                            if k not in TIMING_FIELDS}, reps=SWEEP_TIMED,
+                         info=info_off)
     st0 = torchsim.own_state(init_state(cfg, pol, "cuda"))
     limit = replay_bound(st0, trace, timing=True)
     limit_off = replay_bound(st0, trace)
     del st0
+    geo = replay_geometry(cfg, V, info["inst"], T, ms, limit["bound_ms"])
+    geo_off = replay_geometry(off, V, info_off["inst"], T, ms_off, limit_off["bound_ms"])
     log(f"[kernels] replay_timing ({V}, {T}): {ms:.3f} ms per replay (median of "
         f"{SWEEP_TIMED}, fresh states, checks outside), {1e3 * ms / T:.4f} us per step; bound "
         f"{limit['bound_ms']:.3f} ms ({limit['bound_by']}, {limit['bytes']} bytes) = "
         f"{ms / limit['bound_ms']:.1f}x; timing off on the same inputs {ms_off:.3f} ms (bound "
         f"{limit_off['bound_ms']:.3f} ms), on/off {ms / ms_off:.4f}; every other key equal")
+    log(f"[kernels] replay_timing ({V}, {T}): {geometry_text(geo)}")
+    log(f"[kernels] replay_timing ({V}, {T}), timing off: {geometry_text(geo_off)}")
     log(f"[sweep] phase wall {time.perf_counter() - t_phase:.1f} s")
     return {"name": "replay_timing", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/replay.cu",
             "replaces": "src/repro/kernels/segsel.py:150; src/repro/kernels/classify.py:49",
             "shape": [V, T], "steps": T, "max_abs_err": 0.0, "ms": ms, "ms_per_step": ms / T,
             "ms_timing_off": ms_off, "plain_ms": 1e3 * cpu_wall, "plain_volumes": sub, **limit,
+            **geo, "times_ms": info["times"], "timing_off": geo_off,
             "launches": counts["replay_timing"],
             "tolerance": "bit-equal on every state key: grouped to ungrouped over all volumes, "
                          "to the step engine on the CPU (the plain version; plain_ms) over "
@@ -3727,12 +3883,108 @@ def phase_dist() -> dict:
     return path_a
 
 
+REPLAY_AB_REPS = 3             # --replay-times: launches timed per fleet and tree
+
+
+def replay_times(srcs: list[str]) -> None:
+    """``python3 chip_smoke.py --replay-times SRC [SRC ...]``: the replay
+    kernel of each source tree (a checkout's ``src`` directory), built and
+    timed in this process one tree after the other, on the smoke's fleets
+    (`replay_fleets`) and on [schemes] (b)'s schemes alone
+    (`schemes_alone`). Each time is the median of REPLAY_AB_REPS launches
+    on fresh states (one for [scale] and a scheme alone), printed with a
+    digest of the final state (equal digests: bit-equal replays) and, where
+    the tree has it, the instance's geometry. Give the trees in turns
+    (A B B A) to compare them on one card."""
+    import torch
+    corpus = scale = None
+    for src in srcs:
+        for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+            del sys.modules[name]
+        sys.path.insert(0, str(Path(src).resolve()))
+        try:
+            from repro_torch.kernels import replay as kreplay
+            REPLAY_PTXAS.clear()
+            phase_build()
+            log(f"[replay-times] {src}: {kreplay.__file__}, instances "
+                f"{sorted(REPLAY_PTXAS.items())}")
+            if corpus is None:
+                corpus = _full_width_traces(1)
+                scale = _full_width_traces(len(MAIN_GPS), SCALE_N_LBAS, SCALE_VOLUMES_PER_TILE)
+            for tag, cfg, pol, trace, nxt in replay_fleets(corpus, scale):
+                info = {}
+                ms = time_replay(cfg, pol, trace, None, reps=1 if tag == "scale" else
+                                 REPLAY_AB_REPS, nxt=nxt, info=info)
+                V, T = trace.shape
+                geo = ""
+                if hasattr(kreplay, "occupancy"):
+                    g = kreplay.occupancy(cfg, V, info["inst"])
+                    geo = (f"; W {g['warps']}, shared meta {g['shared_meta']}, "
+                           f"{g['registers']} registers, local {g['local_bytes']} B, "
+                           f"{g['resident']} resident, {g['waves']} wave(s)")
+                log(f"[replay-times] {src}: {tag} ({V}, {T}): "
+                    f"{' '.join(f'{x:.3f}' for x in info['times'])} ms, median {ms:.3f} ms, "
+                    f"{1e3 * ms / T:.4f} us per step, digest {info['digest']}{geo}")
+                if tag == "schemes":
+                    schemes_alone(cfg, pol, trace, None, nxt, MAIN_VOLUMES_PER_TILE,
+                                  f"[replay-times] {src}: schemes")
+                del trace, nxt
+        finally:
+            sys.path.pop(0)
+            torch.cuda.empty_cache()
+
+
+def replay_fleets(corpus, scale):
+    """The fleets `replay_times` launches, on the card, made with the
+    phases' own configs and policies from the main run's ``corpus`` (186
+    volumes) and [scale]'s padded traces: [main] (744 volumes) and its
+    first volume alone (V = 1, as a single-volume `run` launches the
+    kernel), [schemes] (b) (2,604, fk's stream with it), [sweep] (5,580)
+    with the timing model on and off, [scale] (32 of 1 GiB). Yields (tag,
+    cfg, policies, trace, nxt)."""
+    import torch
+
+    from repro_torch.core import fleetshard, torchsim
+    from repro_torch.core.config import SCHEME_NAMES
+    P = MAIN_VOLUMES_PER_TILE
+
+    def tiled(m: int):
+        return torch.from_numpy(np.ascontiguousarray(np.tile(corpus, (m, 1)))).cuda()
+
+    cfg = fleet_config(MAIN_N_LBAS)
+    pol = fleet_policies(cfg, np.repeat(MAIN_GPS, P))
+    yield "main", cfg, pol, tiled(len(MAIN_GPS)), None
+    one = corpus[:1, :int((corpus[0] >= 0).sum())]
+    yield ("main volume 0 alone", cfg, {k: x[:1] for k, x in pol.items()},
+           torch.from_numpy(np.ascontiguousarray(one)).cuda(), None)
+    cfg = schemes_config(MAIN_N_LBAS)
+    pol = schemes_policies(cfg, P)
+    trace = tiled(len(SCHEME_NAMES))
+    nxt = torchsim._next_writes({"p_scheme": torch.from_numpy(pol["p_scheme"]).cuda()}, trace)
+    yield "schemes", cfg, pol, trace, nxt
+    del trace, nxt
+    base, policy, cells = _sweep_policy()
+    cfg = fleetshard.hetero_config(base, policy)
+    trace = tiled(len(cells))
+    yield "sweep", cfg, policy.as_state_arrays(), trace, None
+    yield "sweep timing off", dataclasses.replace(cfg, timing=False), \
+        policy.as_state_arrays(), trace, None
+    del trace
+    cfg = fleet_config(SCALE_N_LBAS)
+    yield ("scale", cfg, fleet_policies(cfg, np.repeat(MAIN_GPS, SCALE_VOLUMES_PER_TILE)),
+           torch.from_numpy(scale).cuda(), None)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--replay-times"]:
+        phase_device()
+        replay_times(sys.argv[2:])
+        return 0
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails when the script stands without the repo)
 

@@ -23,9 +23,9 @@ rate_limited | idle_window) for the whole fleet:
         --gcsched rate_limited
 
 ``--engine replay`` (the default) is one launch of the replay kernel on the
-card; it takes the five elementwise schemes, so a sweep or fleet with a
-stateful one (fk, dac, ml, sfs, eti, mq, sfr, fadac, warcip) needs
-``--engine step``. On the CPU both engines are the step engine.
+card for any mix of the 14 schemes, the stateful ones (fk, dac, ml, sfs,
+eti, mq, sfr, fadac, warcip) included; ``--engine step`` runs the step
+engine there. On the CPU both engines are the step engine.
 """
 
 import argparse

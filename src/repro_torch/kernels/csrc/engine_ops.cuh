@@ -18,23 +18,31 @@ namespace engine_ops {
 //   cost-benefit  ((1 - u) * age) / (1 + u),  u = nv / max(n, 1),
 //                 age = max(t - stime, 0)
 // A segment that is not sealed (state != 2) or holds no garbage scores -inf.
-__device__ __forceinline__ float score_one(int n, int nv, int stime, int state, int t,
-                                           int selector) {
+// `eligible` and the two scores are score_one's parts, for a scan that
+// scores only eligible rows under one selector.
+__device__ __forceinline__ bool eligible(int n, int nv, int state) {
+  return state == 2 && __fsub_rn(__int2float_rn(n), __int2float_rn(nv)) > 0.0f;
+}
+
+__device__ __forceinline__ float greedy_score(int n, int nv) {
   const float nf = __int2float_rn(n);
-  const float nvf = __int2float_rn(nv);
-  const float garbage = __fsub_rn(nf, nvf);
-  const float denom = fmaxf(nf, 1.0f);
-  const float greedy = __fdiv_rn(garbage, denom);
-  const float u = __fdiv_rn(nvf, denom);
+  return __fdiv_rn(__fsub_rn(nf, __int2float_rn(nv)), fmaxf(nf, 1.0f));
+}
+
+__device__ __forceinline__ float cost_benefit_score(int n, int nv, int stime, int t) {
+  const float u = __fdiv_rn(__int2float_rn(nv), fmaxf(__int2float_rn(n), 1.0f));
   // int32 subtraction that wraps like the reference's (signed overflow is
   // undefined in C++, so subtract as unsigned)
   int age_i = static_cast<int>(static_cast<unsigned>(t) - static_cast<unsigned>(stime));
   age_i = age_i > 0 ? age_i : 0;
   const float age = __int2float_rn(age_i);
-  const float cost_benefit =
-      __fdiv_rn(__fmul_rn(__fsub_rn(1.0f, u), age), __fadd_rn(1.0f, u));
-  const float score = selector == 0 ? greedy : cost_benefit;
-  return (state == 2 && garbage > 0.0f) ? score : -INFINITY;
+  return __fdiv_rn(__fmul_rn(__fsub_rn(1.0f, u), age), __fadd_rn(1.0f, u));
+}
+
+__device__ __forceinline__ float score_one(int n, int nv, int stime, int state, int t,
+                                           int selector) {
+  const float score = selector == 0 ? greedy_score(n, nv) : cost_benefit_score(n, nv, stime, t);
+  return eligible(n, nv, state) ? score : -INFINITY;
 }
 
 // (s, i) beats (best, best_i): a higher score, or the same score at a lower index

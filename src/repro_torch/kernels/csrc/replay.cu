@@ -15,8 +15,8 @@
 // it with its provenance lints SA501-SA504), and each volume's GC iterations
 // in the fleet's tick loop are a prefix of that loop (jaxsim.fleet_gc_tick),
 // so a volume can run its own loop with no knowledge of the others. Each
-// warp (one block of 32 threads) replays one volume from its first step to
-// its last; no host decision is left.
+// warp replays one volume from its first step to its last; no host
+// decision is left.
 //
 // What it computes: exactly the step engine's transitions, in its order,
 // so the final state is bit-equal to it (and to the JAX package):
@@ -36,33 +36,61 @@
 // (only when the free pool is exhausted and classes alias the pad row), the
 // last in slot or class order wins, as in the step engine on the CPU.
 //
-// What bounds it on this card: the chain of dependent memory round trips of
-// each volume (a user write reads its LBA's location, then its class's open
-// segment; a GC iteration scores every row, reads the victim's slots, scans
-// for free rows), far above the bytes the replay must move (the trace, and
-// the state read and written once). The kernel is latency bound, one warp
-// per volume, with as many volumes side by side as the fleet has. Each GC
-// iteration scores every row of its volume, 16 B a row, so the victim
-// scan's cost per user write grows with the volume's row count and, at
-// large volumes, outweighs the user writes (chip_smoke.py's [scale] phase
-// measures it).
+// What bounds it on this card: not the bytes the replay must move (the
+// trace, and the state read and written once), but each volume's chain of
+// dependent steps: a user write reads its LBA's location (a random line of
+// tables far larger than L2), then its class's open segment; a GC iteration
+// scores the volume's rows, reads the victim's slots, scans for free rows
+// and moves the live slots. With a few warps an SM the time is that chain's
+// latency; with tens of warps an SM the SM's issue slots run out, so a
+// fleet takes about as long in one wave of resident warps as in two
+// (`chip_smoke.py --replay-times`, PERF.md). Each GC iteration scores every
+// eligible row, so the victim scan's cost per user write grows with the
+// volume's row count and, at large volumes, outweighs the user writes
+// ([scale]).
 //
-// Design: per-volume scalars, the open segment of each class and the class
-// counters live in registers for the whole replay (lane c holds class c);
-// segment metadata, slots and the location map stay in global memory (the
-// metadata of 744 volumes x 363 rows is 6.5 MB and stays in L2), so shared
-// memory caps no volume's size (the victim scan's time grows with it).
-// Shared memory holds only the warp's scratch: the victim's slots (read
-// whole before any move, as the step engine gathers them) and the free rows. Ranks come from one ballot per class; duplicate targets are
-// resolved with __match_any_sync so the highest slot (or class) writes. Fill
-// counts that several lanes may add to (the pad row) use atomicAdd. The trace
-// is read 32 steps at a time by the warp; the per-step GC iteration count
-// goes to a (T,) buffer with atomicMax, so the host learns the tick counts
-// with one read after the launch.
+// Design: fewer instructions and fewer memory round trips per step.
+//   Warps: a block holds `warps` volumes (kernels/replay.py `geometry`: up
+//     to kMaxWarps, fewer for a fleet smaller than the card's SM count),
+//     one warp each, v = blockIdx.x * warps + warp; warps past the fleet
+//     return at once. No block-wide barrier: every sync is the warp's.
+//   Registers: the per-volume scalars each step's chain reads stay in
+//     registers, equal in every lane (lane c holds class c's open segment
+//     and counters); those no step waits on, a stateful scheme's and the
+//     timing model's, live once per warp in shared memory (`Vars`). Row
+//     pointers are made from the arguments at use, and the warp's shared
+//     layout is a constant argument. __launch_bounds__ caps the registers
+//     of the instances a large fleet takes (MinBlocks).
+//   Shared memory, per warp: `Vars`, the free rows, the victim's slots (read
+//     whole before any move, as the step engine gathers them) and, where
+//     the volume's rows fit (kSharedMeta), the
+//     segment metadata: fill and valid counts as 16-bit halves of one word,
+//     seal time, state and class byte, loaded once and written back once,
+//     so scoring, the free-row scan, the fill reads, the seal and the pad
+//     cap touch no global memory. The pad row's counts are 32-bit: only its
+//     valid count can outgrow s (each user write that lands there adds one),
+//     every other row's counts stay in [0, s]. ctime, the slots and the LBA
+//     maps stay in global memory; where the rows do not fit, the metadata
+//     does too.
+//   Victim scan: only eligible rows (sealed, with garbage) are scored,
+//     under the volume's own selector (every other row scores -inf, so the
+//     argmax is the full scan's): each lane its own rows, or, in the
+//     stateful instance, each chunk of kScanChunk rows compacted first to
+//     its eligible rows by one ballot per 32 (each is faster where it is
+//     used, PERF.md). The rewrite skips each round of 32 victim slots that
+//     holds no live one (a victim holds few).
+//   Prefetch: each 32-step chunk of the trace is read by the warp at once,
+//     and lane k asks L2 for the lines its step's user write will read
+//     (loc_seg, loc_off, last_uw and the scheme's own table entries).
+// Ranks come from one ballot per class; duplicate targets are resolved with
+// __match_any_sync so the highest slot (or class) writes. Counts that
+// several lanes may add to (the pad row) use atomicAdd. The per-step GC
+// iteration count goes to a (T,) buffer with atomicMax, so the host learns
+// the tick counts with one read after the launch.
 //
 // The timing model and the GC schedules (jaxsim's cfg.timing and p_gcsched;
 // torchsim._user_latency, _gc_deferred, _charge_gc) come in two template
-// flags, so that the instance with both off is the code above:
+// flags, so that the instance with both off runs none of it:
 //   kTiming: per user write, the latency (closed loop: wait for the charged
 //     GC work, then write_cost) into lat_now, lat_sum, lat_max and the
 //     histogram, whose bucket is floor(4 * logf(x) / ln 2) as the plain
@@ -81,15 +109,17 @@
 //     next-write stream); its GC classes come from the scheme too, every
 //     slot's class read into shared memory before dac and ml update their
 //     tables. The per-volume scalars (sfs's counter, flag and bounds, sfr's
-//     previous LBA, warcip's centroids) stay in registers. sfs refreshes its
+//     previous LBA, warcip's centroids) live in the warp's `Vars`. sfs refreshes its
 //     bounds from exact order statistics of the hotness of the volume's
 //     seen LBAs, written once per refresh into a scratch with one (n_lbas,)
 //     row per sfs volume (its slot: the sfs volumes before it). The
 //     elementwise volumes of such a fleet run the code above.
+//   kSharedMeta: the segment metadata in shared memory (above).
 // Every float op is a round-to-nearest intrinsic and the build has no fused
 // multiply-add, so the lat_* and sch_* keys equal the plain version's bit for bit
 // (logf can differ from the CPU's log by an ulp: only a latency within an
 // ulp of a bucket edge would see it).
+// The instances of the template are named by those four flags.
 
 #include <cuda_runtime.h>
 
@@ -188,35 +218,98 @@ struct ReplayArgs {
   int lat_buckets;
   int stateful;         // some volume runs a stateful scheme: the kStateful instance
   int sfs_resample;
+  int warps;            // volumes (warps) per block, 1..kMaxWarps (kernels/replay.py geometry)
+  int shared_meta;      // the segment metadata in shared memory: the kSharedMeta instance
+  int smem_per_warp;    // shared memory bytes per warp; must equal warp_layout's total
 };
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxClasses = 32;   // one lane per class slot
-constexpr int kScanRows = 4;      // rows each lane loads per round of a free-row scan
-constexpr int kRateLimited = 1;   // config.GCSCHED_IDS
+constexpr int kMaxClasses = 32;    // one lane per class slot
+constexpr int kMaxSegSize = 4096;  // the victim's slots in shared memory
+constexpr int kMaxWarps = 4;       // volumes (warps) per block
+constexpr int kScanRows = 4;       // rows each lane loads per round of a free-row scan
+constexpr int kScanChunk = 256;    // rows a compacted victim scan gathers at a time
+constexpr int kRateLimited = 1;    // config.GCSCHED_IDS
 constexpr int kIdleWindow = 2;
 
-// One volume's arrays.
-struct Volume {
-  int* lba;
-  int* utime;
-  unsigned char* valid;
-  int* n;
-  int* nvalid;
-  int* cls;
-  int* state;
-  int* ctime;
-  int* stime;
-  int* loc_seg;
-  int* loc_off;
-  int* last_uw;
+// Blocks of kMaxWarps warps an instance is compiled to keep resident on one
+// SM (__launch_bounds__ derives its register cap from it). The elementwise
+// and timing instances: 6, so 80 registers, and [sweep]'s 5,580 volumes
+// take two waves of 3,168, not three. The stateful instance: 1, no cap
+// below what it needs; a cap of 128 registers spilled, and the spills cost
+// more on every fleet than the resident volumes they bought (PERF.md).
+// Tighter caps (11 blocks at 40 registers, 5 at 96) would hold [sweep]'s
+// and [schemes]' 2,604 volumes in one wave, but their spills made every
+// step slower than the second wave costs: past a few warps an SM the
+// replay is bound by the SM's issue slots, not by the volumes in flight.
+template <bool kStateful>
+struct MinBlocks {
+  static constexpr int value = kStateful ? 1 : 6;
 };
 
-// int32 subtraction that wraps like the reference's
+__host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
+
+// The per-volume scalars no step's chain of dependent operations waits on
+// live once per warp in shared memory: a stateful scheme's and the timing
+// model's (every lane reads them, lane 0 writes them between two
+// __syncwarp), so they hold no register across the GC loop. Every other
+// per-volume scalar stays in registers, equal in every lane.
+struct Timing {
+  float now, busy, debt, charged, sum, max;
+};
+
+struct Vars {
+  stateful_ops::Scalars sc;
+  Timing tm;
+};
+static_assert(align16(static_cast<int>(sizeof(Vars))) == 96, "kernels/replay.py VARS_BYTES");
+
+// Byte offsets of one warp's shared memory; kernels/replay.py `warp_bytes`
+// computes the same total.
+struct WarpLayout {
+  int free_rows, lba, utime, cls, valid, scan;
+  int counts, stime, state, seg_cls, pad, total;
+};
+
+__host__ __device__ inline WarpLayout warp_layout(int s, int R, int C, bool stateful,
+                                                  bool shared_meta) {
+  WarpLayout L{};
+  int at = align16(static_cast<int>(sizeof(Vars)));
+  L.free_rows = at;
+  at += align16(4 * C);
+  L.lba = at;
+  at += align16(4 * s);
+  L.utime = at;
+  at += align16(4 * s);
+  L.cls = at;                       // kStateful: the victim slots' classes
+  at += stateful ? align16(4 * s) : 0;
+  L.valid = at;
+  at += align16(s);
+  L.scan = at;                      // kStateful: a compacted victim scan's rows
+  at += stateful ? kScanChunk : 0;
+  L.counts = at;                    // kSharedMeta: the segment metadata
+  at += shared_meta ? align16(4 * R) : 0;
+  L.stime = at;
+  at += shared_meta ? align16(4 * R) : 0;
+  L.state = at;
+  at += shared_meta ? align16(R) : 0;
+  L.seg_cls = at;
+  at += shared_meta ? align16(R) : 0;
+  L.pad = at;
+  at += shared_meta ? 16 : 0;
+  L.total = at;
+  return L;
+}
+
+// int32 subtraction and addition that wrap like the reference's
 __device__ __forceinline__ int wrap_sub(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
+}
+
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
 }
 
 __device__ __forceinline__ unsigned lanes_below(int lane) { return (1u << lane) - 1u; }
@@ -228,9 +321,146 @@ __device__ __forceinline__ bool highest_of_group(K key, int lane) {
   return ((__match_any_sync(kFull, key) >> lane) >> 1) == 0;
 }
 
+// One volume's segment metadata in global memory, one int32 array a field.
+struct GlobalMeta {
+  const ReplayArgs& a;
+  long long row0;
+  int pad;
+
+  __device__ int n(int r) const { return a.seg_n[row0 + r]; }
+  __device__ void counts(int r, int& n, int& nv) const {
+    n = a.seg_n[row0 + r];
+    nv = a.seg_nvalid[row0 + r];
+  }
+  __device__ int state(int r) const { return a.seg_state[row0 + r]; }
+  __device__ int cls(int r) const { return a.seg_cls[row0 + r]; }
+  __device__ int stime(int r) const { return a.seg_stime[row0 + r]; }
+  __device__ void set_n(int r, int x) const { a.seg_n[row0 + r] = x; }
+  __device__ void add_nvalid(int r, int d) const { atomicAdd(&a.seg_nvalid[row0 + r], d); }
+  __device__ void add_counts(int r, int d) const {
+    atomicAdd(&a.seg_n[row0 + r], d);
+    atomicAdd(&a.seg_nvalid[row0 + r], d);
+  }
+  __device__ void clear_counts(int r) const {
+    a.seg_n[row0 + r] = 0;
+    a.seg_nvalid[row0 + r] = 0;
+  }
+  __device__ void set_state(int r, int x) const { a.seg_state[row0 + r] = x; }
+  __device__ void set_cls(int r, int x) const { a.seg_cls[row0 + r] = x; }
+  __device__ void set_stime(int r, int x) const { a.seg_stime[row0 + r] = x; }
+  __device__ void cap_pad(int s) const {
+    if (a.seg_n[row0 + pad] > s) a.seg_n[row0 + pad] = s;
+  }
+  __device__ void load(int) const {}
+  __device__ void store(int) const {}
+};
+
+// One volume's segment metadata in the warp's shared memory: a row's fill
+// count in the low and its valid count (as int16) in the high half of one
+// word, its seal time, its state and its class as a byte each. The pad
+// row's counts are two int32 of their own: its valid count grows by one for
+// each user write that lands there, while every other row's counts stay in
+// [0, s] (kernels/replay.py checks they start there). Loaded from and
+// stored to the global arrays once per replay.
+struct SharedMeta {
+  const ReplayArgs& a;
+  long long row0;
+  int pad;
+  unsigned* cnt;
+  int* stime_;
+  unsigned char* state_;
+  unsigned char* cls_;
+  int* pad_cnt;     // the pad row's n and nvalid
+
+  __device__ int n(int r) const {
+    return r == pad ? pad_cnt[0] : static_cast<int>(cnt[r] & 0xffffu);
+  }
+  __device__ void counts(int r, int& n, int& nv) const {
+    const unsigned w = cnt[r];
+    n = r == pad ? pad_cnt[0] : static_cast<int>(w & 0xffffu);
+    nv = r == pad ? pad_cnt[1] : static_cast<int>(w) >> 16;
+  }
+  __device__ int state(int r) const { return state_[r]; }
+  __device__ int cls(int r) const { return cls_[r]; }
+  __device__ int stime(int r) const { return stime_[r]; }
+  __device__ void set_n(int r, int x) const {
+    if (r == pad) {
+      pad_cnt[0] = x;
+    } else {
+      cnt[r] = (cnt[r] & 0xffff0000u) | static_cast<unsigned>(x);
+    }
+  }
+  __device__ void add_nvalid(int r, int d) const {
+    if (r == pad) {
+      atomicAdd(&pad_cnt[1], d);
+    } else {
+      atomicAdd(&cnt[r], static_cast<unsigned>(d) << 16);
+    }
+  }
+  __device__ void add_counts(int r, int d) const {   // 0 < d <= s: no carry into the high half
+    if (r == pad) {
+      atomicAdd(&pad_cnt[0], d);
+      atomicAdd(&pad_cnt[1], d);
+    } else {
+      atomicAdd(&cnt[r], static_cast<unsigned>(d) * 0x10001u);
+    }
+  }
+  __device__ void clear_counts(int r) const {
+    if (r == pad) {
+      pad_cnt[0] = 0;
+      pad_cnt[1] = 0;
+    } else {
+      cnt[r] = 0u;
+    }
+  }
+  __device__ void set_state(int r, int x) const { state_[r] = static_cast<unsigned char>(x); }
+  __device__ void set_cls(int r, int x) const { cls_[r] = static_cast<unsigned char>(x); }
+  __device__ void set_stime(int r, int x) const { stime_[r] = x; }
+  __device__ void cap_pad(int s) const {
+    if (pad_cnt[0] > s) pad_cnt[0] = s;
+  }
+  __device__ void load(int lane) const {
+    for (int r = lane; r <= pad; r += 32) {
+      const int n = a.seg_n[row0 + r], nv = a.seg_nvalid[row0 + r];
+      if (r == pad) {
+        pad_cnt[0] = n;
+        pad_cnt[1] = nv;
+      }
+      cnt[r] = (static_cast<unsigned>(n) & 0xffffu) | (static_cast<unsigned>(nv) << 16);
+      stime_[r] = a.seg_stime[row0 + r];
+      state_[r] = static_cast<unsigned char>(a.seg_state[row0 + r]);
+      cls_[r] = static_cast<unsigned char>(a.seg_cls[row0 + r]);
+    }
+  }
+  __device__ void store(int lane) const {
+    for (int r = lane; r <= pad; r += 32) {
+      int n, nv;
+      counts(r, n, nv);
+      a.seg_n[row0 + r] = n;
+      a.seg_nvalid[row0 + r] = nv;
+      a.seg_stime[row0 + r] = stime_[r];
+      a.seg_state[row0 + r] = state_[r];
+      a.seg_cls[row0 + r] = cls_[r];
+    }
+  }
+};
+
+template <bool kShared>
+__device__ __forceinline__ auto make_meta(const ReplayArgs& a, unsigned char* base,
+                                          const WarpLayout& L, long long row0, int pad) {
+  if constexpr (kShared) {
+    return SharedMeta{a, row0, pad, reinterpret_cast<unsigned*>(base + L.counts),
+                      reinterpret_cast<int*>(base + L.stime), base + L.state, base + L.seg_cls,
+                      reinterpret_cast<int*>(base + L.pad)};
+  } else {
+    return GlobalMeta{a, row0, pad};
+  }
+}
+
 // The first `want` rows with state 0 (free), ascending, into out[0, want);
 // the pad row past the end of the free pool. Every lane must call it.
-__device__ __forceinline__ void first_free_rows(const int* state, int n_rows, int pad, int want,
+template <class Meta>
+__device__ __forceinline__ void first_free_rows(const Meta& meta, int n_rows, int pad, int want,
                                                 int* out, int lane) {
   int found = 0;
   for (int base = 0; base < n_rows && found < want; base += 32 * kScanRows) {
@@ -238,7 +468,7 @@ __device__ __forceinline__ void first_free_rows(const int* state, int n_rows, in
 #pragma unroll
     for (int k = 0; k < kScanRows; ++k) {
       const int r = base + k * 32 + lane;
-      st[k] = r < n_rows ? state[r] : -1;
+      st[k] = r < n_rows ? meta.state(r) : -1;
     }
 #pragma unroll
     for (int k = 0; k < kScanRows; ++k) {
@@ -252,21 +482,25 @@ __device__ __forceinline__ void first_free_rows(const int* state, int n_rows, in
   __syncwarp();
 }
 
-// The victim argmax of segsel.cu over one volume's rows, reduced across the
-// warp (every lane gets it): -1 when no row is eligible.
-__device__ __forceinline__ int select_victim(const Volume& vol, int n_rows, int t, int selector,
-                                             int lane) {
-  float best = -INFINITY;
-  int best_i = INT_MAX;
-#pragma unroll 4
-  for (int j = lane; j < n_rows; j += 32) {
-    const float s = engine_ops::score_one(vol.n[j], vol.nvalid[j], vol.stime[j], vol.state[j],
-                                          t, selector);
-    if (s > best) {  // j rises along the loop, so the first maximum stays
+// Scores the rows `list` names (offsets from `chunk`, ascending) with
+// `score` into each lane's running maximum; a lane's rows rise, so its
+// first maximum stays.
+template <class Score>
+__device__ __forceinline__ void score_rows(const unsigned char* list, int found, int chunk,
+                                           Score score, float& best, int& best_i, int lane) {
+  for (int i = lane; i < found; i += 32) {
+    const int j = chunk + list[i];
+    const float s = score(j);
+    if (s > best) {
       best = s;
       best_i = j;
     }
   }
+}
+
+// The warp's argmax of each lane's (best, best_i): every lane gets the
+// victim, -1 when no row is eligible.
+__device__ __forceinline__ int warp_victim(float best, int best_i) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const float s = __shfl_xor_sync(kFull, best, off);
@@ -279,10 +513,74 @@ __device__ __forceinline__ int select_victim(const Volume& vol, int n_rows, int 
   return best == -INFINITY ? -1 : best_i;
 }
 
+// The victim argmax of segsel.cu over one volume's rows, reduced across the
+// warp. Only sealed rows with garbage can win (every other row scores
+// -inf), so only those are scored, under the volume's own selector: the
+// result is the full scan's, with a fraction of its divisions. Each lane
+// scores its own eligible rows (kCompact false), or each chunk of
+// kScanChunk rows is first compacted to its eligible rows in `list` (the
+// warp's scratch) and the lanes score those (kCompact: faster in the
+// stateful instance, slower in the others, PERF.md).
+template <bool kCompact, class Meta>
+__device__ __forceinline__ int select_victim(const Meta& meta, int n_rows, int t, int selector,
+                                             unsigned char* list, int lane) {
+  float best = -INFINITY;
+  int best_i = INT_MAX;
+  if constexpr (!kCompact) {
+#pragma unroll 4
+    for (int j = lane; j < n_rows; j += 32) {
+      int n, nv;
+      meta.counts(j, n, nv);
+      if (!engine_ops::eligible(n, nv, meta.state(j))) continue;
+      const float s = selector == 0 ? engine_ops::greedy_score(n, nv)
+                                    : engine_ops::cost_benefit_score(n, nv, meta.stime(j), t);
+      if (s > best) {  // j rises along the loop, so the first maximum stays
+        best = s;
+        best_i = j;
+      }
+    }
+    return warp_victim(best, best_i);
+  }
+  for (int chunk = 0; chunk < n_rows; chunk += kScanChunk) {
+    const int end = min(chunk + kScanChunk, n_rows);
+    int found = 0;
+#pragma unroll
+    for (int base = chunk; base < chunk + kScanChunk; base += 32) {
+      const int j = base + lane;
+      bool ok = false;
+      if (j < end) {
+        int n, nv;
+        meta.counts(j, n, nv);
+        ok = engine_ops::eligible(n, nv, meta.state(j));
+      }
+      const unsigned m = __ballot_sync(kFull, ok);
+      if (ok) list[found + __popc(m & lanes_below(lane))] = static_cast<unsigned char>(j - chunk);
+      found += __popc(m);
+    }
+    __syncwarp();
+    if (selector == 0) {
+      score_rows(list, found, chunk, [&](int j) {
+        int n, nv;
+        meta.counts(j, n, nv);
+        return engine_ops::greedy_score(n, nv);
+      }, best, best_i, lane);
+    } else {
+      score_rows(list, found, chunk, [&](int j) {
+        int n, nv;
+        meta.counts(j, n, nv);
+        return engine_ops::cost_benefit_score(n, nv, meta.stime(j), t);
+      }, best, best_i, lane);
+    }
+    __syncwarp();     // every lane's reads of the list before the next chunk's
+  }
+  return warp_victim(best, best_i);
+}
+
 // Rows with state 0 (free) of one volume, summed across the warp.
-__device__ __forceinline__ int count_free_rows(const int* state, int n_rows) {
+template <class Meta>
+__device__ __forceinline__ int count_free_rows(const Meta& meta, int n_rows, int lane) {
   int count = 0;
-  for (int j = threadIdx.x; j < n_rows; j += 32) count += state[j] == 0 ? 1 : 0;
+  for (int j = lane; j < n_rows; j += 32) count += meta.state(j) == 0 ? 1 : 0;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) count += __shfl_xor_sync(kFull, count, off);
   return count;
@@ -290,23 +588,25 @@ __device__ __forceinline__ int count_free_rows(const int* state, int n_rows) {
 
 // Volumes before v that run sfs, summed across the warp: v's row of the
 // refresh scratch, which holds one row per sfs volume.
-__device__ __forceinline__ int sfs_slot(const int* p_scheme, int v) {
+__device__ __forceinline__ int sfs_slot(const int* p_scheme, int v, int lane) {
   int count = 0;
-  for (int j = threadIdx.x; j < v; j += 32) count += p_scheme[j] == stateful_ops::kSfs ? 1 : 0;
+  for (int j = lane; j < v; j += 32) count += p_scheme[j] == stateful_ops::kSfs ? 1 : 0;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) count += __shfl_xor_sync(kFull, count, off);
   return count;
 }
 
-// One volume's rows of the stateful schemes' tables (the whole warp calls it).
+// One volume's rows of the stateful schemes' tables, made where they are
+// used (no pointer stays live across the replay); `slot` is its row of sfs's
+// refresh scratch.
 __device__ __forceinline__ stateful_ops::Tables volume_tables(const ReplayArgs& a, int v,
-                                                              int scheme) {
+                                                              int slot) {
   const long long n = a.n_lbas;
   const long long n_ext = (n + stateful_ops::kEtiExtent - 1) / stateful_ops::kEtiExtent;
   const long long n_ch = (n + stateful_ops::kChunk - 1) / stateful_ops::kChunk;
   return {a.sch_fk_bit + v * n, a.sch_dac_region + v * n, a.sch_ml_count + v * n,
           a.sch_ml_level + v * n, a.sch_sfs_count + v * n, a.sch_sfs_first + v * n,
-          scheme == stateful_ops::kSfs ? a.sfs_keys + sfs_slot(a.p_scheme, v) * n : nullptr,
+          a.sfs_keys == nullptr ? nullptr : a.sfs_keys + slot * n,
           a.sch_eti_count + v * n_ext, a.sch_eti_last + v * n_ext,
           a.sch_mq_freq + v * n, a.sch_mq_level + v * n, a.sch_mq_expire + v * n,
           a.sch_sfr_freq + v * n_ch, a.sch_sfr_last + v * n_ch,
@@ -315,73 +615,77 @@ __device__ __forceinline__ stateful_ops::Tables volume_tables(const ReplayArgs& 
           a.sfs_resample};
 }
 
-template <bool kTiming, bool kDefer, bool kStateful>
-__global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
-  extern __shared__ int smem[];
+template <bool kTiming, bool kDefer, bool kStateful, bool kSharedMeta>
+__global__ void __launch_bounds__(32 * kMaxWarps, MinBlocks<kStateful>::value)
+    replay_kernel(const __grid_constant__ ReplayArgs a, const __grid_constant__ WarpLayout L) {
+  // both arguments are read in place (constant operands, never copied);
+  // L is warp_layout(...) of this instance, made once on the host
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int v = blockIdx.x * a.warps + (threadIdx.x >> 5);
+  if (v >= a.n_volumes) return;    // the last block's spare warps
   const int s = a.seg_size, R = a.n_rows, C = a.n_classes, pad = R - 1;
-  const int lane = threadIdx.x;
-  const int v = blockIdx.x;
-  int* sh_free = smem;                       // kMaxClasses
-  int* sh_lba = smem + kMaxClasses;          // s
-  int* sh_utime = sh_lba + s;                // s
-  int* sh_cls = sh_utime + s;                // s, kStateful only: the victim slots' classes
-  unsigned char* sh_valid = reinterpret_cast<unsigned char*>(kStateful ? sh_cls + s
-                                                                       : sh_utime + s);   // s
-
+  unsigned char* const wbase = smem + (threadIdx.x >> 5) * L.total;
+  Vars& vars = *reinterpret_cast<Vars*>(wbase);
+  stateful_ops::Scalars& sc = vars.sc;
+  Timing& tm = vars.tm;
+  int* const sh_free = reinterpret_cast<int*>(wbase + L.free_rows);   // C
+  int* const sh_lba = reinterpret_cast<int*>(wbase + L.lba);          // s
+  int* const sh_utime = reinterpret_cast<int*>(wbase + L.utime);      // s
+  int* const sh_cls = reinterpret_cast<int*>(wbase + L.cls);          // s, kStateful only
+  unsigned char* const sh_valid = wbase + L.valid;                    // s
   const long long row0 = static_cast<long long>(v) * R;
   const long long lba0 = static_cast<long long>(v) * a.n_lbas;
-  const Volume vol{a.seg_lba + row0 * s, a.seg_utime + row0 * s, a.seg_valid + row0 * s,
-                   a.seg_n + row0, a.seg_nvalid + row0, a.seg_cls + row0,
-                   a.seg_state + row0, a.seg_ctime + row0, a.seg_stime + row0,
-                   a.loc_seg + lba0, a.loc_off + lba0, a.last_uw + lba0};
+  const auto meta = make_meta<kSharedMeta>(a, wbase, L, row0, pad);
 
-  // the volume's scalars, in registers for the whole replay
+  const int scheme = a.p_scheme[v];
+  const bool stateful = kStateful && stateful_ops::is_stateful(scheme);
+  const bool reads_next = stateful && scheme == stateful_ops::kFk;
+  const bool deferring = kDefer && a.p_gcsched[v] == kIdleWindow;
+  // the volume's scalars, in registers for the whole replay (the user write
+  // count is not kept: it grows with t)
   int t = a.t[v], total_occ = a.total_occ[v], total_valid = a.total_valid[v];
-  int user_writes = a.user_writes[v], gc_writes = a.gc_writes[v], reclaimed = a.reclaimed[v];
-  int overflow = a.overflow[v], nc = a.nc[v];
+  int gc_writes = a.gc_writes[v], reclaimed = a.reclaimed[v], overflow = a.overflow[v];
+  int nc = a.nc[v];
   float ell = a.ell[v], ell_tot = a.ell_tot[v], lat_dens = a.lat_dens[v];
-  const int scheme = a.p_scheme[v], selector = a.p_selector[v], ncw = a.p_ncw[v];
-  const int live_classes = a.p_classes[v];
+  const int selector = a.p_selector[v], ncw = a.p_ncw[v], live_classes = a.p_classes[v];
   const float gp_limit = a.p_gp[v];
-  // the timing model's per-volume scalars and the GC schedule
+  // the GC schedule, and the timing model's per-volume scalars
   const int sched = (kTiming || kDefer) ? a.p_gcsched[v] : 0;
-  float lat_now = 0.0f, lat_busy = 0.0f, lat_debt = 0.0f, lat_charged = 0.0f;
-  float lat_sum = 0.0f, lat_max = 0.0f;
-  int* const lat_hist = a.lat_hist + static_cast<long long>(v) * a.lat_buckets;
-  if (kTiming) {
-    lat_now = a.lat_now[v];
-    lat_busy = a.lat_busy[v];
-    lat_debt = a.lat_debt[v];
-    lat_charged = a.lat_charged[v];
-    lat_sum = a.lat_sum[v];
-    lat_max = a.lat_max[v];
+  if (kTiming && lane == 0) {
+    tm = {a.lat_now[v], a.lat_busy[v], a.lat_debt[v], a.lat_charged[v], a.lat_sum[v],
+          a.lat_max[v]};
   }
-  const bool deferring = kDefer && sched == kIdleWindow;
-  int free_rows = deferring ? count_free_rows(vol.state, R) : 0;
   // lane c holds class slot c's open segment and counters
   const long long cls0 = static_cast<long long>(v) * C;
   const bool has_class = lane < C;
   int open_sid = has_class ? a.open_sid[cls0 + lane] : 0;
   int class_user = has_class ? a.class_user[cls0 + lane] : 0;
   int class_gc = has_class ? a.class_gc[cls0 + lane] : 0;
-  // a stateful scheme's tables and its scalars (stateful_ops.cuh)
-  const bool stateful = kStateful && stateful_ops::is_stateful(scheme);
-  const bool reads_next = stateful && scheme == stateful_ops::kFk;
-  stateful_ops::Tables tables{};
-  stateful_ops::Scalars scalars{};
-  if (stateful) {
-    tables = volume_tables(a, v, scheme);
+  meta.load(lane);
+  // a stateful scheme's scalars, and an sfs volume's row of the refresh scratch
+  const int slot = kStateful && scheme == stateful_ops::kSfs ? sfs_slot(a.p_scheme, v, lane) : 0;
+  if (stateful && lane == 0) {
     stateful_ops::load_scalars(scheme, a.sch_sfs_since + v, a.sch_sfs_ready + v,
                                a.sch_sfs_bounds + v * stateful_ops::kBounds, a.sch_sfr_prev + v,
                                a.sch_warcip_cent + v * stateful_ops::kCentroids,
-                               a.sch_warcip_cnt + v * stateful_ops::kCentroids, scalars);
+                               a.sch_warcip_cnt + v * stateful_ops::kCentroids, sc);
   }
+  __syncwarp();   // the metadata and scalars in place before any lane reads them
+  int free_rows = deferring ? count_free_rows(meta, R, lane) : 0;
 
-  const int* trace = a.trace + static_cast<long long>(v) * a.n_steps;
-  const int* next_row = reads_next ? a.nxt + static_cast<long long>(v) * a.n_steps : nullptr;
+  const long long trace0 = static_cast<long long>(v) * a.n_steps;
   for (int base = 0; base < a.n_steps; base += 32) {
-    const int ahead = base + lane < a.n_steps ? trace[base + lane] : -1;
-    const int next_ahead = reads_next && base + lane < a.n_steps ? next_row[base + lane] : 0;
+    // the warp reads 32 steps at once; lane k asks L2 for the lines step
+    // base + k's user write will read
+    const int ahead = base + lane < a.n_steps ? a.trace[trace0 + base + lane] : -1;
+    const int next_ahead = reads_next && base + lane < a.n_steps ? a.nxt[trace0 + base + lane] : 0;
+    if (ahead >= 0) {
+      stateful_ops::prefetch_l2(a.loc_seg + lba0 + ahead);
+      stateful_ops::prefetch_l2(a.loc_off + lba0 + ahead);
+      stateful_ops::prefetch_l2(a.last_uw + lba0 + ahead);
+      if (stateful) stateful_ops::prefetch_user(scheme, volume_tables(a, v, 0), ahead);
+    }
     const int n_here = min(32, a.n_steps - base);
     for (int k = 0; k < n_here; ++k) {
       const int lba = __shfl_sync(kFull, ahead, k);
@@ -389,45 +693,47 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
       __syncwarp();
 
       // ---- user write (torchsim._user_write) ----
-      const int old_sid = vol.loc_seg[lba], old_off = vol.loc_off[lba];
-      const int lifespan = wrap_sub(t, vol.last_uw[lba]);
+      const int old_sid = a.loc_seg[lba0 + lba], old_off = a.loc_off[lba0 + lba];
+      const int lifespan = wrap_sub(t, a.last_uw[lba0 + lba]);
       const bool had_old = old_sid >= 0;
       int cls;
       if (stateful) {   // the scheme's class, its tables updated (stateful.user_classes)
         const int next = reads_next ? __shfl_sync(kFull, next_ahead, k) : 0;
-        cls = stateful_ops::user_class(scheme, tables, scalars, lba, t, next, lane);
+        cls = stateful_ops::user_class(scheme, volume_tables(a, v, slot), sc, lba, t, next,
+                                       lane);
       } else {
         cls = engine_ops::classify_one(scheme, ell, lifespan, 0, false, false);
       }
       const int sid = __shfl_sync(kFull, open_sid, cls);
-      const int off = vol.n[sid];
+      const int off = meta.n(sid);
       const int n_new = sid == pad ? min(off + 1, s) : off + 1;
+      __syncwarp();     // every lane's reads before lane 0 writes
       if (lane == 0) {
         if (had_old) {
-          if (old_off < s) vol.valid[static_cast<long long>(old_sid) * s + old_off] = 0;
-          atomicSub(&vol.nvalid[old_sid], 1);
+          if (old_off < s) a.seg_valid[(row0 + old_sid) * s + old_off] = 0;
+          meta.add_nvalid(old_sid, -1);
         }
         if (off < s) {
-          const long long at = static_cast<long long>(sid) * s + off;
-          vol.lba[at] = lba;
-          vol.utime[at] = t;
-          vol.valid[at] = 1;
+          const long long at = (row0 + sid) * s + off;
+          a.seg_lba[at] = lba;
+          a.seg_utime[at] = t;
+          a.seg_valid[at] = 1;
         }
-        vol.n[sid] = n_new;
-        atomicAdd(&vol.nvalid[sid], 1);
-        vol.loc_seg[lba] = sid;
-        vol.loc_off[lba] = off;
-        vol.last_uw[lba] = t;
+        meta.set_n(sid, n_new);
+        meta.add_nvalid(sid, 1);
+        a.loc_seg[lba0 + lba] = sid;
+        a.loc_off[lba0 + lba] = off;
+        a.last_uw[lba0 + lba] = t;
       }
       if (n_new >= s) {     // sealed: promote the first free row
-        first_free_rows(vol.state, R, pad, 1, sh_free, lane);
+        first_free_rows(meta, R, pad, 1, sh_free, lane);   // syncs the warp
         const int fresh = sh_free[0];
         if (lane == 0) {
-          vol.state[sid] = 2;
-          vol.stime[sid] = t;
-          vol.state[fresh] = 1;
-          vol.cls[fresh] = cls;
-          vol.ctime[fresh] = t;
+          meta.set_state(sid, 2);
+          meta.set_stime(sid, t);
+          meta.set_state(fresh, 1);
+          meta.set_cls(fresh, cls);
+          a.seg_ctime[row0 + fresh] = t;
         }
         if (lane == cls) open_sid = fresh;
         overflow += fresh == pad ? 1 : 0;
@@ -435,8 +741,8 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
       }
       lat_dens = __fadd_rn(__fmul_rn(lat_dens, a.dens_keep), a.dens_add);
       if (kTiming) {   // torchsim._user_latency
-        const float arrive = lat_now;
-        const float latency = __fadd_rn(fmaxf(__fsub_rn(lat_busy, arrive), 0.0f), a.write_cost);
+        const float arrive = tm.now;
+        const float latency = __fadd_rn(fmaxf(__fsub_rn(tm.busy, arrive), 0.0f), a.write_cost);
         // a write that waited for nothing has the ratio 1 and bucket 0
         // (logf(1) is exactly 0): most writes skip the logarithm
         float b = 0.0f;
@@ -444,15 +750,18 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
           const float log2 = __fdiv_rn(logf(__fdiv_rn(latency, a.write_cost)), a.ln2);
           b = fminf(fmaxf(floorf(__fmul_rn(4.0f, log2)), 0.0f), __int2float_rn(a.lat_buckets - 1));
         }
-        lat_now = __fadd_rn(arrive, latency);
-        lat_sum = __fadd_rn(lat_sum, latency);
-        lat_max = fmaxf(lat_max, latency);
-        if (lane == 0) atomicAdd(&lat_hist[__float2int_rz(b)], 1);
+        const float sum = __fadd_rn(tm.sum, latency), most = fmaxf(tm.max, latency);
+        __syncwarp();
+        if (lane == 0) {
+          tm.now = __fadd_rn(arrive, latency);
+          tm.sum = sum;
+          tm.max = most;
+          atomicAdd(&a.lat_hist[static_cast<long long>(v) * a.lat_buckets + __float2int_rz(b)], 1);
+        }
       }
       t += 1;
       total_occ += 1;
       total_valid += had_old ? 0 : 1;
-      user_writes += 1;
       if (lane == cls) class_user += 1;
       __syncwarp();
 
@@ -464,22 +773,20 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
         if (!(gp > gp_limit)) break;
         if (deferring && lat_dens > a.idle_density && free_rows >= a.watermark_rows) break;
         ++iters;
-        const int victim = select_victim(vol, R, t, selector, lane);
+        const int victim = select_victim<kStateful>(meta, R, t, selector, wbase + L.scan, lane);
         if (victim < 0) break;    // stalled for the rest of this step
 
         // ---- rewrite the victim (torchsim._gc_once) ----
-        const long long vslot0 = static_cast<long long>(victim) * s;
-        const int k_total = vol.nvalid[victim], victim_n = vol.n[victim];
-        const int victim_cls = vol.cls[victim], victim_ctime = vol.ctime[victim];
+        const long long vslot0 = (row0 + victim) * s;
+        int victim_n, k_total;
+        meta.counts(victim, victim_n, k_total);
+        const int victim_cls = meta.cls(victim), victim_ctime = a.seg_ctime[row0 + victim];
         for (int j = lane; j < s; j += 32) {
-          sh_lba[j] = vol.lba[vslot0 + j];
-          sh_utime[j] = vol.utime[vslot0 + j];
-          sh_valid[j] = vol.valid[vslot0 + j];
+          sh_lba[j] = a.seg_lba[vslot0 + j];
+          sh_utime[j] = a.seg_utime[vslot0 + j];
+          sh_valid[j] = a.seg_valid[vslot0 + j];
         }
-        const int n0 = has_class ? vol.n[open_sid] : 0;
-        first_free_rows(vol.state, R, pad, C, sh_free, lane);   // syncs the warp
-        const int free_row = has_class ? sh_free[lane] : pad;
-
+        const int n0 = has_class ? meta.n(open_sid) : 0;
         // ℓ bookkeeping (Algorithm 1 lines 4-9)
         const bool is_c1 = victim_cls == 0;
         nc += is_c1 ? 1 : 0;
@@ -490,20 +797,25 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
           nc = 0;
           ell_tot = 0.0f;
         }
+        first_free_rows(meta, R, pad, C, sh_free, lane);   // syncs the warp
+        const int free_row = has_class ? sh_free[lane] : pad;
 
         if (kStateful) {
           // every slot's class before any table changes (stateful.gc_classes
           // reads them all, then dac and ml write theirs): -1 for a dead slot
           for (int j = lane; j < s; j += 32) {
             const bool live = sh_valid[j] != 0;
-            sh_cls[j] = !live ? -1
-                        : stateful ? stateful_ops::gc_class(scheme, tables, scalars, sh_lba[j], t)
+            sh_cls[j] = !live     ? -1
+                        : stateful ? stateful_ops::gc_class(scheme, volume_tables(a, v, slot), sc,
+                                                            sh_lba[j], t)
                                    : engine_ops::classify_one(scheme, ell, 0,
                                                               wrap_sub(t, sh_utime[j]), is_c1,
                                                               true);
           }
           __syncwarp();
-          if (stateful) stateful_ops::gc_update(scheme, tables, sh_lba, sh_cls, s, lane);
+          if (stateful) {
+            stateful_ops::gc_update(scheme, volume_tables(a, v, slot), sh_lba, sh_cls, s, lane);
+          }
         }
 
         // classes, ranks and destinations of the victim's slots, 32 at a time
@@ -512,9 +824,10 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
         for (int b = 0; b < s; b += 32) {
           const int j = b + lane;
           const bool live = j < s && sh_valid[j] != 0;
+          if (!__any_sync(kFull, live)) continue;   // a round with no live slot moves nothing
           const int blk = j < s ? sh_lba[j] : 0;
           const int ut = j < s ? sh_utime[j] : 0;
-          const int c = !live ? -1
+          const int c = !live     ? -1
                         : kStateful ? sh_cls[j]
                                     : engine_ops::classify_one(scheme, ell, 0, wrap_sub(t, ut),
                                                                is_c1, true);
@@ -534,15 +847,15 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
           const int dst_sid = first ? open_c : free_c;
           const int dst_off = first ? n0_c + rank : rank - room_c;
           const bool put = live && dst_off < s;
-          const long long at = put ? static_cast<long long>(dst_sid) * s + dst_off : -1 - lane;
+          const long long at = put ? (row0 + dst_sid) * s + dst_off : -1 - lane;
           if (highest_of_group(at, lane) && put) {
-            vol.lba[at] = blk;
-            vol.utime[at] = ut;
-            vol.valid[at] = 1;
+            a.seg_lba[at] = blk;
+            a.seg_utime[at] = ut;
+            a.seg_valid[at] = 1;
           }
           if (highest_of_group(live ? blk : -1 - lane, lane) && live) {
-            vol.loc_seg[blk] = dst_sid;
-            vol.loc_off[blk] = dst_off;
+            a.loc_seg[lba0 + blk] = dst_sid;
+            a.loc_off[lba0 + blk] = dst_off;
           }
           __syncwarp();
         }
@@ -552,71 +865,81 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
         const int took1 = min(per_cls, room), took2 = per_cls - took1;
         const bool sealed = has_class && lane < live_classes && n0 + took1 >= s;
         if (has_class) {
-          if (took1 > 0) {
-            atomicAdd(&vol.n[open_sid], took1);
-            atomicAdd(&vol.nvalid[open_sid], took1);
-          }
-          if (took2 > 0) {
-            atomicAdd(&vol.n[free_row], took2);
-            atomicAdd(&vol.nvalid[free_row], took2);
-          }
-          if (n0 == 0 && per_cls > 0) vol.ctime[open_sid] = t;
+          if (took1 > 0) meta.add_counts(open_sid, took1);
+          if (took2 > 0) meta.add_counts(free_row, took2);
+          if (n0 == 0 && per_cls > 0) a.seg_ctime[row0 + open_sid] = t;
           if (sealed) {
-            vol.state[open_sid] = 2;
-            vol.stime[open_sid] = t;
+            meta.set_state(open_sid, 2);
+            meta.set_stime(open_sid, t);
           }
         }
         __syncwarp();
         if (highest_of_group(sealed ? free_row : -1 - lane, lane) && sealed) {
-          vol.state[free_row] = 1;
-          vol.cls[free_row] = lane;
-          vol.ctime[free_row] = t;
+          meta.set_state(free_row, 1);
+          meta.set_cls(free_row, lane);
+          a.seg_ctime[row0 + free_row] = t;
         }
         const bool pad_fill = has_class && ((open_sid == pad && took1 > 0) ||
                                             (free_row == pad && took2 > 0));
         overflow += __popc(
             __ballot_sync(kFull, has_class && free_row == pad && (took2 > 0 || sealed)));
-        if (deferring) {   // the free rows promoted, and the victim released below
-          free_rows -= __popc(__ballot_sync(kFull, sealed && free_row != pad));
-          free_rows += victim == pad ? 0 : 1;
-        }
+        // the free rows promoted here (idle_window counts them)
+        const int promoted =
+            deferring ? __popc(__ballot_sync(kFull, sealed && free_row != pad)) : 0;
         if (sealed) open_sid = free_row;
         const bool cap_pad = __any_sync(kFull, pad_fill);
         __syncwarp();
-        if (cap_pad && lane == 0 && vol.n[pad] > s) vol.n[pad] = s;
+        if (cap_pad && lane == 0) meta.cap_pad(s);
         __syncwarp();
 
-        // release the victim; the pad row returns to reserved state 3
+        // release the victim (the pad row returns to reserved state 3; its
+        // dead slots' flags are 0 already); the volume's counters
         if (lane == 0) {
-          vol.state[victim] = victim == pad ? 3 : 0;
-          vol.n[victim] = 0;
-          vol.nvalid[victim] = 0;
+          meta.set_state(victim, victim == pad ? 3 : 0);
+          meta.clear_counts(victim);
         }
-        for (int j = lane; j < s; j += 32) vol.valid[vslot0 + j] = 0;
+        for (int j = lane; j < s; j += 32) a.seg_valid[vslot0 + j] = 0;
+        // the rewrite's device time, booked as debt
+        const float booked = __fmul_rn(__int2float_rn(k_total), a.gc_block_cost);
+        const float debt = kTiming ? __fadd_rn(tm.debt, booked) : 0.0f;
         __syncwarp();
+        if (kTiming && lane == 0) tm.debt = debt;
         total_occ = total_occ - victim_n + k_total;
+        if (deferring) free_rows += (victim == pad ? 0 : 1) - promoted;
         gc_writes += k_total;
         reclaimed += 1;
         class_gc += per_cls;
-        if (kTiming) {   // the rewrite's device time, booked as debt
-          lat_debt = __fadd_rn(lat_debt, __fmul_rn(__int2float_rn(k_total), a.gc_block_cost));
-        }
       }
       if (lane == 0 && iters > 0) atomicMax(&a.iterations[base + k], iters);
       if (kTiming) {   // torchsim._charge_gc, after the step's GC loop
-        const float charge = sched == kRateLimited ? fminf(lat_debt, a.charge_cap) : lat_debt;
-        lat_busy = __fadd_rn(fmaxf(lat_busy, lat_now), charge);
-        lat_debt = __fsub_rn(lat_debt, charge);
-        lat_charged = __fadd_rn(lat_charged, charge);
+        __syncwarp();   // the loop's last debt stored
+        const float debt = tm.debt;
+        const float charge = sched == kRateLimited ? fminf(debt, a.charge_cap) : debt;
+        const float busy = __fadd_rn(fmaxf(tm.busy, tm.now), charge);
+        const float charged = __fadd_rn(tm.charged, charge);
+        __syncwarp();
+        if (lane == 0) {
+          tm.busy = busy;
+          tm.debt = __fsub_rn(debt, charge);
+          tm.charged = charged;
+        }
       }
     }
   }
 
+  __syncwarp();
+  meta.store(lane);
+  if (has_class) {
+    a.open_sid[cls0 + lane] = open_sid;
+    a.class_user[cls0 + lane] = class_user;
+    a.class_gc[cls0 + lane] = class_gc;
+  }
   if (lane == 0) {
+    // user writes advance with t: one each per written step
+    a.user_writes[v] = wrap_add(a.user_writes[v], wrap_sub(t, a.t[v]));
     a.t[v] = t;
     a.total_occ[v] = total_occ;
     a.total_valid[v] = total_valid;
-    a.user_writes[v] = user_writes;
     a.gc_writes[v] = gc_writes;
     a.reclaimed[v] = reclaimed;
     a.overflow[v] = overflow;
@@ -625,44 +948,71 @@ __global__ void __launch_bounds__(32) replay_kernel(const ReplayArgs a) {
     a.ell_tot[v] = ell_tot;
     a.lat_dens[v] = lat_dens;
     if (kTiming) {
-      a.lat_now[v] = lat_now;
-      a.lat_busy[v] = lat_busy;
-      a.lat_debt[v] = lat_debt;
-      a.lat_charged[v] = lat_charged;
-      a.lat_sum[v] = lat_sum;
-      a.lat_max[v] = lat_max;
+      a.lat_now[v] = tm.now;
+      a.lat_busy[v] = tm.busy;
+      a.lat_debt[v] = tm.debt;
+      a.lat_charged[v] = tm.charged;
+      a.lat_sum[v] = tm.sum;
+      a.lat_max[v] = tm.max;
     }
-  }
-  if (has_class) {
-    a.open_sid[cls0 + lane] = open_sid;
-    a.class_user[cls0 + lane] = class_user;
-    a.class_gc[cls0 + lane] = class_gc;
-  }
-  if (stateful && lane == 0) {
-    stateful_ops::store_scalars(scheme, scalars, a.sch_sfs_since + v, a.sch_sfs_ready + v,
-                                a.sch_sfs_bounds + v * stateful_ops::kBounds, a.sch_sfr_prev + v,
-                                a.sch_warcip_cent + v * stateful_ops::kCentroids,
-                                a.sch_warcip_cnt + v * stateful_ops::kCentroids);
+    if (stateful) {
+      stateful_ops::store_scalars(scheme, sc, a.sch_sfs_since + v, a.sch_sfs_ready + v,
+                                  a.sch_sfs_bounds + v * stateful_ops::kBounds,
+                                  a.sch_sfr_prev + v,
+                                  a.sch_warcip_cent + v * stateful_ops::kCentroids,
+                                  a.sch_warcip_cnt + v * stateful_ops::kCentroids);
+    }
   }
 }
 
-template <bool kTiming, bool kDefer, bool kStateful>
-int launch_instance(const ReplayArgs& a, size_t smem, cudaStream_t st) {
-  auto* kernel = replay_kernel<kTiming, kDefer, kStateful>;
-  if (smem > 48 * 1024) {   // past the default cap of dynamic shared memory
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// One instance: its launch, or (`occupancy` not null) its resident blocks
+// per SM, registers and local-memory bytes a thread.
+template <bool kTiming, bool kDefer, bool kStateful, bool kSharedMeta>
+int run_instance(const ReplayArgs& a, const WarpLayout& L, cudaStream_t st, int* occupancy) {
+  const size_t smem = static_cast<size_t>(a.warps) * L.total;
+  auto* kernel = replay_kernel<kTiming, kDefer, kStateful, kSharedMeta>;
+  // the CUDA runtime sizes the shared-memory carveout for the occupancy,
+  // so the rest of the SM's 256 KB stays L1 (spills, the victim's slots)
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (occupancy != nullptr) {
+    cudaFuncAttributes attr{};
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy[0], kernel, 32 * a.warps,
+                                                          smem);
+    }
+    occupancy[1] = attr.numRegs;
+    occupancy[2] = static_cast<int>(attr.localSizeBytes);
+    return static_cast<int>(err);
   }
-  kernel<<<a.n_volumes, 32, smem, st>>>(a);
+  kernel<<<(a.n_volumes + a.warps - 1) / a.warps, 32 * a.warps, smem, st>>>(a, L);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kTiming, bool kDefer>
-int launch_stateful_or_not(const ReplayArgs& a, size_t smem, cudaStream_t st) {
-  return a.stateful ? launch_instance<kTiming, kDefer, true>(a, smem, st)
-                    : launch_instance<kTiming, kDefer, false>(a, smem, st);
+int run_stateful_or_not(const ReplayArgs& a, const WarpLayout& L, cudaStream_t st,
+                        int* occupancy) {
+  if (a.stateful) {
+    return a.shared_meta ? run_instance<kTiming, kDefer, true, true>(a, L, st, occupancy)
+                         : run_instance<kTiming, kDefer, true, false>(a, L, st, occupancy);
+  }
+  return a.shared_meta ? run_instance<kTiming, kDefer, false, true>(a, L, st, occupancy)
+                       : run_instance<kTiming, kDefer, false, false>(a, L, st, occupancy);
+}
+
+int run(const ReplayArgs& a, cudaStream_t st, int* occupancy) {
+  const WarpLayout L = warp_layout(a.seg_size, a.n_rows, a.n_classes, a.stateful != 0,
+                                   a.shared_meta != 0);
+  if (a.warps < 1 || a.warps > kMaxWarps || a.smem_per_warp != L.total ||
+      a.seg_size > kMaxSegSize || a.n_classes > kMaxClasses) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a.timing && a.defer) return run_stateful_or_not<true, true>(a, L, st, occupancy);
+  if (a.timing) return run_stateful_or_not<true, false>(a, L, st, occupancy);
+  if (a.defer) return run_stateful_or_not<false, true>(a, L, st, occupancy);
+  return run_stateful_or_not<false, false>(a, L, st, occupancy);
 }
 
 }  // namespace
@@ -670,23 +1020,24 @@ int launch_stateful_or_not(const ReplayArgs& a, size_t smem, cudaStream_t st) {
 // Largest segment size and class-slot count the kernel takes (its shared
 // scratch and one lane per class slot).
 extern "C" int replay_limits(int* max_seg_size, int* max_classes) {
-  *max_seg_size = 4096;
+  *max_seg_size = kMaxSegSize;
   *max_classes = kMaxClasses;
   return 0;
 }
 
-// Replays a (V, T) trace through the state named in `args`, in place, one
-// block of one warp per volume. Launches on `stream`; returns
-// cudaGetLastError().
+// Replays a (V, T) trace through the state named in `args`, in place,
+// `args->warps` volumes per block, one warp each. Launches on `stream`;
+// returns cudaGetLastError() (cudaErrorInvalidValue, launching nothing,
+// when the geometry in `args` is not the kernel's).
 extern "C" int replay_launch(const ReplayArgs* args, void* stream) {
   if (args->n_volumes <= 0) return static_cast<int>(cudaGetLastError());
-  const ReplayArgs& a = *args;
-  // the victim's LBAs, times (and, for kStateful, classes) as ints, its valid flags as bytes
-  const size_t smem =
-      sizeof(int) * (kMaxClasses + (a.stateful ? 3 : 2) * a.seg_size) + a.seg_size;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.timing && a.defer) return launch_stateful_or_not<true, true>(a, smem, st);
-  if (a.timing) return launch_stateful_or_not<true, false>(a, smem, st);
-  if (a.defer) return launch_stateful_or_not<false, true>(a, smem, st);
-  return launch_stateful_or_not<false, false>(a, smem, st);
+  return run(*args, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// For the instance and geometry `args` name: out[0] its resident blocks per
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] its registers a
+// thread, out[2] its local memory a thread (spills and stack). Launches
+// nothing.
+extern "C" int replay_occupancy(const ReplayArgs* args, int* out) {
+  return run(*args, nullptr, out);
 }

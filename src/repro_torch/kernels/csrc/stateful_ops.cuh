@@ -12,9 +12,11 @@
 //
 // Every function is called by all 32 lanes of the volume's warp with the
 // same arguments; lane 0 does the writes, after a __syncwarp that orders
-// them behind every lane's reads. The per-volume reductions (eti's mean of
-// its extent counters, sfs's quantiles of the seen LBAs' hotness) run over
-// the volume's own entries, lane j taking entries j, j + 32, ...
+// them behind every lane's reads. The per-volume scalars (`Scalars`) live
+// once per warp in shared memory: every lane reads them, lane 0 writes
+// them. The per-volume reductions (eti's mean of its extent counters, sfs's
+// quantiles of the seen LBAs' hotness) run over the volume's own entries,
+// lane j taking entries j, j + 32, ...
 
 #pragma once
 
@@ -65,7 +67,7 @@ struct Tables {
   int sfs_resample;
 };
 
-// One volume's scalar state, in registers for the whole replay.
+// One volume's scalar state, in the warp's shared memory for the whole replay.
 struct Scalars {
   int sfs_since;
   bool sfs_ready;
@@ -90,16 +92,6 @@ __device__ __forceinline__ T warp_sum(T x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kAll, x, off);
   return x;
-}
-
-// x[i] of a register array indexed by a runtime value, as selects (a
-// dynamic index would put the array in local memory)
-template <int N>
-__device__ __forceinline__ float pick(const float (&x)[N], int i) {
-  float out = x[0];
-#pragma unroll
-  for (int k = 1; k < N; ++k) out = i == k ? x[k] : out;
-  return out;
 }
 
 // -- temperature_shared's helpers ------------------------------------------------
@@ -143,13 +135,13 @@ __device__ __forceinline__ float sfs_hotness(int count, int first, int t) {
 
 // jnp.searchsorted(bounds, h), side "left": JAX's binary search of
 // ceil(log2(6)) = 3 halvings, step for step
-__device__ __forceinline__ int searchsorted_left(const float (&b)[kBounds], float h) {
+__device__ __forceinline__ int searchsorted_left(const float* b, float h) {
   bool left = h <= b[kBounds / 2];
   int low = left ? 0 : kBounds / 2, high = left ? kBounds / 2 : kBounds;
 #pragma unroll
   for (int it = 0; it < 2; ++it) {
     const int mid = (low + high) / 2;
-    left = h <= pick(b, mid);
+    left = h <= b[mid];
     low = left ? low : mid;
     high = left ? mid : high;
   }
@@ -168,13 +160,19 @@ __device__ __forceinline__ int sfs_class(const Scalars& sc, float h) {
 // 0, whose bits order as unsigned integers; +inf where unseen), found
 // exactly by a bitwise descent over the keys for all 10 ranks at once: at
 // each bit from the top, a rank's answer keeps the bit at 0 when enough keys
-// lie at or below the answer with the bit 0 and every lower bit 1.
-__device__ void sfs_refresh(const Tables& tb, Scalars& sc, int t, int lane) {
+// lie at or below the answer with the bit 0 and every lower bit 1. Every
+// lane computes the bounds; lane 0 stores them, and the warp syncs before
+// it returns. Not inlined: its 30-odd live values stay out of the hot loop's
+// register budget (a refresh runs once per sfs_resample writes); it takes
+// its tables as pointers, so no caller keeps a `Tables` in local memory.
+__device__ __noinline__ void sfs_refresh(const int* sfs_first, const int* sfs_count,
+                                         unsigned* sfs_keys, int n_lbas, Scalars& sc, int t,
+                                         int lane) {
   int seen = 0;
-  for (int j = lane; j < tb.n_lbas; j += 32) {
-    const int first = tb.sfs_first[j];
+  for (int j = lane; j < n_lbas; j += 32) {
+    const int first = sfs_first[j];
     const bool is_seen = first >= 0;
-    tb.sfs_keys[j] = is_seen ? __float_as_uint(sfs_hotness(tb.sfs_count[j], first, t)) : kInfBits;
+    sfs_keys[j] = is_seen ? __float_as_uint(sfs_hotness(sfs_count[j], first, t)) : kInfBits;
     seen += is_seen ? 1 : 0;
   }
   const int kk = warp_sum(seen);
@@ -203,8 +201,8 @@ __device__ void sfs_refresh(const Tables& tb, Scalars& sc, int t, int lane) {
     int below[2 * kBounds];
 #pragma unroll
     for (int r = 0; r < 2 * kBounds; ++r) below[r] = 0;
-    for (int j = lane; j < tb.n_lbas; j += 32) {
-      const unsigned key = tb.sfs_keys[j];
+    for (int j = lane; j < n_lbas; j += 32) {
+      const unsigned key = sfs_keys[j];
 #pragma unroll
       for (int r = 0; r < 2 * kBounds; ++r) below[r] += key <= (ans[r] | low_ones) ? 1 : 0;
     }
@@ -215,15 +213,18 @@ __device__ void sfs_refresh(const Tables& tb, Scalars& sc, int t, int lane) {
   }
   // hs[hi] * frac + hs[lo] * (1 - frac) with one rounding of the fused
   // product and sum, in float64 (the product of two float32 is exact there)
+  if (lane == 0) {
 #pragma unroll
-  for (int i = 0; i < kBounds; ++i) {
-    const float lo_v = __uint_as_float(ans[2 * i]), hi_v = __uint_as_float(ans[2 * i + 1]);
-    const float c = __fmul_rn(lo_v, __fsub_rn(1.0f, frac[i]));
-    sc.sfs_bounds[i] = __double2float_rn(__dadd_rn(
-        __dmul_rn(static_cast<double>(hi_v), static_cast<double>(frac[i])),
-        static_cast<double>(c)));
+    for (int i = 0; i < kBounds; ++i) {
+      const float lo_v = __uint_as_float(ans[2 * i]), hi_v = __uint_as_float(ans[2 * i + 1]);
+      const float c = __fmul_rn(lo_v, __fsub_rn(1.0f, frac[i]));
+      sc.sfs_bounds[i] = __double2float_rn(__dadd_rn(
+          __dmul_rn(static_cast<double>(hi_v), static_cast<double>(frac[i])),
+          static_cast<double>(c)));
+    }
+    sc.sfs_ready = true;
   }
-  sc.sfs_ready = true;
+  __syncwarp();
 }
 
 // -- eti ------------------------------------------------------------------------
@@ -290,21 +291,26 @@ __device__ __forceinline__ void store_scalars(int scheme, const Scalars& sc, int
 // -- user writes (stateful.user_classes) -------------------------------------------
 
 // The class of a user write of `lba` at time `t` (before the write) under a
-// stateful `scheme`, updating the scheme's tables as the step engine does;
-// `next` is fk's next-write index of this write. Every lane calls it.
-__device__ int user_class(int scheme, const Tables& tb, Scalars& sc, int lba, int t, int next,
-                          int lane) {
+// stateful `scheme`, updating the scheme's tables and the warp's scalars
+// `sc` (shared memory) as the step engine does; `next` is fk's next-write
+// index of this write. Every lane calls it; it returns behind a __syncwarp,
+// so the next reads of `sc` see its writes.
+__device__ __forceinline__ int user_class(int scheme, const Tables& tb, Scalars& sc, int lba,
+                                          int t, int next, int lane) {
+  int cls = 0;
   switch (scheme) {
     case kFk: {
       __syncwarp();
       if (lane == 0) tb.fk_bit[lba] = next;
-      return fk_class(next, t, tb.seg_size);
+      cls = fk_class(next, t, tb.seg_size);
+      break;
     }
     case kDac: {
       const int r = clampi(tb.dac_region[lba] + 1, 1, kClasses - 1);
       __syncwarp();
       if (lane == 0) tb.dac_region[lba] = r;
-      return kClasses - 1 - r;
+      cls = kClasses - 1 - r;
+      break;
     }
     case kMl: {
       const int c = tb.ml_count[lba] + 1;
@@ -314,23 +320,27 @@ __device__ int user_class(int scheme, const Tables& tb, Scalars& sc, int lba, in
         tb.ml_count[lba] = c;
         tb.ml_level[lba] = lvl;
       }
-      return kClasses - 1 - lvl;
+      cls = kClasses - 1 - lvl;
+      break;
     }
     case kSfs: {
       const int f0 = tb.sfs_first[lba];
       const int f1 = f0 < 0 ? t : f0;
       const int c1 = tb.sfs_count[lba] + 1;
+      const int since = sc.sfs_since + 1;
       __syncwarp();
       if (lane == 0) {
         tb.sfs_first[lba] = f1;
         tb.sfs_count[lba] = c1;
       }
       __syncwarp();   // the refresh reads the tables with this write in them
-      const int since = sc.sfs_since + 1;
       const bool tick = since >= tb.sfs_resample;
-      if (tick) sfs_refresh(tb, sc, t, lane);
-      sc.sfs_since = tick ? 0 : since;
-      return sfs_class(sc, sfs_hotness(c1, f1, t));
+      if (tick) {   // stores the bounds, then syncs
+        sfs_refresh(tb.sfs_first, tb.sfs_count, tb.sfs_keys, tb.n_lbas, sc, t, lane);
+      }
+      if (lane == 0) sc.sfs_since = tick ? 0 : since;
+      cls = sfs_class(sc, sfs_hotness(c1, f1, t));
+      break;
     }
     case kEti: {
       const int e = lba / kEtiExtent;
@@ -356,7 +366,8 @@ __device__ int user_class(int scheme, const Tables& tb, Scalars& sc, int lba, in
         tb.eti_count[e] = c_new;
         tb.eti_last[e] = before;
       }
-      return hot ? 0 : 1;
+      cls = hot ? 0 : 1;
+      break;
     }
     case kMq: {
       const int f = tb.mq_freq[lba] + 1;
@@ -370,7 +381,8 @@ __device__ int user_class(int scheme, const Tables& tb, Scalars& sc, int lba, in
         tb.mq_level[lba] = lvl;
         tb.mq_expire[lba] = wrap_add(t, 4 * tb.seg_size);
       }
-      return clampi(4 - lvl, 0, 5);
+      cls = clampi(4 - lvl, 0, 5);
+      break;
     }
     case kSfr: {
       const int ch = lba / kChunk;
@@ -381,8 +393,8 @@ __device__ int user_class(int scheme, const Tables& tb, Scalars& sc, int lba, in
       if (lane == 0) {
         tb.sfr_freq[ch] = freq;
         tb.sfr_last[ch] = t;
+        sc.sfr_prev = lba;
       }
-      sc.sfr_prev = lba;
       // 0.4 * min(freq / 16, 1) + 0.4 / (1 + ln 2 * log2(dt + 1)) + 0.2 * (1 - seq)
       const float ln = __fmul_rn(0.6931471805599453f, log2_interp(wrap_add(dt, 1)));
       const float rec = __fdiv_rn(1.0f, __fadd_rn(1.0f, ln));
@@ -390,7 +402,8 @@ __device__ int user_class(int scheme, const Tables& tb, Scalars& sc, int lba, in
       const float score = __fadd_rn(__fadd_rn(__fmul_rn(0.4f, fnorm), __fmul_rn(0.4f, rec)),
                                     __fmul_rn(0.2f, __fsub_rn(1.0f, seq_f)));
       const int lvl = __float2int_rz(fminf(fmaxf(__fmul_rn(score, 5.0f), 0.0f), 4.0f));
-      return clampi(4 - lvl, 0, 5);
+      cls = clampi(4 - lvl, 0, 5);
+      break;
     }
     case kFadac: {
       const int ch = lba / kChunk;
@@ -400,7 +413,8 @@ __device__ int user_class(int scheme, const Tables& tb, Scalars& sc, int lba, in
         tb.fadac_count[ch] = cnt;
         tb.fadac_last[ch] = t;
       }
-      return fadac_class(cnt);
+      cls = fadac_class(cnt);
+      break;
     }
     case kWarcip: {
       const int last = tb.warcip_last[lba];
@@ -417,24 +431,64 @@ __device__ int user_class(int scheme, const Tables& tb, Scalars& sc, int lba, in
           j = k;
         }
       }
-      if (known) {   // the online k-means step; the count increments before the capped divisor
-#pragma unroll
-        for (int k = 0; k < kCentroids; ++k) {
-          if (k == j) {
-            const float c2 = __fadd_rn(sc.warcip_cnt[k], 1.0f);
-            sc.warcip_cent[k] = __fadd_rn(
-                sc.warcip_cent[k],
-                __fdiv_rn(__fsub_rn(li, sc.warcip_cent[k]), fminf(c2, 1024.0f)));
-            sc.warcip_cnt[k] = c2;
-          }
-        }
-      }
+      // the online k-means step; the count increments before the capped divisor
+      const float c2 = __fadd_rn(sc.warcip_cnt[j], 1.0f);
+      const float cent = __fadd_rn(sc.warcip_cent[j],
+                                   __fdiv_rn(__fsub_rn(li, sc.warcip_cent[j]), fminf(c2, 1024.0f)));
       __syncwarp();
-      if (lane == 0) tb.warcip_last[lba] = t;
-      return known ? j : 4;
+      if (lane == 0) {
+        if (known) {
+          sc.warcip_cent[j] = cent;
+          sc.warcip_cnt[j] = c2;
+        }
+        tb.warcip_last[lba] = t;
+      }
+      cls = known ? j : 4;
+      break;
     }
     default:
-      return 0;
+      break;
+  }
+  __syncwarp();
+  return cls;
+}
+
+// Ask L2 for the lines a user write of `lba` under a stateful `scheme` will
+// read (a hint: the write still loads every value in order).
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+__device__ __forceinline__ void prefetch_user(int scheme, const Tables& tb, int lba) {
+  switch (scheme) {
+    case kDac:
+      prefetch_l2(tb.dac_region + lba);
+      break;
+    case kMl:
+      prefetch_l2(tb.ml_count + lba);
+      break;
+    case kSfs:
+      prefetch_l2(tb.sfs_first + lba);
+      prefetch_l2(tb.sfs_count + lba);
+      break;
+    case kMq:
+      prefetch_l2(tb.mq_freq + lba);
+      prefetch_l2(tb.mq_level + lba);
+      prefetch_l2(tb.mq_expire + lba);
+      break;
+    case kSfr:
+      prefetch_l2(tb.sfr_freq + lba / kChunk);
+      prefetch_l2(tb.sfr_last + lba / kChunk);
+      break;
+    case kFadac:
+      prefetch_l2(tb.fadac_count + lba / kChunk);
+      prefetch_l2(tb.fadac_last + lba / kChunk);
+      break;
+    case kWarcip:
+      prefetch_l2(tb.warcip_last + lba);
+      break;
+    default:          // fk only writes its entry; eti's extents stay cached
+      break;
   }
 }
 

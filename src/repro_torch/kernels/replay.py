@@ -2,7 +2,9 @@
 
 A state on the card goes to the hand-written kernel in ``csrc/replay.cu``
 (one warp per volume runs every user write of its trace and its GC loop,
-with victim selection and GC classification inside). The kernel's plain
+with victim selection and GC classification inside; a block holds up to
+four volumes, and where a volume's rows fit, its segment metadata lives in
+shared memory for the whole replay: `geometry`). The kernel's plain
 version is the step engine of `core.torchsim` (`_user_write` and
 `fleet_gc_tick` once per lockstep step), which `torchsim` runs for a state
 on the CPU; this wrapper takes only CUDA tensors and raises on any other.
@@ -66,24 +68,86 @@ class ReplayArgs(ctypes.Structure):
                 + [(name, ctypes.c_float) for name in ("write_cost", "gc_block_cost",
                                                        "charge_cap", "idle_density", "ln2")]
                 + [(name, ctypes.c_int) for name in ("watermark_rows", "lat_buckets",
-                                                     "stateful", "sfs_resample")])
+                                                     "stateful", "sfs_resample", "warps",
+                                                     "shared_meta", "smem_per_warp")])
 
 
 class Instance(NamedTuple):
     """What `check_inputs` learned of a fleet, for `launch` (which makes no
     host sync): whether some volume runs idle_window (the kDefer instance),
     some volume a stateful scheme (kStateful), some volume fk (the kernel
-    reads ``nxt``) and how many volumes run sfs (its refresh's scratch has
-    a row for each)."""
+    reads ``nxt``), how many volumes run sfs (its refresh's scratch has a
+    row for each) and whether the segment metadata fits the narrow fields
+    it takes in shared memory (``narrow``: every row but the pad row with
+    fill and valid counts in [0, segment_size], every state and class in
+    [0, 255], as any state `init_state` or a replay made has them)."""
 
     defer: bool
     stateful: bool
     fk: bool
     n_sfs: int
+    narrow: bool
+
+
+# The kernel's geometry, as csrc/replay.cu lays it out (kMaxWarps, Vars,
+# warp_layout; the launch refuses a geometry whose bytes differ from its own)
+MAX_WARPS = 4                  # volumes (warps) per block
+MAX_BLOCK_SMEM = 232_448       # shared memory a block may use on Hopper (227 KB)
+VARS_BYTES = 96                # a stateful scheme's and the timing model's per-volume scalars
+SCAN_CHUNK = 256               # kStateful: a compacted victim scan's rows (one byte a row)
+H100_SMS = 132
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def warp_bytes(cfg: TorchSimConfig, stateful: bool, shared_meta: bool) -> int:
+    """Shared memory of one warp: a stateful scheme's and the timing model's
+    scalars, the free rows (C ints), the victim's slots (LBAs, times, valid
+    flags; in the stateful instance, classes too and its compacted victim
+    scan's rows) and, with ``shared_meta``, the segment metadata: 10 bytes a
+    row (fill and valid counts as the 16-bit halves of one word, seal time,
+    state and class bytes) and the pad row's two 32-bit counts."""
+    s, R, C = cfg.segment_size, cfg.n_rows, cfg.n_class_slots
+    total = VARS_BYTES + _align16(4 * C) + 2 * _align16(4 * s) + _align16(s)
+    if stateful:
+        total += _align16(4 * s) + SCAN_CHUNK
+    if shared_meta:
+        total += 2 * _align16(4 * R) + 2 * _align16(R) + 16
+    return total
+
+
+class Geometry(NamedTuple):
+    """A launch's shape: ``warps`` volumes a block, ``blocks`` blocks,
+    whether the segment metadata lives in shared memory (the kSharedMeta
+    instance) and the shared memory of a warp and of a block."""
+
+    warps: int
+    blocks: int
+    shared_meta: bool
+    warp_bytes: int
+    block_bytes: int
+
+
+def geometry(cfg: TorchSimConfig, V: int, stateful: bool = False, narrow: bool = True,
+             n_sms: int = H100_SMS) -> Geometry:
+    """The launch of ``V`` volumes: up to MAX_WARPS volumes a block, fewer
+    where the fleet is smaller than the card (one volume an SM up to
+    ``n_sms`` volumes, so no SM holds two while another idles); the
+    metadata in shared memory when a block of MAX_WARPS volumes fits
+    MAX_BLOCK_SMEM with it and ``narrow`` (`Instance`) holds. The pad row's
+    counts are 32-bit there, so the shared layout takes every class-slot
+    count and segment size the kernel does; only the rows' number decides."""
+    warps = min(MAX_WARPS, max(1, -(-V // n_sms)))
+    shared_meta = bool(narrow) and MAX_WARPS * warp_bytes(cfg, stateful, True) <= MAX_BLOCK_SMEM
+    per_warp = warp_bytes(cfg, stateful, shared_meta)
+    return Geometry(warps, -(-V // warps), shared_meta, per_warp, warps * per_warp)
 
 
 _SIGNATURES = {"replay_launch": [ctypes.POINTER(ReplayArgs), ctypes.c_void_p],
-               "replay_limits": [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]}
+               "replay_limits": [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)],
+               "replay_occupancy": [ctypes.POINTER(ReplayArgs), ctypes.POINTER(ctypes.c_int)]}
 
 
 def check_inputs(cfg: TorchSimConfig, st: dict, trace, nxt=None) -> Instance:
@@ -148,7 +212,51 @@ def check_inputs(cfg: TorchSimConfig, st: dict, trace, nxt=None) -> Instance:
                          f"{max_cls.value} class slots")
     return Instance(defer=bool((st["p_gcsched"] == IDLE_WINDOW).any()),
                     stateful=any(SCHEMES[i].elementwise is None for i in ids), fk=fk,
-                    n_sfs=int((st["p_scheme"] == SFS).sum()) if SFS in ids else 0)
+                    n_sfs=int((st["p_scheme"] == SFS).sum()) if SFS in ids else 0,
+                    narrow=narrow_metadata(cfg, st))
+
+
+def narrow_metadata(cfg: TorchSimConfig, st: dict) -> bool:
+    """Whether the state's segment metadata fits the narrow fields the
+    kernel keeps in shared memory: every row but the pad row with its fill
+    and valid counts in [0, segment_size] (a replay keeps them there), every
+    state and class in [0, 255]. The pad row's counts are 32-bit there."""
+    counts = torch.cat([st["seg_n"][:, :-1], st["seg_nvalid"][:, :-1]], dim=1)
+    codes = torch.cat([st["seg_state"], st["seg_cls"]], dim=1)
+    wide = ((counts < 0) | (counts > cfg.segment_size)).any() | ((codes < 0) | (codes > 255)).any()
+    return not bool(wide)
+
+
+def _geometry_args(cfg: TorchSimConfig, V: int, inst: Instance, device) -> tuple:
+    """The launch's `Geometry` on ``device``'s SM count, and a `ReplayArgs`
+    with the fields that name the instance and the geometry set (the
+    pointers null)."""
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    geo = geometry(cfg, V, inst.stateful, inst.narrow, n_sms)
+    args = ReplayArgs(n_volumes=V, n_rows=cfg.n_rows, seg_size=cfg.segment_size,
+                      n_classes=cfg.n_class_slots, timing=int(cfg.timing),
+                      defer=int(inst.defer), stateful=int(inst.stateful), warps=geo.warps,
+                      shared_meta=int(geo.shared_meta), smem_per_warp=geo.warp_bytes)
+    return geo, args
+
+
+def occupancy(cfg: TorchSimConfig, V: int, inst: Instance, device="cuda") -> dict:
+    """The instance a launch of ``V`` volumes would run, without launching
+    it: its geometry, its registers and local memory a thread, its resident
+    blocks per SM (CUDA's occupancy calculator), the volumes the card holds
+    at once and the waves the fleet takes."""
+    device = torch.device(device)
+    geo, args = _geometry_args(cfg, V, inst, device)
+    out = (ctypes.c_int * 3)()
+    err = build.library("replay", _SIGNATURES).replay_occupancy(ctypes.byref(args), out)
+    if err != 0:
+        raise RuntimeError(f"replay kernel occupancy query failed with CUDA error {err}")
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    resident = out[0] * geo.warps * n_sms
+    return {"warps": geo.warps, "blocks": geo.blocks, "shared_meta": geo.shared_meta,
+            "block_bytes": geo.block_bytes, "registers": out[1], "local_bytes": out[2],
+            "blocks_per_sm": out[0], "resident": resident,
+            "waves": -(-V // resident) if resident else None}
 
 
 def launch(cfg: TorchSimConfig, st: dict, trace, iterations, inst: Instance,
@@ -168,13 +276,14 @@ def launch(cfg: TorchSimConfig, st: dict, trace, iterations, inst: Instance,
     # them after the launch
     keys = (torch.empty((inst.n_sfs, cfg.n_lbas), dtype=torch.int32, device=device)
             if inst.n_sfs else None)
+    geo, _ = _geometry_args(cfg, V, inst, device)
     args = ReplayArgs(*(st[key].data_ptr() for key in STATE_FIELDS), trace.data_ptr(),
                       iterations.data_ptr(), nxt.data_ptr() if inst.fk else None,
                       None if keys is None else keys.data_ptr(), V, T, cfg.n_rows,
                       cfg.segment_size, cfg.n_class_slots, cfg.n_lbas, cfg.max_gc_per_step,
                       float(np.float32(1.0) - a), float(a), int(cfg.timing), int(inst.defer),
                       *f32, cfg.watermark_rows, cfg.lat_buckets, int(inst.stateful),
-                      cfg.sfs_resample)
+                      cfg.sfs_resample, geo.warps, int(geo.shared_meta), geo.warp_bytes)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = build.library("replay", _SIGNATURES).replay_launch(ctypes.byref(args), stream)

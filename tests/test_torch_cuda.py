@@ -477,6 +477,128 @@ def test_analysis_on_the_card_matches_the_cpu(card):
             == analysis.trace_conditional_gc(tr, 400, 2000, device="cpu"))
 
 
+def _sms(card):
+    return torch.cuda.get_device_properties(card).multi_processor_count
+
+
+def _policies(V, seed):
+    """Per-volume elementwise schemes, selectors and GC thresholds."""
+    from repro_torch.core.config import SCHEME_CLASSES
+    rng = np.random.default_rng(seed)
+    sch = rng.choice([0, 1, 2, 7, 8], V)
+    return {"p_scheme": sch, "p_selector": rng.integers(0, 2, V),
+            "p_gp": rng.choice(np.asarray([0.08, 0.12, 0.15, 0.2], np.float32), V),
+            "p_ncw": np.full(V, 16), "p_classes": np.asarray(SCHEME_CLASSES)[sch],
+            "p_gcsched": np.zeros(V)}
+
+
+def test_replay_kernel_fleet_of_one_more_than_a_multiple_of_the_block(card):
+    """V = 4 n_sms + 1 volumes: four a block, the last block holding one
+    (its three spare warps return at once); every volume equal to the CPU
+    step engine on every key."""
+    from repro_torch.kernels import replay as kreplay
+    V = 4 * _sms(card) + 1
+    cfg = TorchSimConfig(n_lbas=128, segment_size=8, class_slots=6)
+    geo = kreplay.geometry(cfg, V, n_sms=_sms(card))
+    assert geo.warps == 4 and V % geo.warps == 1 and geo.shared_meta
+    traces = make_fleet("mixed", V, 128, 3 * 128, jitter=0.3, seed=41)
+    pol = _policies(V, 41)
+    ops.reset_launch_counts()
+    got = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device=card))
+    _kernel_only(ops.launch_counts())
+    want = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device="cpu"))
+    assert (want["reclaimed"] > 0).all()
+    _assert_same_state(got, want)
+
+
+def test_replay_kernel_fleet_past_one_wave(card):
+    """More small volumes than the card holds at once (a second wave of
+    blocks starts as the first ones end): checked on the CPU on volumes of
+    the first and of the last wave, every key."""
+    from repro_torch.core.config import init_state
+    from repro_torch.kernels import replay as kreplay
+    cfg = TorchSimConfig(n_lbas=64, segment_size=8, class_slots=6)
+    V = 9000                  # past 16 blocks of 4 on 132 SMs, the most any instance keeps
+    traces = make_fleet("mixed", V, 64, 3 * 64, jitter=0.3, seed=43)
+    pol = _policies(V, 43)
+    padded = torchsim.pad_fleet(traces)
+    trace = torch.from_numpy(padded).to(card)
+    st = torchsim.own_state(init_state(cfg, pol, card))
+    inst = kreplay.check_inputs(cfg, st, trace)
+    occ = kreplay.occupancy(cfg, V, inst, card)
+    assert occ["shared_meta"] and occ["waves"] >= 2, occ
+    got = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device=card))
+    sub = list(range(0, 40)) + list(range(V - 40, V))
+    want = convert.state_to_numpy(torchsim.run_fleet(
+        cfg, padded[sub], {k: np.asarray(v)[sub] for k, v in pol.items()}, device="cpu"))
+    assert (want["reclaimed"] > 0).all()
+    _assert_same_state({k: x[sub] for k, x in got.items()}, want)
+
+
+@pytest.mark.parametrize("schemes", ["elementwise", "all"])
+def test_replay_kernel_keeps_metadata_in_global_memory(card, schemes):
+    """A pool of 6,000 segments: four volumes' metadata would not fit a
+    block, so it stays in global memory (the instance without kSharedMeta);
+    equal to the CPU on every key, for the elementwise and the stateful
+    instance."""
+    from repro_torch.kernels import replay as kreplay
+    if schemes == "all":
+        cfg, traces, pol = _all_schemes_fleet()
+        cfg = dataclasses.replace(cfg, n_segments=6000)
+    else:
+        cfg, traces, pol = _hetero_fleet(8, n=512)
+        cfg = dataclasses.replace(cfg, n_segments=6000)
+    assert not kreplay.geometry(cfg, len(traces), schemes == "all", n_sms=_sms(card)).shared_meta
+    ops.reset_launch_counts()
+    got = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device=card))
+    _kernel_only(ops.launch_counts())
+    want = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device="cpu"))
+    assert want["reclaimed"].sum() > 0
+    _assert_same_state(got, want)
+
+
+def test_replay_kernel_pad_row_counts_past_16_bits(card):
+    """The exhaustion corner from a state whose pad row counts 70,000 valid
+    blocks: the pad row's counts are 32-bit in shared memory, so the kernel
+    equals the CPU on every key (a row's other counts stay in [0, s])."""
+    from repro_torch.core.config import init_state
+    from repro_torch.kernels import replay as kreplay
+    cfg = TorchSimConfig(n_lbas=96, segment_size=8, n_segments=16, gp_threshold=0.10)
+    assert kreplay.geometry(cfg, 1).shared_meta
+    tr = np.asarray(np.random.default_rng(67).integers(0, 96, size=6 * 96), np.int32)
+    st = init_state(cfg, None, "cpu")
+    st["seg_nvalid"][:, cfg.pad_row] = 70_000
+    got = convert.state_to_numpy(torchsim.run(cfg, tr, device=card,
+                                              state={k: v.to(card) for k, v in st.items()}))
+    want = convert.state_to_numpy(torchsim.run(cfg, tr, device="cpu", state=st))
+    assert int(want["overflow"][0]) > 0 and abs(int(want["seg_nvalid"][0, cfg.pad_row])) > 65_535
+    _assert_same_state(got, want)
+
+
+def test_replay_kernel_stateful_instance_replays_elementwise_volumes_alike(card):
+    """The stateful instance (kStateful), handed a fleet of elementwise
+    volumes only, equals the step engine on the CPU on every key, with its
+    GC ticks and tick iterations, and so does the elementwise instance."""
+    from repro_torch.core.config import init_state
+    from repro_torch.kernels import replay as kreplay
+    cfg, traces, pol = _hetero_fleet(16, n=512)
+    trace = torch.from_numpy(torchsim.pad_fleet(traces)).to(card)
+    stats = torchsim.ReplayStats()
+    want = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device="cpu",
+                                                     stats=stats))
+    assert want["reclaimed"].sum() > 0
+    for stateful in (False, True):
+        st = torchsim.own_state(init_state(cfg, pol, card))
+        inst = kreplay.check_inputs(cfg, st, trace)
+        assert not inst.stateful
+        iterations = torch.zeros(trace.shape[1], dtype=torch.int32, device=card)
+        kreplay.launch(cfg, st, trace, iterations, inst._replace(stateful=stateful))
+        _assert_same_state(convert.state_to_numpy(st), want)
+        per_step = iterations.cpu()
+        assert (int((per_step > 0).sum()), int(per_step.sum())) == \
+            (stats.gc_ticks, stats.tick_iterations), stateful
+
+
 STATEFUL = ["fk", "dac", "ml", "sfs", "eti", "mq", "sfr", "fadac", "warcip"]
 
 

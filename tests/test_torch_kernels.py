@@ -361,3 +361,102 @@ def test_kernel_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
     assert "replay" in build.SOURCES
     for name in ("segsel", "classify", "replay"):
         assert '#include "engine_ops.cuh"' in (tmp_path / build.SOURCES[name]).read_text()
+
+
+def _main_run_config(**kw):
+    """The smoke's main-run volume: 64 MiB at 4 KiB blocks, segment 128."""
+    return TorchSimConfig(n_lbas=16384, segment_size=128, **kw)
+
+
+@pytest.mark.parametrize("V,warps", [(1, 1), (131, 1), (132, 1), (133, 2), (264, 2), (265, 3),
+                                     (528, 4), (744, 4), (5580, 4)])
+def test_replay_geometry_spreads_small_fleets_over_the_sms(V, warps):
+    """Up to MAX_WARPS volumes a block; a fleet smaller than the card takes
+    one volume an SM, so no SM holds two while another idles; the blocks
+    cover every volume, the last one partly when V is not a multiple of the
+    block's warps."""
+    geo = treplay.geometry(_main_run_config(), V)
+    assert geo.warps == warps <= treplay.MAX_WARPS
+    assert geo.blocks == -(-V // warps)
+    assert (geo.blocks - 1) * geo.warps < V <= geo.blocks * geo.warps
+    assert geo.block_bytes == geo.warps * geo.warp_bytes
+
+
+def test_replay_geometry_shared_bytes_follow_the_kernel_layout():
+    """A warp's bytes: 96 of a stateful scheme's and the timing model's
+    scalars, C ints of free rows, the victim's LBAs and times (and classes,
+    stateful, with its compacted victim scan's 256-row list) as ints and
+    its valid flags as bytes, each rounded to 16; with the metadata, 10
+    bytes a row in four arrays and the pad row's two ints. [sweep]'s volumes
+    (355 rows, C 6) take 4,880 bytes, so 11 blocks of four fit the SM's 228
+    KB (1 KB reserved each)."""
+    cfg = TorchSimConfig(n_lbas=16384, segment_size=128, class_slots=6, n_segments=354)
+    R = cfg.n_rows
+    plain = 96 + 32 + 2 * 512 + 128
+    assert treplay.warp_bytes(cfg, False, False) == plain
+    assert treplay.warp_bytes(cfg, True, False) == plain + 512 + 256
+    meta = 2 * (-(-4 * R // 16) * 16) + 2 * (-(-R // 16) * 16) + 16
+    assert treplay.warp_bytes(cfg, False, True) == plain + meta == 4880
+    geo = treplay.geometry(cfg, 5580)
+    assert geo.shared_meta and geo.block_bytes == 4 * 4880
+    assert (228 * 1024) // (geo.block_bytes + 1024) == 11
+    odd = TorchSimConfig(n_lbas=100, segment_size=9, class_slots=3)
+    assert treplay.warp_bytes(odd, False, False) == 96 + 16 + 2 * 48 + 16
+
+
+def test_replay_geometry_keeps_metadata_in_global_memory_where_it_does_not_fit():
+    """The metadata goes to shared memory when a block of MAX_WARPS volumes
+    fits MAX_BLOCK_SMEM with it and the state's counts fit their narrow
+    fields; otherwise it stays in global memory, whatever V. The pad row's
+    counts are 32-bit, so neither a large class-slot count nor a large
+    segment (every (C + 1) s, 32 x 4,096 included) sends it there by itself:
+    only the rows' number does."""
+    for cfg in (_main_run_config(), _main_run_config(class_slots=32),
+                TorchSimConfig(n_lbas=16384, segment_size=4096, class_slots=32)):
+        assert (cfg.n_class_slots + 1) * cfg.segment_size < 65536 or cfg.segment_size == 4096
+        for stateful in (False, True):
+            geo = treplay.geometry(cfg, 744, stateful)
+            assert geo.shared_meta
+            assert geo.block_bytes <= treplay.MAX_BLOCK_SMEM
+    assert not treplay.geometry(_main_run_config(), 744, narrow=False).shared_meta
+    big = TorchSimConfig(n_lbas=512, segment_size=8, n_segments=6000)
+    for V in (1, 7, 744):
+        geo = treplay.geometry(big, V)
+        assert not geo.shared_meta
+        assert geo.warp_bytes == treplay.warp_bytes(big, False, False)
+        assert treplay.MAX_WARPS * treplay.warp_bytes(big, False, True) > treplay.MAX_BLOCK_SMEM
+    scale = TorchSimConfig(n_lbas=262144, segment_size=128, gp_threshold=0.22)   # [scale]
+    fits = treplay.MAX_WARPS * treplay.warp_bytes(scale, False, True) <= treplay.MAX_BLOCK_SMEM
+    assert treplay.geometry(scale, 32).shared_meta == fits
+
+
+def test_replay_geometry_constants_match_the_kernel_source():
+    """MAX_WARPS, VARS_BYTES, SCAN_CHUNK and the segment-size limit are
+    csrc/replay.cu's."""
+    import re
+    src = (build.CSRC / "replay.cu").read_text()
+    assert int(re.search(r"constexpr int kScanChunk = (\d+);", src)[1]) == treplay.SCAN_CHUNK
+    assert int(re.search(r"constexpr int kMaxWarps = (\d+);", src)[1]) == treplay.MAX_WARPS
+    assert int(re.search(r"sizeof\(Vars\)\)\) == (\d+)", src)[1]) == treplay.VARS_BYTES
+    max_seg = int(re.search(r"constexpr int kMaxSegSize = (\d+);", src)[1])
+    assert max_seg * 4 * 3 * treplay.MAX_WARPS < treplay.MAX_BLOCK_SMEM
+
+
+@pytest.mark.parametrize("corrupt,narrow", [
+    (lambda st, s: None, True),
+    (lambda st, s: st["seg_nvalid"][:, -1].fill_(70_000), True),     # the pad row is 32-bit
+    (lambda st, s: st["seg_n"][:, -1].fill_(5 * s), True),
+    (lambda st, s: st["seg_n"][:, 0].fill_(s + 1), False),
+    (lambda st, s: st["seg_nvalid"][1, 1].fill_(-1), False),
+    (lambda st, s: st["seg_state"][:, 2].fill_(256), False),
+    (lambda st, s: st["seg_cls"][0, 2].fill_(-1), False),
+])
+def test_replay_metadata_fits_its_narrow_fields(corrupt, narrow):
+    """The metadata may live in shared memory only where every row but the
+    pad row has its counts in [0, s] and every state and class is in
+    [0, 255], as a state from `init_state` or a replay has them; the pad
+    row's counts are 32-bit there, so they may be anything."""
+    cfg, st, _ = _replay_inputs()
+    corrupt(st, cfg.segment_size)
+    assert treplay.narrow_metadata(cfg, st) == narrow
+    assert treplay.geometry(cfg, 2, narrow=narrow).shared_meta == narrow
