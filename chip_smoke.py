@@ -127,7 +127,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     kernel timed at both sizes, and at 64 MiB each scheme's 186 volumes
     alone and the elementwise ones through the stateful instance too, each
     equal to its rows of the fleet's replay;
-16. sweep: the heterogeneous sweep of ``core/fleetshard.py`` at full width,
+16. paper: the paper's Exp#2, Exp#3 and Exp#5 on the main run's corpus
+    through the replay kernel, cost-benefit: Exp#2 under nosep, sepgc,
+    warcip, sepbit and fk at (segment, victims per GC operation) (32, 4),
+    (64, 2) and (128, 1), 930 volumes a launch; Exp#3 the same five schemes
+    at GP 0.10-0.25 as per-volume policies, 3,720 volumes in one launch;
+    Exp#5 the 186 volumes under sepbit with SepBIT's FIFO samples on; rows
+    as ``benchmarks/run.py`` prints them. Gates: two reduced 14-scheme
+    fleets (2,048 blocks, k victims, FIFO on) equal to the CPU step engine
+    on every key; per timed fleet, overflow 0, the invariants, the FIFO
+    samples' bounds, the kernel equal to the card's step engine over a
+    window of steps from its own state and, on one volume, to the CPU step
+    engine over the first 24,576 steps; each timed on three fresh states;
+17. sweep: the heterogeneous sweep of ``core/fleetshard.py`` at full width,
     the main run's corpus under 5 elementwise schemes x 2 selectors x GP
     0.10 / 0.15 / 0.20 (5,580 volumes of 64 MiB), timing model on, through
     the replay kernel's timing instance: grouped (one launch per scheme)
@@ -135,19 +147,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     (scheme, selector) pair equal to the step engine on the CPU (run in a
     worker beside the card), the accounting conserved; per cell WA, mean
     +- CI and p50 / p99; the kernel timed alone with timing on and off;
-17. latency: the committed ``BENCH_gc_latency.json`` reproduced on every
+18. latency: the committed ``BENCH_gc_latency.json`` reproduced on every
     field (nosep / sepgc / sepbit on the replay kernel, fk on the step
     engine), then greedy / rate_limited / idle_window x nosep / sepgc /
     sepbit at full width (1,674 volumes): overflow 0, rate_limited's GC
     writes equal to greedy's, the accounting conserved, one volume per cell
     equal to the CPU on every key;
-18. gcbench: the JAX package's gcbench fleet (16 volumes of 1 MiB, segment
+19. gcbench: the JAX package's gcbench fleet (16 volumes of 1 MiB, segment
     32, sepbit, cost-benefit, GC thresholds 0.08-0.22) under the legacy GC
     engine on the step engine and the tick engine on the replay kernel, each
     reproducing ``BENCH_fleet_gc.json``'s per-volume reclaimed counts, WA and
     GC writes, equal to each other on every key, with each engine's steady
     volumes/s; one volume alone under legacy (K2) equal to its fleet row;
-19. legacy: the main run's 744 volumes through a prefix of their steps
+20. legacy: the main run's 744 volumes through a prefix of their steps
     under the legacy GC engine on the card's step engine (K1 at loop entry on
     every write, K3 on every rewrite), equal on every key to the replay
     kernel on the same prefix and, on eight volumes, to the legacy engine on
@@ -347,7 +359,7 @@ REPLAY_PTXAS: dict = {}    # replay kernel instance flags -> ptxas' registers an
 
 def _replay_ptxas(text: str) -> dict:
     """ptxas' -v lines of the replay kernel, per instance: the template's
-    flags (kTiming, kDefer, kStateful[, kSharedMeta]) as a string of 0 / 1
+    flags (kTiming, kDefer, kStateful[, kSharedMeta[, kPaper]]) as a string of 0 / 1
     -> registers, stack frame and spill store / load bytes (a function the
     instance calls has lines of its own, not counted here)."""
     import re
@@ -1105,8 +1117,9 @@ def replay_bound(st: dict, trace, timing: bool = False, defer: bool = False,
     stateful instance, each only in the rows of the volumes whose scheme
     owns it (the kernel touches no other scheme's tables); fk's next-write
     stream ``nxt``, where the fleet has one, is read once in the fk volumes'
-    rows."""
-    from repro_torch.core.config import TorchSimConfig
+    rows; the FIFO samples, where the state has them, read and written
+    once."""
+    from repro_torch.core.config import FIFO_KEYS, TorchSimConfig
     from repro_torch.core.placement import stateful as schemes
     from repro_torch.kernels.replay import FK, SCHEME_FIELDS, STATE_FIELDS, TIMING_FIELDS
     V = trace.shape[0]
@@ -1118,6 +1131,8 @@ def replay_bound(st: dict, trace, timing: bool = False, defer: bool = False,
               and (timing or defer or k != "p_gcsched") and (stateful or k not in SCHEME_FIELDS)]
     size = {k: st[k].nbytes // V * owners[k] if k in SCHEME_FIELDS else st[k].nbytes
             for k in fields}
+    fields += [k for k in FIFO_KEYS if k in st]
+    size.update({k: st[k].nbytes for k in FIFO_KEYS if k in st})
     n_bytes = (trace.nbytes + sum(size.values())
                + sum(size[k] for k in fields if not k.startswith("p_"))
                + 4 * trace.shape[1] + (0 if nxt is None else nxt.nbytes // V * n_fk))
@@ -1203,7 +1218,8 @@ def replay_geometry(cfg, V: int, inst, T: int, ms: float, bound_ms: float) -> di
     from repro_torch.kernels import replay as kreplay
     occ = kreplay.occupancy(cfg, V, inst)
     flags = "".join(str(int(f)) for f in (cfg.timing, inst.defer, inst.stateful,
-                                          occ["shared_meta"]))
+                                          occ["shared_meta"],
+                                          cfg.gc_batch_segments > 1 or cfg.fifo_occupancy))
     ptxas = REPLAY_PTXAS.get(flags, {})
     return {"instance": flags, "registers": occ["registers"],
             "spill_stores": ptxas.get("spill_stores"), "spill_loads": ptxas.get("spill_loads"),
@@ -1214,7 +1230,7 @@ def replay_geometry(cfg, V: int, inst, T: int, ms: float, bound_ms: float) -> di
 
 
 def geometry_text(g: dict) -> str:
-    return (f"instance TDSM={g['instance']}: {g['registers']} registers, spills "
+    return (f"instance TDSMP={g['instance']}: {g['registers']} registers, spills "
             f"{g['spill_stores']} / {g['spill_loads']} B (local {g['local_bytes']} B), W "
             f"{g['warps']}, {g['block_bytes']} B shared a block, {g['blocks_per_sm']} blocks an "
             f"SM, {g['resident']} volumes resident, {g['waves']} wave(s); "
@@ -1550,7 +1566,8 @@ def _path_kernel_rows(tag, rng, V, S, B, counts, single_rows=None) -> dict:
     return out
 
 
-def _replay_row_run(cfg, padded, policies, tag: str, state=None, nxts=None) -> dict:
+def _replay_row_run(cfg, padded, policies, tag: str, state=None, nxts=None,
+                    phase: str = "schemes") -> dict:
     """One replay of a [schemes] fleet by the replay kernel (from ``state``
     when given, with fk's next-write stream ``nxts`` when given), the launch
     counts zeroed just before it and read just after: the final state (on
@@ -1572,15 +1589,62 @@ def _replay_row_run(cfg, padded, policies, tag: str, state=None, nxts=None) -> d
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"[schemes] {tag}: engine=replay on the card: wall {wall:.3f} s (trace upload, fk's "
+    log(f"[{phase}] {tag}: engine=replay on the card: wall {wall:.3f} s (trace upload, fk's "
         f"next-write stream, the state's copies and one launch), steps {stats.steps}, tick "
         f"iterations {stats.tick_iterations}, host syncs {stats.host_syncs}, peak device memory "
         f"{peak / 2**30:.2f} GiB; launches {counts}")
     if counts["replay"] != 1 or any(counts[k] for k in ("segment_select_batch", "segment_select",
                                                         "classify_gc", "classify_user")):
-        raise AssertionError(f"[schemes] {tag} did not go through the replay kernel alone")
+        raise AssertionError(f"[{phase}] {tag} did not go through the replay kernel alone")
     return {"st": st, "final": convert.state_to_numpy(st), "counts": counts, "stats": stats,
             "wall": wall, "peak": peak}
+
+
+def _window_check(cfg, padded, policies, nxts, W0: int, W1: int, tag: str, phase: str) -> tuple:
+    """The card's step engine (K1, K3 and the stateful branches between
+    them) and the replay kernel on steps W0..W1-1, both from the kernel's
+    state after steps 0..W0-1 (fk's stream ``nxts``, where given, is the
+    whole trace's, sliced): every key and the step counts must be equal and
+    K1 / K3 must have run. Returns the kernel's run of the prefix and the
+    step engine's launches."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import ops
+
+    def cut(x, a, b):
+        return None if x is None else np.ascontiguousarray(x[:, a:b])
+
+    start = _replay_row_run(cfg, cut(padded, 0, W0), policies, f"{tag} steps 0-{W0 - 1}",
+                            nxts=cut(nxts, 0, W0), phase=phase)
+    window, window_nxts = cut(padded, W0, W1), cut(nxts, W0, W1)
+    ops.reset_launch_counts()
+    stats = torchsim.ReplayStats()
+    t0 = time.perf_counter()
+    step = torchsim.run_fleet(cfg, window, device="cuda", state=start["st"], stats=stats,
+                              engine="step", nxts=window_nxts)
+    torch.cuda.synchronize()
+    step_wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    step = convert.state_to_numpy(step)
+    head = _replay_row_run(cfg, window, None, f"{tag} steps {W0}-{W1 - 1}", state=start["st"],
+                           nxts=window_nxts, phase=phase)
+    bad = _differing_keys(head["final"], step)
+    same = (head["stats"].steps, head["stats"].gc_ticks, head["stats"].tick_iterations) == (
+        stats.steps, stats.gc_ticks, stats.tick_iterations)
+    k_launches = sum(counts[k] for k in ("segment_select_batch", "classify_gc", "classify_user"))
+    log(f"[{phase}] {tag} engine=step on the card, steps {W0}-{W1 - 1}: wall "
+        f"{step_wall:.3f} s, s/step {step_wall / stats.steps:.9f}, tick iterations "
+        f"{stats.tick_iterations}, host syncs {stats.host_syncs}; launches {counts}: K1 + K3 "
+        f"{k_launches / stats.steps:.4f} per step; against the replay kernel on the same "
+        f"steps: differing keys {bad}, same steps, GC ticks and tick iterations: {same}; "
+        f"kernel wall {head['wall']:.3f} s = {step_wall / head['wall']:.1f}x faster")
+    if bad or not same or 0 in (counts["segment_select_batch"], counts["classify_gc"],
+                                counts["classify_user"]):
+        raise AssertionError(f"[{phase}] {tag}: the step engine and the replay kernel differ on "
+                             f"the window ({bad}, stats {same}), or K1 / K3 did not run")
+    return start, counts
 
 
 def _schemes_table(tag: str, cfg, run: dict, traces, P: int) -> None:
@@ -1635,12 +1699,10 @@ def phase_schemes() -> dict:
     row."""
     import torch
 
-    from repro_torch import convert
     from repro_torch.core import annotate, torchsim
     from repro_torch.core.config import SCHEME_NAMES
     from repro_torch.core.placement.schemes import ELEMENTWISE_IDS
     from repro_torch.core.tracegen import tiled_fleet
-    from repro_torch.kernels import ops
     P, n, S = SCHEMES_VOLUMES_PER_SCHEME, SCHEMES_N_LBAS, len(SCHEME_NAMES)
     t_phase = time.perf_counter()
     log(f"[schemes] cuts: (a) volumes of {n} blocks ({n * 4 // 1024} MiB at 4 KiB) at 2 * n_lbas "
@@ -1693,37 +1755,7 @@ def phase_schemes() -> dict:
         # fk reads the whole trace's next-write stream, sliced
         W0, W1 = SCHEMES_WINDOW_START, SCHEMES_WINDOW_START + SCHEMES_STEP_WINDOW
         nxts = annotate.fleet_annotations(padded, policies["p_scheme"])
-        start = _replay_row_run(cfg, np.ascontiguousarray(padded[:, :W0]), policies,
-                                f"(a) steps 0-{W0 - 1}", nxts=np.ascontiguousarray(nxts[:, :W0]))
-        window = np.ascontiguousarray(padded[:, W0:W1])
-        window_nxts = np.ascontiguousarray(nxts[:, W0:W1])
-        ops.reset_launch_counts()
-        stats = torchsim.ReplayStats()
-        t0 = time.perf_counter()
-        step = torchsim.run_fleet(cfg, window, device="cuda", state=start["st"], stats=stats,
-                                  engine="step", nxts=window_nxts)
-        torch.cuda.synchronize()
-        step_wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
-        step = convert.state_to_numpy(step)
-        head = _replay_row_run(cfg, window, None, f"(a) steps {W0}-{W1 - 1}", state=start["st"],
-                               nxts=window_nxts)
-        bad = _differing_keys(head["final"], step)
-        same = (head["stats"].steps, head["stats"].gc_ticks, head["stats"].tick_iterations) == (
-            stats.steps, stats.gc_ticks, stats.tick_iterations)
-        k_launches = sum(counts[k] for k in ("segment_select_batch", "classify_gc",
-                                             "classify_user"))
-        log(f"[schemes] (a) engine=step on the card, steps {W0}-{W1 - 1}: wall "
-            f"{step_wall:.3f} s, s/step {step_wall / stats.steps:.9f}, tick iterations "
-            f"{stats.tick_iterations}, host syncs {stats.host_syncs}; launches {counts}: K1 + K3 "
-            f"{k_launches / stats.steps:.4f} per step; against the replay kernel on the same "
-            f"steps: differing keys {bad}, same steps, GC ticks and tick iterations: {same}; "
-            f"kernel wall {head['wall']:.3f} s = {step_wall / head['wall']:.1f}x faster")
-        if bad or not same or 0 in (counts["segment_select_batch"], counts["classify_gc"],
-                                    counts["classify_user"]):
-            raise AssertionError(f"[schemes] the step engine and the replay kernel differ on the "
-                                 f"window ({bad}, stats {same}), or K1 / K3 did not run")
-        del step, head, start
+        _, counts = _window_check(cfg, padded, policies, nxts, W0, W1, "(a)", "schemes")
         t0 = time.perf_counter()
         profile_window(cfg, run["st"], "step", SCHEMES_PROFILE_STEPS, "schemes")
         log(f"[schemes] profiled window with its analysis {time.perf_counter() - t0:.1f} s")
@@ -1791,6 +1823,280 @@ def phase_schemes() -> dict:
                              cfg.segment_size, counts)
     log(f"[schemes] phase wall {time.perf_counter() - t_phase:.1f} s")
     return {"path_rows": rows, "row": row}
+
+
+PAPER_SCHEMES = ("nosep", "sepgc", "warcip", "sepbit", "fk")   # benchmarks/run.py's Exp#2 and #3
+PAPER_EXP2 = ((32, 4), (64, 2), (128, 1))   # (segment, victims per GC operation): fixed GC I/O
+PAPER_GPS = (0.10, 0.15, 0.20, 0.25)        # Exp#3's GC thresholds
+PAPER_PARITY = ((16, 2), (32, 4))           # the reduced fleets' (segment, victims), FIFO on
+PAPER_WINDOW = 128             # steps of each timed launch replayed by the card's step engine
+PAPER_CPU_WORKERS = 5          # the reduced fleets and the plain volumes' prefixes on the CPU
+PAPER_CHECKED = 31             # the state invariants on every 31st volume of a fleet
+PAPER_TIMED = 3                # launches timed per fleet, each on a fresh state
+# each timed fleet's volume that the CPU step engine replays over the first
+# MAIN_STEP_PREFIX steps: the corpus' trace 0 under this scheme (in Exp#3 at
+# the largest GP)
+PAPER_PLAIN = {"exp2_seg32": "warcip", "exp2_seg64": "sepbit", "exp3": "sepbit",
+               "exp5": "sepbit"}
+
+
+def _paper_policies(cfg, schemes, per: int) -> dict:
+    """(len(schemes) * per,) policy arrays, cell-major: ``schemes[j]``'s
+    ``per`` volumes j-th, under ``cfg``'s selector and GC threshold."""
+    from repro_torch.core.config import SCHEME_CLASSES, SCHEME_IDS, default_policy
+    sch = np.repeat([SCHEME_IDS[s] for s in schemes], per).astype(np.int32)
+    pol = {k: np.full(len(sch), v) for k, v in default_policy(cfg).items()}
+    pol["p_scheme"] = sch
+    pol["p_classes"] = np.asarray(SCHEME_CLASSES, np.int32)[sch]
+    return pol
+
+
+def _tiled_nxts(corpus_nxt, p_scheme):
+    """fk's next-write stream of a fleet that tiles the corpus: the corpus'
+    annotations on the fk volumes, ``NOBIT`` elsewhere (what
+    `annotate.fleet_annotations` makes from the tiled traces)."""
+    from repro_torch.core.config import SCHEME_IDS
+    from repro_torch.core.placement.schemes import NOBIT
+    fk = np.asarray(p_scheme) == SCHEME_IDS["fk"]
+    if not fk.any():
+        return None
+    P = corpus_nxt.shape[0]
+    out = np.full((len(fk), corpus_nxt.shape[1]), NOBIT, np.int32)
+    for c in range(len(fk) // P):
+        rows = slice(c * P, (c + 1) * P)
+        out[rows][fk[rows]] = corpus_nxt[fk[rows]]
+    return out
+
+
+def _paper_parity_fleet(seg: int, k: int):
+    """[paper]'s reduced fleet: [parity]'s 14-scheme fleet of PARITY_N_LBAS
+    blocks at segment ``seg``, GC operations of ``k`` victims, FIFO on."""
+    from repro_torch.core import torchsim
+    from repro_torch.core.tracegen import make_fleet
+    n = PARITY_N_LBAS
+    cfg = schemes_config(n, sfs_resample=PARITY_SFS_RESAMPLE)
+    cfg = dataclasses.replace(cfg, segment_size=seg, gc_batch_segments=k, fifo_occupancy=True)
+    traces = torchsim.coerce_fleet(make_fleet("mixed", 14, n, 2 * n, jitter=0.25, seed=31))
+    return cfg, traces, schemes_policies(cfg, 1)
+
+
+def _paper_launch(tag: str, cfg, padded, policies, nxts, plain_on_cpu, smi: str) -> dict:
+    """One of [paper]'s full-size fleets through the replay kernel: the
+    launch with its counts zeroed before and read after (one launch of the
+    replay kernel, none of K1-K3), overflow 0, the state invariants, the
+    FIFO samples' bounds; the kernel from its own state at step
+    MAIN_STEP_PREFIX equal to the card's step engine over PAPER_WINDOW
+    steps; the prefix's rows equal to the CPU step engine's replay of them
+    (``plain_on_cpu``: the rows and a worker's future); the launch timed on
+    PAPER_TIMED fresh states. Returns the final state, the summary and the
+    kernel table's row (without its name)."""
+    import torch
+
+    from repro_torch.core import torchsim
+    V, T = padded.shape
+    run = _replay_row_run(cfg, padded, policies, tag, nxts=nxts, phase="paper")
+    final = run["final"]
+    res = torchsim.summarize_fleet(cfg, final, V)
+    if res["fleet"]["overflow"] != 0 or not (final["reclaimed"] > 0).all():
+        raise AssertionError(f"[paper] {tag}: a volume overflowed its pool or ran no GC")
+    t0 = time.perf_counter()
+    checked = list(range(0, V, PAPER_CHECKED))
+    check_integrity(cfg, {key: x[checked] for key, x in final.items()}, padded[checked],
+                    f"[paper] {tag}")
+    if cfg.fifo_occupancy:
+        _check_fifo(tag, final)
+    log(f"[paper] {tag}: overflow 0, every volume ran GC, the state invariants hold on "
+        f"{len(checked)} volumes ({time.perf_counter() - t0:.1f} s)")
+
+    # the card's step engine and the kernel on a window of steps from the
+    # kernel's state at MAIN_STEP_PREFIX (past every volume's first GC)
+    W0 = MAIN_STEP_PREFIX
+    start, _ = _window_check(cfg, padded, policies, nxts, W0, W0 + PAPER_WINDOW, tag, "paper")
+    # the plain version: the step engine on the CPU, one volume over the prefix
+    rows, cpu_wall = plain_on_cpu
+    cpu, wall = cpu_wall.result()
+    bad = [key for key in cpu if not np.array_equal(start["final"][key][rows], cpu[key])]
+    err = max(max_abs_err(torch.from_numpy(start["final"][key][rows].astype(np.float64)),
+                          torch.from_numpy(cpu[key].astype(np.float64))) for key in cpu)
+    log(f"[paper] {tag}: volumes {rows} over steps 0-{W0 - 1} by the step engine on the cpu in "
+        f"{wall:.1f} s (a worker): differing keys against the kernel {bad}, max abs err {err}")
+    if bad or not (cpu["reclaimed"] > 0).all():
+        raise AssertionError(f"[paper] {tag}: the kernel and the CPU step engine differ in {bad}")
+    del start
+    trace = torch.from_numpy(np.ascontiguousarray(padded)).cuda()
+    nxt = torchsim._next_writes(run["st"], trace, nxts)
+    info = {}
+    ms = time_replay(cfg, policies, trace, run["st"], reps=PAPER_TIMED, nxt=nxt, info=info)
+    limit = replay_bound(run["st"], trace, stateful=info["inst"].stateful, nxt=nxt)
+    geo = replay_geometry(cfg, V, info["inst"], T, ms, limit["bound_ms"])
+    sub_trace = torch.from_numpy(np.ascontiguousarray(padded[rows, :W0])).cuda()
+    sub_pol = {key: x[rows] for key, x in policies.items()}
+    ms_sub = time_replay(cfg, sub_pol, sub_trace, cpu, reps=1,
+                         nxt=None if nxt is None else nxt[rows, :W0].contiguous())
+    row = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/replay.cu",
+           "replaces": "src/repro/kernels/segsel.py:150; src/repro/kernels/classify.py:49",
+           "shape": [V, T], "n_lbas": cfg.n_lbas, "segment_size": cfg.segment_size,
+           "gc_batch_segments": cfg.gc_batch_segments, "fifo_occupancy": cfg.fifo_occupancy,
+           "launches": run["counts"]["replay"], "max_abs_err": err, "ms": ms,
+           "plain_ms": 1e3 * wall, "plain_volumes": rows, "plain_steps": W0,
+           "ms_plain_volumes": ms_sub, **limit, **geo, "times_ms": info["times"],
+           "tolerance": "bit-equal on every state key: to the card's step engine over all "
+                        f"volumes on steps {W0}-{W0 + PAPER_WINDOW - 1} from the kernel's state, "
+                        "to the step "
+                        "engine on the CPU (the plain version; plain_ms) over plain_volumes and "
+                        "the first plain_steps steps, whose kernel time is ms_plain_volumes",
+           "library_ms": None, "smi": smi}
+    log(f"[kernels] replay {tag} ({V}, {T}): {ms:.3f} ms per replay (median of {PAPER_TIMED}, "
+        f"checks outside), {1e3 * ms / T:.4f} us per step, repeats bit-identical; bound "
+        f"{limit['bound_ms']:.3f} ms ({limit['bound_by']}, {limit['bytes']} bytes) = "
+        f"{ms / limit['bound_ms']:.1f}x; volumes {rows} over {W0} steps: {ms_sub:.3f} ms, step "
+        f"engine on the cpu {1e3 * wall:.1f} ms; {smi}")
+    log(f"[kernels] replay {tag} ({V}, {T}): {geometry_text(geo)}")
+    del trace, nxt, sub_trace
+    return {"st": run["st"], "final": final, "res": res, "row": row}
+
+
+def _check_fifo(tag: str, final: dict) -> None:
+    """-1 <= fifo_last <= fifo_peak <= the working set on every volume, and
+    -1 exactly on the volumes that took no sample: those that do not run
+    sepbit or uw, or whose ℓ was never refreshed."""
+    from repro_torch.core.config import BIG
+    from repro_torch.core.placement.schemes import FIFO_IDS
+    wss = (final["last_uw"] > -BIG).sum(1)
+    peak, last = final["fifo_peak"], final["fifo_last"]
+    sampled = np.isin(final["p_scheme"], FIFO_IDS) & np.isfinite(final["ell"])
+    ok = bool(((-1 <= last) & (last <= peak) & (peak <= wss)).all()
+              and ((peak == -1) == ~sampled).all() and ((last == -1) == ~sampled).all())
+    log(f"[paper] {tag}: -1 <= fifo_last <= fifo_peak <= wss on every volume, -1 exactly where "
+        f"no sample was taken ({int((~sampled).sum())} of {len(peak)} volumes): {ok}")
+    if not ok:
+        raise AssertionError(f"[paper] {tag}: the FIFO samples break their bounds")
+
+
+def _wa_rows(prefix: str, res: dict, cells, P: int) -> None:
+    """``benchmarks/run.py``'s rows: the traffic-weighted WA of each cell's
+    P volumes."""
+    vols = res["volumes"]
+    for j, cell in enumerate(cells):
+        mine = vols[j * P:(j + 1) * P]
+        user = sum(v["user_writes"] for v in mine)
+        gc = sum(v["gc_writes"] for v in mine)
+        log(f"{prefix(cell)} WA={(user + gc) / user:.4f}")
+
+
+def phase_paper(smi: str) -> list:
+    """The paper's Exp#2, Exp#3 and Exp#5 through the replay kernel, on the
+    main run's 186-volume corpus of 64 MiB volumes, cost-benefit: (Exp#2)
+    PAPER_SCHEMES under each (segment, GC operation of k victims) of
+    PAPER_EXP2, one launch of 930 volumes each; (Exp#3) PAPER_SCHEMES x
+    PAPER_GPS as per-volume policies, one launch of 3,720 volumes, the pool
+    sized from the largest GP; (Exp#5) the 186 volumes under sepbit with the
+    FIFO samples on. Before them, the reduced fleets of PAPER_PARITY (the
+    14 schemes, k victims, FIFO on) through the kernel, held at the end to
+    the CPU step engine on every key. Returns the kernel table's rows
+    replay_exp2_seg32, replay_exp2_seg64, replay_exp3 and replay_exp5."""
+    import torch
+
+    from repro_torch.core import annotate, fleetshard, torchsim
+    from repro_torch.core.config import BIG, SCHEME_IDS, TorchSimConfig
+    P = MAIN_VOLUMES_PER_TILE
+    t_phase = time.perf_counter()
+    corpus = _full_width_traces(1)
+    T = corpus.shape[1]
+    corpus_nxt = annotate.fleet_annotations(corpus, np.full(P, SCHEME_IDS["fk"]))
+    fleets = {}
+    for seg, k in sorted(PAPER_EXP2, key=lambda sk: sk[1]):    # the untimed k = 1 first
+        cfg = TorchSimConfig(n_lbas=MAIN_N_LBAS, segment_size=seg, class_slots=6,
+                             gc_batch_segments=k)
+        fleets[f"exp2_seg{seg}"] = (cfg, _paper_policies(cfg, PAPER_SCHEMES, P))
+    policy, cells3 = fleetshard.policy_grid(PAPER_SCHEMES, ("cost_benefit",), PAPER_GPS,
+                                            volumes_per_cell=P)
+    cfg3 = fleetshard.hetero_config(TorchSimConfig(n_lbas=MAIN_N_LBAS,
+                                                   segment_size=MAIN_SEGMENT), policy)
+    fleets["exp3"] = (cfg3, policy.as_state_arrays())
+    cfg5 = TorchSimConfig(n_lbas=MAIN_N_LBAS, segment_size=MAIN_SEGMENT, fifo_occupancy=True)
+    fleets["exp5"] = (cfg5, _paper_policies(cfg5, ("sepbit",), P))
+    log(f"[paper] cuts: the main run's corpus ({P} volumes of {MAIN_N_LBAS} blocks, 64 MiB, "
+        f"{T} steps) instead of the paper's volumes of >= 10 GiB; the card's step engine on "
+        f"{PAPER_WINDOW} steps of each timed fleet; the CPU on one volume of each over its first "
+        f"{MAIN_STEP_PREFIX} steps and on the reduced fleets (n_lbas {PARITY_N_LBAS}, 14 "
+        f"schemes, (segment, k) {PAPER_PARITY}, FIFO on)")
+
+    workers = ProcessPoolExecutor(PAPER_CPU_WORKERS,
+                                  mp_context=multiprocessing.get_context("spawn"))
+    with workers:
+        # submitted longest first (the segment-32 volume, then the reduced fleets)
+        plain = {}
+        for tag, scheme in PAPER_PLAIN.items():
+            cfg, pol = fleets[tag]
+            row = int(np.flatnonzero((pol["p_scheme"] == SCHEME_IDS[scheme])
+                                     & (pol["p_gp"] == pol["p_gp"].max()))[0])
+            sub = np.ascontiguousarray(corpus[[row % P], :MAIN_STEP_PREFIX])
+            plain[tag] = ([row], workers.submit(_replay_on_cpu, cfg, sub,
+                                                {key: x[[row]] for key, x in pol.items()}))
+            if tag == "exp2_seg32":
+                parity = {sk: workers.submit(_replay_on_cpu, *_paper_parity_fleet(*sk))
+                          for sk in PAPER_PARITY}
+        # the reduced fleets through the kernel (held to the CPU at the end)
+        reduced = {sk: _replay_row_run(*_paper_parity_fleet(*sk),
+                                       f"reduced seg{sk[0]} k{sk[1]}", phase="paper")
+                   for sk in PAPER_PARITY}
+
+        rows = {}
+        for tag, (cfg, pol) in fleets.items():
+            V = len(pol["p_scheme"])
+            padded = np.ascontiguousarray(np.tile(corpus, (V // P, 1)))
+            nxts = _tiled_nxts(corpus_nxt, pol["p_scheme"])
+            log(f"[paper] {tag}: {V} volumes, segment {cfg.segment_size}, k "
+                f"{cfg.gc_batch_segments}, n_rows {cfg.n_rows}, class slots "
+                f"{cfg.n_class_slots}, FIFO {cfg.fifo_occupancy}")
+            if tag in PAPER_PLAIN:
+                out = _paper_launch(tag, cfg, padded, pol, nxts, plain[tag], smi)
+                rows[tag] = {"name": f"replay_{tag}", **out["row"]}
+                res, final = out["res"], out["final"]
+            else:
+                run = _replay_row_run(cfg, padded, pol, tag, nxts=nxts, phase="paper")
+                final = run["final"]
+                res = torchsim.summarize_fleet(cfg, final, V)
+                if res["fleet"]["overflow"] != 0 or not (final["reclaimed"] > 0).all():
+                    raise AssertionError(f"[paper] {tag}: a volume overflowed or ran no GC")
+            if tag.startswith("exp2"):
+                _wa_rows(lambda s, seg=cfg.segment_size: f"exp2/seg{seg}/{s}", res,
+                         PAPER_SCHEMES, P)
+            elif tag == "exp3":
+                _wa_rows(lambda c: f"exp3/gp{round(100 * c[2])}/{c[0]}", res, cells3, P)
+            else:
+                wss = (final["last_uw"] > -BIG).sum(1)
+                peak, last = final["fifo_peak"], final["fifo_last"]
+                got = peak > 0
+                if not got.any():
+                    raise AssertionError("[paper] exp5: no volume took a FIFO sample")
+                worst = 100 * (1 - peak[got] / wss[got])
+                snap = 100 * (1 - last[got] / wss[got])
+                log(f"exp5/memory_reduction_worst median={np.median(worst):.1f}%;"
+                    f"min={worst.min():.1f}% (of {int(got.sum())} volumes with a sample)")
+                log(f"exp5/memory_reduction_snapshot median={np.median(snap):.1f}%;"
+                    f"max={snap.max():.1f}%")
+                rows[tag]["memory_reduction"] = {
+                    "worst_median": float(np.median(worst)), "worst_min": float(worst.min()),
+                    "snapshot_median": float(np.median(snap)), "snapshot_max": float(snap.max()),
+                    "sampled": int(got.sum())}
+            del final, res
+            torch.cuda.empty_cache()
+
+        for (seg, k), on_cpu in parity.items():
+            want, wall = on_cpu.result()
+            bad = _differing_keys(reduced[(seg, k)]["final"], want)
+            log(f"[paper] reduced fleet (14 schemes, n_lbas {PARITY_N_LBAS}, segment {seg}, k "
+                f"{k}, FIFO on) on the card vs the step engine on the cpu ({wall:.1f} s, a "
+                f"worker): differing keys {bad} of {len(want)}; fifo_peak "
+                f"{want['fifo_peak'].tolist()}")
+            if bad or not (want["reclaimed"] > 0).all():
+                raise AssertionError(f"[paper] the reduced fleet at segment {seg}, k {k} differs "
+                                     f"from the CPU in {bad}")
+            _check_fifo(f"reduced seg{seg} k{k}", reduced[(seg, k)]["final"])
+    log(f"[paper] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return [rows[tag] for tag in PAPER_PLAIN]
 
 
 SWEEP_SCHEMES = ("nosep", "sepgc", "sepbit", "uw", "gw")   # [sweep]: the elementwise schemes
@@ -4016,10 +4322,12 @@ def main() -> int:
     phase_scale()
     phase_profile(cfg, st)
     del st
-    sweep_row, schemes = phase_sweep_and_latency(before=phase_schemes)
+    sweep_row, (schemes, paper_rows) = phase_sweep_and_latency(
+        before=lambda: (phase_schemes(), phase_paper(device["smi"])))
     schemes_rows = schemes["path_rows"]
     kernels.append(sweep_row)
     kernels.append(schemes["row"])
+    kernels += paper_rows
     gcbench = phase_gcbench(device["smi"])
     legacy = phase_legacy()
     legacy_rows = _path_kernel_rows(

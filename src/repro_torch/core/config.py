@@ -6,6 +6,20 @@ port the device of the tensors decides whether a kernel or its plain
 version runs. ``gc_engine="legacy"`` (the fused GC rewrite's oracle, greedy
 GC schedule only) runs on the step engine (`torchsim.legacy_gc`).
 
+``gc_batch_segments`` (k) is the numpy simulator's knob of the same name
+(the paper's Exp#2): a GC operation checks the garbage proportion once and
+then takes up to k victims, each the argmax of the rows sealed at its
+start, with the whole rewrite of each; ``max_gc_per_step`` counts
+operations. ``fifo_occupancy`` (the paper's Exp#5) adds
+the state keys ``fifo_peak`` and ``fifo_last``: at every ℓ refresh of a
+sepbit or uw volume, the LBAs whose last user write is within the last
+``trunc(min(ℓ, t))`` writes are counted (numpy SepBIT's
+``_sample_fifo_occupancy``), the largest count and the newest kept; -1
+stands for no sample. Neither combines with the timing model, another GC
+schedule than greedy or the legacy engine (nor does any reference path).
+With the defaults (k = 1, no samples) the state and every transition are
+JAX's.
+
 ``scheme_group`` names the schemes a fleet's volumes may run, as in JAX
 (whose grouped dispatch prunes its branch stack to them); a volume outside
 the group is refused. The port dispatches per volume anyway, so the group
@@ -76,6 +90,8 @@ class TorchSimConfig:
     idle_density: float = 0.5
     density_window: int = 16
     lat_buckets: int = 64
+    gc_batch_segments: int = 1
+    fifo_occupancy: bool = False
 
     def __post_init__(self):
         if self.selector not in SELECTOR_IDS:
@@ -90,6 +106,12 @@ class TorchSimConfig:
         if self.gc_engine == "legacy" and self.gc_sched != "greedy":
             raise ValueError("GC scheduling policies require the tick engine; "
                              "the legacy engine is the greedy parity oracle")
+        if self.gc_batch_segments < 1:
+            raise ValueError(f"gc_batch_segments must be >= 1, got {self.gc_batch_segments}")
+        if (self.gc_batch_segments > 1 or self.fifo_occupancy) and (
+                self.gc_engine == "legacy" or self.timing or self.gc_sched != "greedy"):
+            raise ValueError("gc_batch_segments > 1 and fifo_occupancy run on the tick engine "
+                             "with the greedy GC schedule and the timing model off")
 
     @property
     def n_classes(self) -> int:
@@ -162,6 +184,10 @@ def _policy_tensors(cfg: TorchSimConfig, policy: dict | None, device) -> dict:
                          f"dispatch group {cfg.scheme_group}")
     if not set(torch.unique(out["p_gcsched"]).tolist()) <= set(range(len(GCSCHED_NAMES))):
         raise ValueError(f"unknown GC scheduling policy id; choices: {GCSCHED_NAMES}")
+    if ((cfg.gc_batch_segments > 1 or cfg.fifo_occupancy)
+            and bool((out["p_gcsched"] != GCSCHED_IDS["greedy"]).any())):
+        raise ValueError("gc_batch_segments > 1 and fifo_occupancy run under the greedy GC "
+                         "schedule only")
     if bool((out["p_classes"] > cfg.n_class_slots).any()):
         raise ValueError(f"a policy uses more classes than cfg.n_class_slots "
                          f"= {cfg.n_class_slots}; set class_slots")
@@ -193,11 +219,16 @@ def state_spec(cfg: TorchSimConfig) -> dict:
     spec["lat_hist"] = ((cfg.lat_buckets,), i32)
     spec.update({key: (shape, dtype) for key, (shape, dtype, _) in
                  stateful.state_spec(cfg).items()})
+    if cfg.fifo_occupancy:
+        spec.update({key: ((), i32) for key in FIFO_KEYS})
     spec.update({key: ((), dtype) for key, dtype in POLICY_DTYPES.items()})
     return spec
 
 
-_FILL = {"loc_seg": -1, "last_uw": -BIG, "ell": math.inf}
+# SepBIT's FIFO-occupancy samples (cfg.fifo_occupancy): the largest and the
+# newest; -1 before the first
+FIFO_KEYS = ("fifo_peak", "fifo_last")
+_FILL = {"loc_seg": -1, "last_uw": -BIG, "ell": math.inf, "fifo_peak": -1, "fifo_last": -1}
 
 
 def init_state(cfg: TorchSimConfig, policy: dict | None = None, device="cuda") -> dict:

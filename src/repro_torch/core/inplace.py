@@ -15,7 +15,7 @@ import math
 import numpy as np
 import torch
 
-from .placement.schemes import SCHEMES
+from .placement.schemes import FIFO_IDS, SCHEMES
 
 IDLE_WINDOW = 2     # config.GCSCHED_IDS["idle_window"]
 
@@ -86,6 +86,9 @@ class Consts:
         self.stateful = tuple(i for i in ids if SCHEMES[i].elementwise is None)
         self.member = {i: p_scheme == i for i in self.stateful}
         self.idle_window = p_gcsched is not None and bool((p_gcsched == IDLE_WINDOW).any())
+        self.fifo = (torch.isin(p_scheme, torch.tensor(FIFO_IDS, dtype=p_scheme.dtype,
+                                                        device=device))
+                     if cfg.fifo_occupancy and p_scheme is not None else None)
         self.f32 = {name: torch.tensor(np.float32(x), device=device) for name, x in (
             ("write_cost", cfg.write_cost), ("gc_block_cost", cfg.gc_block_cost),
             ("charge_cap", cfg.gc_rate * cfg.gc_block_cost), ("idle_density", cfg.idle_density),

@@ -84,6 +84,9 @@ SCHEME_NAMES = tuple(sd.name for sd in SCHEMES)
 SCHEME_CLASSES = tuple(sd.n_classes for sd in SCHEMES)
 SCHEME_REQUIRES_FUTURE = tuple(sd.requires_future for sd in SCHEMES)
 ELEMENTWISE_IDS = tuple(i for i, sd in enumerate(SCHEMES) if sd.elementwise is not None)
+# the schemes whose ℓ refreshes take a FIFO-occupancy sample (numpy SepBIT's
+# on_gc_segment, which uw inherits; gw overrides it without sampling)
+FIFO_IDS = (SCHEME_IDS["sepbit"], SCHEME_IDS["uw"])
 
 
 def scheme_id(name: str) -> int:

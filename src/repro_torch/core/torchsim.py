@@ -15,13 +15,15 @@ bit for bit:
   the victims' live blocks from the classify kernel and the stateful
   branches, and `_gc_once` moves them with one segmented scatter over
   (class, rank) keys. Volumes that do not trigger are left exactly as they
-  were;
+  were. With ``cfg.gc_batch_segments`` = k > 1 a tick is one GC operation
+  of up to k victims, each selected and rewritten in turn;
 - under ``cfg.gc_engine="legacy"``, `legacy_gc` instead: JAX's pre-tick
   loop, the fused rewrite's oracle. A victim is selected at loop entry on
   every user write, and `_gc_once_legacy` rewrites it class slot by class
   slot, one scatter per JAX ``.at[...]``. Both rewrites share their head
   (`_gc_bookkeeping`: ℓ, the classes, the fresh rows) and their tail
-  (`_gc_release`).
+  (`_gc_release`). With ``cfg.fifo_occupancy`` the head also takes SepBIT's
+  FIFO-occupancy sample at each ℓ refresh (`_sample_fifo`).
 
 With ``cfg.timing`` the timing model of ``jaxsim`` runs beside it: each
 user write's latency (`_user_write`) into the ``lat_*`` keys, each rewrite's
@@ -67,6 +69,7 @@ from ..kernels.replay import replay as replay_kernel
 from ..kernels.segsel import segment_select, segment_select_batch
 from .annotate import coerce_fleet_annotations, fleet_annotations
 from .config import (
+    BIG,
     GCSCHED_IDS,
     GCSCHED_NAMES,
     LAT_BUCKETS_PER_OCTAVE,
@@ -265,6 +268,8 @@ def _gc_bookkeeping(cfg: TorchSimConfig, st: dict, victims, do, k: Consts) -> Gc
     st["ell"] = torch.where(do, ell, st["ell"])
     st["ell_tot"] = torch.where(do, ell_tot, st["ell_tot"])
     st["nc"] = torch.where(do, nc, st["nc"])
+    if k.fifo is not None:
+        _sample_fifo(st, do & refresh & k.fifo)
 
     g = st["t"][:, None] - utime_v
     from_c1 = is_c1.to(torch.int32)[:, None].expand(V, s).contiguous()
@@ -275,6 +280,19 @@ def _gc_bookkeeping(cfg: TorchSimConfig, st: dict, victims, do, k: Consts) -> Gc
     classes = torch.where(valid_v, gc_cls, k.i32[-1])
     free_ids = _alloc_free_ids(cfg, st["seg_state"], k.rankC)
     return GcHead(victim, vrow, k_total, victim_n, lba_v, utime_v, classes, free_ids)
+
+
+def _sample_fifo(st: dict, sample):
+    """SepBIT's FIFO-occupancy sample (numpy ``_sample_fifo_occupancy``),
+    in place where ``sample`` and ℓ is finite: the LBAs whose last user
+    write is at or after ``t - trunc(min(ℓ, t))``, into ``fifo_last`` and
+    the running maximum ``fifo_peak``."""
+    t, ell = st["t"], st["ell"]
+    w = torch.minimum(ell.double(), t.double()).to(torch.int32)
+    count = (st["last_uw"] >= (t - w)[:, None]).sum(1, dtype=torch.int32)
+    sample = sample & torch.isfinite(ell)
+    st["fifo_last"] = torch.where(sample, count, st["fifo_last"])
+    st["fifo_peak"] = torch.where(sample, torch.maximum(st["fifo_peak"], count), st["fifo_peak"])
 
 
 def _gc_release(cfg: TorchSimConfig, st: dict, h: GcHead, do, k: Consts):
@@ -471,12 +489,21 @@ def fleet_gc_tick(cfg: TorchSimConfig, st: dict, k: Consts, step_active=None, se
                   stats: ReplayStats | None = None):
     """GC ticks over a batched state, in place, while any volume's garbage
     proportion exceeds its ``p_gp`` (at most ``cfg.max_gc_per_step`` ticks).
-    Each tick selects a victim per volume (``select``; the batched segsel
-    kernel by default) and rewrites it where the volume triggers; volumes
-    below threshold, stalled (no eligible victim) or on a pad step
-    (``step_active`` False) are left as they were, and so are idle_window
-    volumes while `_gc_deferred`. Per volume this is the single-volume GC
-    loop's iteration sequence, so fleets match single runs."""
+    Each tick is one GC operation (numpy's ``run_gc_once``): it selects a
+    victim per volume (``select``; the batched segsel kernel by default) and
+    rewrites it where the volume triggers, then, for ``cfg.gc_batch_segments``
+    = k > 1, selects and rewrites again, up to k victims, until a volume's
+    round finds no eligible row. A later round ranks only the rows sealed
+    at the operation's start: a row that a rewrite seals may hold garbage
+    (blocks of its open segment invalidated before the operation), and
+    numpy's ``GCPolicy.select`` ranks the sealed rows once, at the start.
+    No user write lands inside an operation, so no other score moves, and
+    the victims are the k eligible rows of highest score at its start, ties
+    to the lower row. Volumes below threshold, stalled (no eligible victim
+    in an operation's first round) or on a pad step (``step_active`` False)
+    are left as they were, and so are idle_window volumes while
+    `_gc_deferred`. Per volume this is the single-volume GC loop's iteration
+    sequence, so fleets match single runs. One host sync per tick."""
     select = select or _select_victims_fleet
     stalled = torch.zeros_like(st["t"], dtype=torch.bool)
     for i in range(cfg.max_gc_per_step):
@@ -493,8 +520,14 @@ def fleet_gc_tick(cfg: TorchSimConfig, st: dict, k: Consts, step_active=None, se
             stats.tick_iterations += 1
             stats.gc_ticks += 1 if i == 0 else 0
         victims = select(st)
-        _gc_once(cfg, st, victims, need & (victims >= 0), k)
+        go = need & (victims >= 0)
+        sealed0 = st["seg_state"] == 2 if cfg.gc_batch_segments > 1 else None
+        _gc_once(cfg, st, victims, go, k)
         stalled = stalled | (need & (victims < 0))
+        for _ in range(1, cfg.gc_batch_segments):
+            victims = select({**st, "seg_state": torch.where(sealed0, st["seg_state"], 0)})
+            go = go & (victims >= 0)
+            _gc_once(cfg, st, victims, go, k)
 
 
 def legacy_gc(cfg: TorchSimConfig, st: dict, k: Consts, step_active=None, select=None,
@@ -508,6 +541,8 @@ def legacy_gc(cfg: TorchSimConfig, st: dict, k: Consts, step_active=None, select
     (``running`` only goes from True to False) keeps its state, and so does
     one on a pad step (``step_active`` False). One host sync per iteration,
     for ``running.any()``."""
+    if cfg.gc_batch_segments != 1:
+        raise ValueError("the legacy GC engine takes one victim per GC operation")
     select = select or _select_victims_fleet
     victims = select(st)
     running = (_gp(st) > st["p_gp"]) & (victims >= 0)
@@ -746,6 +781,12 @@ def _summary(cfg: TorchSimConfig, st: dict) -> dict:
     }
     if cfg.timing:
         out["latency"] = latency_summary(cfg, st)
+    if cfg.fifo_occupancy:
+        # numpy SimResult's Exp#5 fields: None where no sample was taken
+        peak, last = int(st["fifo_peak"]), int(st["fifo_last"])
+        out["fifo_occupancy_peak"] = None if peak < 0 else peak
+        out["fifo_occupancy_last"] = None if last < 0 else last
+        out["wss_unique_lbas"] = int((np.asarray(st["last_uw"]) > -BIG).sum())
     return out
 
 

@@ -27,11 +27,12 @@
 //     the first free row (the pad row when none is free), the lat_dens EWMA
 //     as a multiply then an add, the counters; a pad step (-1) is skipped;
 //   GC loop: while gp > p_gp and fewer than max_gc_per_step iterations ran
-//     this step: the victim argmax (none: the volume stalls for the step),
-//     then the rewrite of `_gc_once`: ℓ bookkeeping, the victim slots'
-//     classes, per-class ranks in slot order, the first C free rows (class c
-//     takes the c-th whether it needs one or not), destinations, per-class
-//     metadata, the victim's release, the counters.
+//     this step, one GC operation: the victim argmax (none: the volume
+//     stalls for the step), then the rewrite of `_gc_once`: ℓ bookkeeping,
+//     the victim slots' classes, per-class ranks in slot order, the first C
+//     free rows (class c takes the c-th whether it needs one or not),
+//     destinations, per-class metadata, the victim's release, the counters;
+//     in the kPaper instance (below), up to gc_batch victims an operation.
 // Where several writes of one scatter of the step engine hit one element
 // (only when the free pool is exhausted and classes alias the pad row), the
 // last in slot or class order wins, as in the step engine on the CPU.
@@ -115,11 +116,27 @@
 //     row per sfs volume (its slot: the sfs volumes before it). The
 //     elementwise volumes of such a fleet run the code above.
 //   kSharedMeta: the segment metadata in shared memory (above).
+//   kPaper (the numpy loop's knobs that the JAX engine lacks; greedy GC and
+//     the timing model off, as the config requires):
+//     GC operations of gc_batch = k > 1 victims (cfg.gc_batch_segments, the
+//     paper's Exp#2): the GP is checked once an operation, which then takes
+//     up to k victims, each the argmax of the rows sealed at its start (a
+//     row a round seals is marked kSealedInOp, so no later round of the
+//     operation takes it, and sealed when the operation ends), until a
+//     round finds none; max_gc counts operations;
+//     FIFO samples (cfg.fifo_occupancy, the paper's Exp#5): at each ℓ
+//     refresh of a sepbit or uw volume, the LBAs whose last user write is
+//     at or after t - trunc(min(ℓ, t)), into fifo_last and the running
+//     maximum fifo_peak. The refresh only notes its window in a scratch;
+//     the warp counts after the step's GC loop (t and last_uw do not move
+//     inside it).
+//     Its own instances, because in the others the same code, dead at
+//     k = 1 without samples, cost 4-21 % (PERF.md).
 // Every float op is a round-to-nearest intrinsic and the build has no fused
 // multiply-add, so the lat_* and sch_* keys equal the plain version's bit for bit
 // (logf can differ from the CPU's log by an ulp: only a latency within an
 // ulp of a bucket edge would see it).
-// The instances of the template are named by those four flags.
+// The instances of the template are named by those five flags.
 
 #include <cuda_runtime.h>
 
@@ -198,6 +215,9 @@ struct ReplayArgs {
   int* iterations;      // (T,), zeroed by the caller
   const int* nxt;       // (V, T) fk's next-write indices; null when no volume runs fk
   unsigned* sfs_keys;   // (n_sfs, n_lbas) scratch of sfs's quantile refresh; null without sfs
+  int* fifo_peak;       // (V,) SepBIT's FIFO-occupancy samples; null without cfg.fifo_occupancy
+  int* fifo_last;
+  int* fifo_window;     // (V, 2) scratch, -1 filled: a step's widest and newest FIFO window
   int n_volumes;
   int n_steps;
   int n_rows;
@@ -221,6 +241,8 @@ struct ReplayArgs {
   int warps;            // volumes (warps) per block, 1..kMaxWarps (kernels/replay.py geometry)
   int shared_meta;      // the segment metadata in shared memory: the kSharedMeta instance
   int smem_per_warp;    // shared memory bytes per warp; must equal warp_layout's total
+  int gc_batch;         // victims per GC operation (cfg.gc_batch_segments), >= 1
+  int fifo;             // cfg.fifo_occupancy; with gc_batch > 1, the kPaper instance
 };
 
 namespace {
@@ -233,6 +255,8 @@ constexpr int kScanRows = 4;       // rows each lane loads per round of a free-r
 constexpr int kScanChunk = 256;    // rows a compacted victim scan gathers at a time
 constexpr int kRateLimited = 1;    // config.GCSCHED_IDS
 constexpr int kIdleWindow = 2;
+constexpr int kSepbit = 2, kUw = 7;   // the schemes whose ℓ refreshes take a FIFO sample
+constexpr int kSealedInOp = 4;     // a row sealed inside a GC operation of k > 1 victims
 
 // Blocks of kMaxWarps warps an instance is compiled to keep resident on one
 // SM (__launch_bounds__ derives its register cap from it). The elementwise
@@ -576,11 +600,42 @@ __device__ __forceinline__ int select_victim(const Meta& meta, int n_rows, int t
   return warp_victim(best, best_i);
 }
 
+// The end of a GC operation of gc_batch > 1 victims: the rows its rounds
+// sealed (marked kSealedInOp, so no later round took them) are sealed rows.
+template <class Meta>
+__device__ __forceinline__ void end_operation(const Meta& meta, int n_rows, int gc_batch,
+                                              int lane) {
+  if (gc_batch == 1) return;
+  __syncwarp();
+  for (int j = lane; j < n_rows; j += 32) {
+    if (meta.state(j) == kSealedInOp) meta.set_state(j, 2);
+  }
+  __syncwarp();
+}
+
 // Rows with state 0 (free) of one volume, summed across the warp.
 template <class Meta>
 __device__ __forceinline__ int count_free_rows(const Meta& meta, int n_rows, int lane) {
   int count = 0;
   for (int j = lane; j < n_rows; j += 32) count += meta.state(j) == 0 ? 1 : 0;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) count += __shfl_xor_sync(kFull, count, off);
+  return count;
+}
+
+// SepBIT's FIFO window at an ℓ refresh (torchsim._sample_fifo):
+// trunc(min(ell, t)) writes.
+__device__ __forceinline__ int fifo_width(float ell, int t) {
+  return static_cast<double>(ell) >= static_cast<double>(t) ? t : __float2int_rz(ell);
+}
+
+// SepBIT's FIFO-occupancy sample: the LBAs of one volume whose last user
+// write is at or after t - w, summed across the warp.
+__device__ __forceinline__ int fifo_count(const int* last_uw, int n_lbas, int t, int w,
+                                          int lane) {
+  const int from = wrap_sub(t, w);
+  int count = 0;
+  for (int j = lane; j < n_lbas; j += 32) count += last_uw[j] >= from ? 1 : 0;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) count += __shfl_xor_sync(kFull, count, off);
   return count;
@@ -615,7 +670,7 @@ __device__ __forceinline__ stateful_ops::Tables volume_tables(const ReplayArgs& 
           a.sfs_resample};
 }
 
-template <bool kTiming, bool kDefer, bool kStateful, bool kSharedMeta>
+template <bool kTiming, bool kDefer, bool kStateful, bool kSharedMeta, bool kPaper>
 __global__ void __launch_bounds__(32 * kMaxWarps, MinBlocks<kStateful>::value)
     replay_kernel(const __grid_constant__ ReplayArgs a, const __grid_constant__ WarpLayout L) {
   // both arguments are read in place (constant operands, never copied);
@@ -767,14 +822,25 @@ __global__ void __launch_bounds__(32 * kMaxWarps, MinBlocks<kStateful>::value)
 
       // ---- GC loop (torchsim.fleet_gc_tick, one volume) ----
       int iters = 0;
-      for (int it = 0; it < a.max_gc; ++it) {
-        const float occ = __int2float_rn(max(total_occ, 1));
-        const float gp = __fsub_rn(1.0f, __fdiv_rn(__int2float_rn(total_valid), occ));
-        if (!(gp > gp_limit)) break;
-        if (deferring && lat_dens > a.idle_density && free_rows >= a.watermark_rows) break;
-        ++iters;
+      int taken = 0;    // kPaper: victims of the GC operation in progress
+      for (int it = 0; it < a.max_gc;) {
+        if (!kPaper || taken == 0) {   // a GC operation starts: GP checked once
+          const float occ = __int2float_rn(max(total_occ, 1));
+          const float gp = __fsub_rn(1.0f, __fdiv_rn(__int2float_rn(total_valid), occ));
+          if (!(gp > gp_limit)) break;
+          if (deferring && lat_dens > a.idle_density && free_rows >= a.watermark_rows) break;
+          ++iters;
+        }
         const int victim = select_victim<kStateful>(meta, R, t, selector, wbase + L.scan, lane);
-        if (victim < 0) break;    // stalled for the rest of this step
+        if (victim < 0) {
+          if (!kPaper || taken == 0) break;   // stalled for the rest of this step
+          end_operation(meta, R, a.gc_batch, lane);   // a round with none ends it
+          taken = 0;
+          ++it;
+          continue;
+        }
+        // kPaper: a row this round seals waits for the operation's next round
+        const bool mark = kPaper && taken + 1 < a.gc_batch;
 
         // ---- rewrite the victim (torchsim._gc_once) ----
         const long long vslot0 = (row0 + victim) * s;
@@ -796,6 +862,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps, MinBlocks<kStateful>::value)
           ell = __fdiv_rn(ell_tot, __int2float_rn(max(nc, 1)));
           nc = 0;
           ell_tot = 0.0f;
+          if (kPaper && a.fifo_window != nullptr && (scheme == kSepbit || scheme == kUw) &&
+              !isinf(ell) && lane == 0) {   // a FIFO sample, counted after the step's GC loop
+            const int w = fifo_width(ell, t);
+            a.fifo_window[2 * v] = max(a.fifo_window[2 * v], w);
+            a.fifo_window[2 * v + 1] = w;
+          }
         }
         first_free_rows(meta, R, pad, C, sh_free, lane);   // syncs the warp
         const int free_row = has_class ? sh_free[lane] : pad;
@@ -869,7 +941,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, MinBlocks<kStateful>::value)
           if (took2 > 0) meta.add_counts(free_row, took2);
           if (n0 == 0 && per_cls > 0) a.seg_ctime[row0 + open_sid] = t;
           if (sealed) {
-            meta.set_state(open_sid, 2);
+            meta.set_state(open_sid, mark ? kSealedInOp : 2);
             meta.set_stime(open_sid, t);
           }
         }
@@ -909,8 +981,32 @@ __global__ void __launch_bounds__(32 * kMaxWarps, MinBlocks<kStateful>::value)
         gc_writes += k_total;
         reclaimed += 1;
         class_gc += per_cls;
+        if (!kPaper || ++taken == a.gc_batch) {   // the operation ends
+          if (kPaper) end_operation(meta, R, a.gc_batch, lane);
+          taken = 0;
+          ++it;
+        }
       }
       if (lane == 0 && iters > 0) atomicMax(&a.iterations[base + k], iters);
+      if (kPaper && a.fifo_window != nullptr && (scheme == kSepbit || scheme == kUw)) {
+        // the step's FIFO samples: t and last_uw stay as they are through
+        // its GC loop, and the count grows with the window, so the samples
+        // of its refreshes are the newest window's count and, for the
+        // peak, the widest's
+        __syncwarp();
+        const int widest = a.fifo_window[2 * v], newest = a.fifo_window[2 * v + 1];
+        if (widest >= 0) {
+          const int last = fifo_count(a.last_uw + lba0, a.n_lbas, t, newest, lane);
+          const int most =
+              widest == newest ? last : fifo_count(a.last_uw + lba0, a.n_lbas, t, widest, lane);
+          __syncwarp();
+          if (lane == 0) {
+            a.fifo_last[v] = last;
+            a.fifo_peak[v] = max(a.fifo_peak[v], most);
+            a.fifo_window[2 * v] = -1;
+          }
+        }
+      }
       if (kTiming) {   // torchsim._charge_gc, after the step's GC loop
         __syncwarp();   // the loop's last debt stored
         const float debt = tm.debt;
@@ -967,10 +1063,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps, MinBlocks<kStateful>::value)
 
 // One instance: its launch, or (`occupancy` not null) its resident blocks
 // per SM, registers and local-memory bytes a thread.
-template <bool kTiming, bool kDefer, bool kStateful, bool kSharedMeta>
+template <bool kTiming, bool kDefer, bool kStateful, bool kSharedMeta, bool kPaper>
 int run_instance(const ReplayArgs& a, const WarpLayout& L, cudaStream_t st, int* occupancy) {
   const size_t smem = static_cast<size_t>(a.warps) * L.total;
-  auto* kernel = replay_kernel<kTiming, kDefer, kStateful, kSharedMeta>;
+  auto* kernel = replay_kernel<kTiming, kDefer, kStateful, kSharedMeta, kPaper>;
   // the CUDA runtime sizes the shared-memory carveout for the occupancy,
   // so the rest of the SM's 256 KB stays L1 (spills, the victim's slots)
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -991,28 +1087,34 @@ int run_instance(const ReplayArgs& a, const WarpLayout& L, cudaStream_t st, int*
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kTiming, bool kDefer>
+template <bool kTiming, bool kDefer, bool kPaper>
 int run_stateful_or_not(const ReplayArgs& a, const WarpLayout& L, cudaStream_t st,
                         int* occupancy) {
   if (a.stateful) {
-    return a.shared_meta ? run_instance<kTiming, kDefer, true, true>(a, L, st, occupancy)
-                         : run_instance<kTiming, kDefer, true, false>(a, L, st, occupancy);
+    return a.shared_meta ? run_instance<kTiming, kDefer, true, true, kPaper>(a, L, st, occupancy)
+                         : run_instance<kTiming, kDefer, true, false, kPaper>(a, L, st,
+                                                                             occupancy);
   }
-  return a.shared_meta ? run_instance<kTiming, kDefer, false, true>(a, L, st, occupancy)
-                       : run_instance<kTiming, kDefer, false, false>(a, L, st, occupancy);
+  return a.shared_meta ? run_instance<kTiming, kDefer, false, true, kPaper>(a, L, st, occupancy)
+                       : run_instance<kTiming, kDefer, false, false, kPaper>(a, L, st,
+                                                                            occupancy);
 }
 
 int run(const ReplayArgs& a, cudaStream_t st, int* occupancy) {
   const WarpLayout L = warp_layout(a.seg_size, a.n_rows, a.n_classes, a.stateful != 0,
                                    a.shared_meta != 0);
   if (a.warps < 1 || a.warps > kMaxWarps || a.smem_per_warp != L.total ||
-      a.seg_size > kMaxSegSize || a.n_classes > kMaxClasses) {
+      a.seg_size > kMaxSegSize || a.n_classes > kMaxClasses || a.gc_batch < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (a.timing && a.defer) return run_stateful_or_not<true, true>(a, L, st, occupancy);
-  if (a.timing) return run_stateful_or_not<true, false>(a, L, st, occupancy);
-  if (a.defer) return run_stateful_or_not<false, true>(a, L, st, occupancy);
-  return run_stateful_or_not<false, false>(a, L, st, occupancy);
+  if (a.gc_batch > 1 || a.fifo) {   // the kPaper instances: greedy GC, timing off
+    if (a.timing || a.defer) return static_cast<int>(cudaErrorInvalidValue);
+    return run_stateful_or_not<false, false, true>(a, L, st, occupancy);
+  }
+  if (a.timing && a.defer) return run_stateful_or_not<true, true, false>(a, L, st, occupancy);
+  if (a.timing) return run_stateful_or_not<true, false, false>(a, L, st, occupancy);
+  if (a.defer) return run_stateful_or_not<false, true, false>(a, L, st, occupancy);
+  return run_stateful_or_not<false, false, false>(a, L, st, occupancy);
 }
 
 }  // namespace

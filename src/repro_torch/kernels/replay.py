@@ -17,9 +17,13 @@ Each is an instance of the kernel of its own, so the instance with all
 three off runs none of it. All 14 schemes run in one launch, mixed in one
 fleet as they may be; fk reads its (V, T) next-write stream ``nxt``. The
 legacy GC engine is refused (`ValueError`), never handed to the step
-engine, which runs it under ``engine="step"``. ``launches`` counts the
-kernel's launches: ``replay`` with the timing model off, ``replay_timing``
-with it on.
+engine, which runs it under ``engine="step"``. ``cfg.gc_batch_segments``
+(GC operations of k victims) and ``cfg.fifo_occupancy`` (SepBIT's
+FIFO-occupancy samples into ``fifo_peak`` / ``fifo_last``) are runtime
+fields of the launch; with either one the kernel's kPaper instances run
+(greedy GC, timing off), so the others carry none of that code.
+``launches`` counts the kernel's launches: ``replay`` with the timing model
+off, ``replay_timing`` with it on.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.config import GCSCHED_IDS, TorchSimConfig, state_spec
+from ..core.config import FIFO_KEYS, GCSCHED_IDS, TorchSimConfig, state_spec
 from ..core.placement import stateful
 from ..core.placement.schemes import SCHEME_IDS, SCHEMES, check_ids
 from . import build
@@ -59,7 +63,8 @@ FK, SFS = SCHEME_IDS["fk"], SCHEME_IDS["sfs"]
 class ReplayArgs(ctypes.Structure):
     _fields_ = ([(key, ctypes.c_void_p) for key in STATE_FIELDS]
                 + [(name, ctypes.c_void_p) for name in ("trace", "iterations", "nxt",
-                                                        "sfs_keys")]
+                                                        "sfs_keys", *FIFO_KEYS,
+                                                        "fifo_window")]
                 + [(name, ctypes.c_int) for name in ("n_volumes", "n_steps", "n_rows",
                                                      "seg_size", "n_classes", "n_lbas",
                                                      "max_gc")]
@@ -69,7 +74,8 @@ class ReplayArgs(ctypes.Structure):
                                                        "charge_cap", "idle_density", "ln2")]
                 + [(name, ctypes.c_int) for name in ("watermark_rows", "lat_buckets",
                                                      "stateful", "sfs_resample", "warps",
-                                                     "shared_meta", "smem_per_warp")])
+                                                     "shared_meta", "smem_per_warp",
+                                                     "gc_batch", "fifo")])
 
 
 class Instance(NamedTuple):
@@ -152,9 +158,11 @@ _SIGNATURES = {"replay_launch": [ctypes.POINTER(ReplayArgs), ctypes.c_void_p],
 
 def check_inputs(cfg: TorchSimConfig, st: dict, trace, nxt=None) -> Instance:
     """Raise unless ``cfg`` runs the tick engine (the legacy engine is
-    refused first: it runs under ``engine="step"``), every state key is a
-    contiguous tensor of its dtype and shape for ``cfg`` with one leading
-    volume axis, ``trace`` a contiguous (V, T) int32 tensor of LBAs in
+    refused first: it runs under ``engine="step"``), every volume runs the
+    greedy GC schedule where ``cfg`` asks for GC operations of k > 1
+    victims or the FIFO samples, every state key is a contiguous tensor of
+    its dtype and shape for ``cfg`` with one leading volume axis, ``trace``
+    a contiguous (V, T) int32 tensor of LBAs in
     [-1, n_lbas) (-1: a pad step) on the same device, every volume's scheme
     in the table, ``nxt`` (fk's next-write stream; needed when some volume
     runs fk) a contiguous (V, T) int32 tensor on that device, that device
@@ -184,6 +192,10 @@ def check_inputs(cfg: TorchSimConfig, st: dict, trace, nxt=None) -> Instance:
             raise ValueError(f"state[{key!r}] must be contiguous")
         if x.device != device:
             raise ValueError(f"state[{key!r}] is on {x.device}, the trace on {device}")
+    if ((cfg.gc_batch_segments > 1 or cfg.fifo_occupancy)
+            and bool((st["p_gcsched"] != GCSCHED_IDS["greedy"]).any())):
+        raise ValueError("gc_batch_segments > 1 and fifo_occupancy run under the greedy GC "
+                         "schedule only")
     if trace.numel() and bool(((trace < -1) | (trace >= cfg.n_lbas)).any()):
         raise ValueError(f"trace LBAs must lie in [0, {cfg.n_lbas}) or be -1 (a pad step)")
     ids = torch.unique(st["p_scheme"]).tolist()
@@ -236,7 +248,8 @@ def _geometry_args(cfg: TorchSimConfig, V: int, inst: Instance, device) -> tuple
     args = ReplayArgs(n_volumes=V, n_rows=cfg.n_rows, seg_size=cfg.segment_size,
                       n_classes=cfg.n_class_slots, timing=int(cfg.timing),
                       defer=int(inst.defer), stateful=int(inst.stateful), warps=geo.warps,
-                      shared_meta=int(geo.shared_meta), smem_per_warp=geo.warp_bytes)
+                      shared_meta=int(geo.shared_meta), smem_per_warp=geo.warp_bytes,
+                      gc_batch=cfg.gc_batch_segments, fifo=int(cfg.fifo_occupancy))
     return geo, args
 
 
@@ -276,14 +289,20 @@ def launch(cfg: TorchSimConfig, st: dict, trace, iterations, inst: Instance,
     # them after the launch
     keys = (torch.empty((inst.n_sfs, cfg.n_lbas), dtype=torch.int32, device=device)
             if inst.n_sfs else None)
+    # the FIFO samples' scratch: a step's widest and newest window, -1 none
+    window = (torch.full((V, 2), -1, dtype=torch.int32, device=device)
+              if cfg.fifo_occupancy else None)
     geo, _ = _geometry_args(cfg, V, inst, device)
+    fifo = [st[key].data_ptr() if cfg.fifo_occupancy else None for key in FIFO_KEYS]
+    fifo.append(None if window is None else window.data_ptr())
     args = ReplayArgs(*(st[key].data_ptr() for key in STATE_FIELDS), trace.data_ptr(),
                       iterations.data_ptr(), nxt.data_ptr() if inst.fk else None,
-                      None if keys is None else keys.data_ptr(), V, T, cfg.n_rows,
+                      None if keys is None else keys.data_ptr(), *fifo, V, T, cfg.n_rows,
                       cfg.segment_size, cfg.n_class_slots, cfg.n_lbas, cfg.max_gc_per_step,
                       float(np.float32(1.0) - a), float(a), int(cfg.timing), int(inst.defer),
                       *f32, cfg.watermark_rows, cfg.lat_buckets, int(inst.stateful),
-                      cfg.sfs_resample, geo.warps, int(geo.shared_meta), geo.warp_bytes)
+                      cfg.sfs_resample, geo.warps, int(geo.shared_meta), geo.warp_bytes,
+                      cfg.gc_batch_segments, int(cfg.fifo_occupancy))
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = build.library("replay", _SIGNATURES).replay_launch(ctypes.byref(args), stream)

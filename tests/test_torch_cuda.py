@@ -699,6 +699,54 @@ def test_replay_kernel_takes_the_14_scheme_fleet(card):
                                                                  device=card)), rep)
 
 
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_replay_kernel_k_victims_and_fifo_samples_match_cpu(card, k):
+    """GC operations of k victims and SepBIT's FIFO samples (the paper's
+    Exp#2 and Exp#5) on the 14-scheme fleet: one launch, equal on every key,
+    fifo_peak and fifo_last included, to the CPU step engine and to the
+    card's step engine, with the same counts; only sepbit's and uw's
+    volumes sampled."""
+    cfg, traces, pol = _all_schemes_fleet()
+    cfg = dataclasses.replace(cfg, gc_batch_segments=k, fifo_occupancy=True)
+    (rep, rstats, rcounts), (step, sstats, _) = _replay_both(cfg, traces, pol, card)
+    _kernel_only(rcounts)
+    want = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device="cpu"))
+    assert (want["reclaimed"] > 0).all()
+    _assert_same_state(rep, want)
+    _assert_same_state(step, want)
+    assert (rstats.steps, rstats.gc_ticks, rstats.tick_iterations) == \
+        (sstats.steps, sstats.gc_ticks, sstats.tick_iterations)
+    sampled = np.isin(pol["p_scheme"], [2, 7])
+    assert (want["fifo_peak"][sampled] > 0).all() and (want["fifo_peak"][~sampled] == -1).all()
+    assert (want["fifo_last"] <= want["fifo_peak"]).all()
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("where", ["shared", "global", "exhaustion"])
+def test_replay_kernel_k_victims_elementwise_match_cpu(card, where, k):
+    """GC operations of k victims through the elementwise instance, with
+    the segment metadata in shared memory (a stalling volume, pad steps,
+    mixed selectors) or in global memory (a pool of 6,000 segments), and in
+    the free-pool exhaustion corner, where the pad row is sealed inside an
+    operation: equal to the CPU step engine on every key."""
+    if where == "exhaustion":
+        cfg = TorchSimConfig(n_lbas=96, segment_size=8, n_segments=16, gp_threshold=0.10,
+                             gc_batch_segments=k, fifo_occupancy=True)
+        traces = [np.asarray(np.random.default_rng(67).integers(0, 96, size=6 * 96), np.int32)]
+        pol = None
+    else:
+        cfg, traces, pol = _hetero_fleet(32, n=1024)
+        cfg = dataclasses.replace(cfg, gc_batch_segments=k, fifo_occupancy=True,
+                                  n_segments=6000 if where == "global" else cfg.n_segments)
+    ops.reset_launch_counts()
+    got = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device=card))
+    _kernel_only(ops.launch_counts())
+    want = convert.state_to_numpy(torchsim.run_fleet(cfg, traces, pol, device="cpu"))
+    assert want["reclaimed"].sum() > 0
+    assert (int(want["overflow"].sum()) > 0) == (where == "exhaustion")
+    _assert_same_state(got, want)
+
+
 @pytest.mark.parametrize("sched", ["greedy", "mixed"])
 def test_replay_kernel_all_schemes_timing_and_idle_window(card, sched):
     """The 14-scheme fleet with the timing model on, all greedy or mixing
