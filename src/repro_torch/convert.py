@@ -40,9 +40,18 @@ def state_from_numpy(np_state: dict, device) -> dict:
     return out
 
 
+# process-wide: the bytes of state `state_to_numpy` handed to the host, read
+# through `kernels.ops.host_counts`, zeroed by `reset_launch_counts`
+readback = {"state_readback_bytes": 0}
+
+
 def state_to_numpy(state: dict) -> dict:
-    """The state as numpy arrays, leading volume axis kept."""
-    return {key: x.detach().cpu().numpy() for key, x in state.items()}
+    """The state as numpy arrays, leading volume axis kept; adds their bytes
+    to ``readback`` (on every device: on the CPU the arrays share the
+    tensors' memory)."""
+    out = {key: x.detach().cpu().numpy() for key, x in state.items()}
+    readback["state_readback_bytes"] += sum(x.nbytes for x in out.values())
+    return out
 
 
 def _tensor(x: np.ndarray, device, dtype: torch.dtype | None = None) -> torch.Tensor:

@@ -25,6 +25,12 @@ over one fleet:
    the replay kernel dispatches per warp and the step engine per volume, so
    grouping prunes nothing here: it runs one replay per group.
 
+The host's phases run inside `torchsim.span` ranges, which enclose no
+device work: ``gather`` (a group's rows, then a chunk's, each a copy of its
+traces), ``regroup`` (the groups' states concatenated and put back in input
+order) and ``sweep_summary``; `torchsim` adds ``check_lbas``,
+``next_writes`` and ``summaries``.
+
 ``engine`` is `torchsim.run_fleet`'s: ``"replay"`` (the replay kernel on the
 card, one launch per group and device chunk whatever its schemes) or
 ``"step"``. Nothing is rerouted from one to the other.
@@ -191,15 +197,20 @@ def _devices(devices, device, shard: bool) -> list[torch.device]:
     return devices if shard else devices[:1]
 
 
-def _replay_fleet(padded: np.ndarray, cfg_h: TorchSimConfig, policy: FleetPolicy,
+def _chunk(padded: np.ndarray, pol: dict, idx: np.ndarray) -> tuple[np.ndarray, dict]:
+    """Rows ``idx`` of a padded fleet (contiguous) and of its policy arrays."""
+    with torchsim.span("gather"):
+        return np.ascontiguousarray(padded[idx]), {k: v[idx] for k, v in pol.items()}
+
+
+def _replay_fleet(padded: np.ndarray, policy: FleetPolicy, cfg_h: TorchSimConfig,
                   devices: list, engine: str) -> dict:
     """One fleet replay (no grouping): the volume axis in contiguous chunks,
     one `torchsim.run_fleet` per device, every chunk launched before any is
     read; the final states (numpy) gathered in input order."""
     pol = policy.as_state_arrays()
     chunks = [idx for idx in np.array_split(np.arange(padded.shape[0]), len(devices)) if len(idx)]
-    running = [torchsim.run_fleet(cfg_h, np.ascontiguousarray(padded[idx]),
-                                  {k: v[idx] for k, v in pol.items()}, device=dev, engine=engine)
+    running = [torchsim.run_fleet(cfg_h, *_chunk(padded, pol, idx), device=dev, engine=engine)
                for idx, dev in zip(chunks, devices)]
     states = [state_to_numpy(st) for st in running]
     if len(states) == 1:
@@ -213,6 +224,12 @@ def _policy_rows(policy: FleetPolicy, idx: np.ndarray) -> FleetPolicy:
                        gp_threshold=policy.gp_threshold[idx],
                        nc_window=policy.nc_window[idx],
                        gcsched_id=policy.gcsched_id[idx])
+
+
+def _group(padded: np.ndarray, policy: FleetPolicy, idx: np.ndarray) -> tuple:
+    """Rows ``idx`` of a padded fleet and of its policy."""
+    with torchsim.span("gather"):
+        return padded[idx], _policy_rows(policy, idx)
 
 
 def simulate_fleet_hetero(traces, cfg: TorchSimConfig, policy: FleetPolicy, *,
@@ -245,12 +262,13 @@ def simulate_fleet_hetero(traces, cfg: TorchSimConfig, policy: FleetPolicy, *,
     states = []
     for name, idx in groups:
         cfg_g = cfg_h if name is None else dataclasses.replace(cfg_h, scheme_group=(name,))
-        states.append(_replay_fleet(padded[idx], cfg_g, _policy_rows(policy, idx), devs, engine))
+        states.append(_replay_fleet(*_group(padded, policy, idx), cfg_g, devs, engine))
     if len(states) == 1:
         st = states[0]
     else:   # volumes back in input order
-        order = np.argsort(np.concatenate([idx for _, idx in groups]))
-        st = {k: np.concatenate([s[k] for s in states])[order] for k in states[0]}
+        with torchsim.span("regroup"):
+            order = np.argsort(np.concatenate([idx for _, idx in groups]))
+            st = {k: np.concatenate([s[k] for s in states])[order] for k in states[0]}
 
     res = torchsim.summarize_fleet(cfg_h, st, V)
     res["fleet"]["n_devices"] = len(devs)
@@ -350,7 +368,8 @@ def simulate_fleet_sweep(traces, cfg: TorchSimConfig, *, schemes, selectors, gp_
                                 nc_window=nc_window, gcsched=gcsched)
     res = simulate_fleet_hetero(padded, cfg, policy, devices=devices, shard=shard, group=group,
                                 engine=engine, device=device)
-    res["sweep"] = sweep_summary(res, policy, cells)
+    with torchsim.span("sweep_summary"):
+        res["sweep"] = sweep_summary(res, policy, cells)
     res["policy"] = policy
     return res
 

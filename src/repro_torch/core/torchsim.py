@@ -45,6 +45,12 @@ loop asks the host whether any volume still needs GC before each tick
 iteration: one host sync per iteration, plus the one per step that finds
 none. `ReplayStats` counts steps, iterations and host syncs.
 
+The host's phases around a replay each run inside a `span`, a profiler
+range named ``repro_torch.fleet.<phase>`` that encloses no device work: the
+LBA check (``check_lbas``), fk's stream (``next_writes``) and the summaries
+(``summaries``); `summarize_fleet` counts its calls and the bytes of state
+its summaries read (`summary_counts`).
+
 That is the step engine (``engine="step"``). By default (``engine="replay"``)
 `run` and `run_fleet` hand a state on the card to the replay kernel
 (`kernels.replay`): one launch replays every volume under any of the 14
@@ -61,6 +67,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import resolve_device
 from ..convert import state_to_numpy
@@ -87,15 +94,31 @@ from .placement.schemes import SCHEME_IDS, SCHEME_REQUIRES_FUTURE
 
 ENGINES = ("replay", "step")
 
+# process-wide counts of the fleet summaries: the calls of `summarize_fleet`
+# and the bytes of state its `_summary` calls read. Read with the launch
+# counts through `kernels.ops` (`host_counts`), zeroed by its
+# `reset_launch_counts`
+summary_counts = {"summary_bytes": 0, "fleet_summaries": 0}
+
+
+def span(phase: str):
+    """A ``torch.profiler`` range named ``repro_torch.fleet.<phase>`` around
+    one host phase of a replay. It encloses NumPy or Python work only: a
+    range around device work would also show as a row on the device."""
+    return record_function(f"repro_torch.fleet.{phase}")
+
 
 @dataclasses.dataclass
 class ReplayStats:
-    """Counts of one replay: lockstep steps, steps whose GC loop ran at least
-    once, GC tick iterations (per step, the most any volume ran), and the
-    host syncs the engine made while replaying (the step engine: one per tick
-    iteration and one per step that finds no volume over its threshold; the
-    replay kernel: one read of its counts after the launch). The checks
-    before a replay (scheme ids, pad steps, LBA range) are not counted."""
+    """Counts of one replay, in an object the caller passes and owns (the
+    process-wide counts live in `kernels.ops`' registry): lockstep steps,
+    steps whose GC loop ran at least once, GC tick iterations (per step, the
+    most any volume ran), and the host syncs the engine made while replaying
+    (the step engine: one per tick iteration and one per step that finds no
+    volume over its threshold; the replay kernel: one read of its counts
+    after the launch). The checks before a replay (scheme ids, pad steps,
+    LBA range) are not counted; the host's LBA check is timed by the
+    ``repro_torch.fleet.check_lbas`` span instead (`span`)."""
 
     steps: int = 0
     gc_ticks: int = 0
@@ -624,7 +647,9 @@ def _next_writes(st: dict, trace, nxt=None):
     if not any(SCHEME_REQUIRES_FUTURE[int(sid)] for sid in schemes):
         return None
     if nxt is None:
-        nxt = fleet_annotations(trace.cpu().numpy(), st["p_scheme"].cpu().numpy())
+        lbas, scheme_ids = trace.cpu().numpy(), st["p_scheme"].cpu().numpy()
+        with span("next_writes"):
+            nxt = fleet_annotations(lbas, scheme_ids)
     return coerce_fleet_annotations(nxt, tuple(trace.shape), trace.device).contiguous()
 
 
@@ -657,8 +682,9 @@ def run(cfg: TorchSimConfig, trace, policy: dict | None = None, device="cuda",
     _check_engine(engine)
     dev = resolve_device(device)
     trace = np.asarray(trace, dtype=np.int32)
-    if trace.ndim != 1 or (trace < 0).any() or (trace >= cfg.n_lbas).any():
-        raise ValueError(f"trace must be 1-D LBAs in [0, {cfg.n_lbas})")
+    with span("check_lbas"):
+        if trace.ndim != 1 or (trace < 0).any() or (trace >= cfg.n_lbas).any():
+            raise ValueError(f"trace must be 1-D LBAs in [0, {cfg.n_lbas})")
     st = own_state(init_state(cfg, policy, dev) if state is None else state)
     if st["t"].shape != (1,):
         raise ValueError("a single-volume state has a leading volume axis of 1")
@@ -715,8 +741,9 @@ def run_fleet(cfg: TorchSimConfig, traces, policies: dict | None = None, device=
     dev = resolve_device(device)
     padded = coerce_fleet(traces)
     V = padded.shape[0]
-    if (padded >= cfg.n_lbas).any():
-        raise ValueError(f"trace LBAs must lie in [0, {cfg.n_lbas})")
+    with span("check_lbas"):
+        if (padded >= cfg.n_lbas).any():
+            raise ValueError(f"trace LBAs must lie in [0, {cfg.n_lbas})")
     if state is None:
         state = init_state(cfg, broadcast_policies(cfg, V) if policies is None else policies,
                            dev)
@@ -758,8 +785,20 @@ def latency_summary(cfg: TorchSimConfig, st: dict) -> dict:
     }
 
 
+def summary_keys(cfg: TorchSimConfig) -> tuple:
+    """The state keys `_summary` reads of a volume under ``cfg``."""
+    keys = ("p_scheme", "p_selector", "p_gp", "p_gcsched", "user_writes", "gc_writes",
+            "reclaimed", "overflow", "ell", "class_user", "class_gc")
+    if cfg.timing:
+        keys += ("lat_hist", "lat_max", "lat_sum", "lat_charged", "lat_debt")
+    if cfg.fifo_occupancy:
+        keys += ("fifo_peak", "fifo_last", "last_uw")
+    return keys
+
+
 def _summary(cfg: TorchSimConfig, st: dict) -> dict:
-    """Summary of one volume's final state (numpy arrays, no volume axis)."""
+    """Summary of one volume's final state (numpy arrays, no volume axis),
+    from the keys `summary_keys` names."""
     user = int(st["user_writes"])
     gc_writes = int(st["gc_writes"])
     overflow = int(st["overflow"])
@@ -795,30 +834,33 @@ def summarize_fleet(cfg: TorchSimConfig, st: dict, n_volumes: int) -> dict:
     (tensors, or numpy arrays)."""
     if isinstance(st["t"], torch.Tensor):
         st = state_to_numpy(st)
-    vols = [_summary(cfg, {k: x[i] for k, x in st.items()}) for i in range(n_volumes)]
-    user = sum(r["user_writes"] for r in vols)
-    gc = sum(r["gc_writes"] for r in vols)
-    overflow = sum(r["overflow"] for r in vols)
-    fleet = {
-        "n_volumes": n_volumes,
-        "user_writes": user,
-        "gc_writes": gc,
-        "wa": (user + gc) / max(user, 1),
-        "overflow": overflow,
-        "free_exhausted": overflow,
-        "degraded": overflow > 0,
-        "per_volume_wa": [r["wa"] for r in vols],
-    }
-    if cfg.timing:
-        # fleet quantiles from the merged histogram (per-volume p99s do not average)
-        hist = np.asarray(st["lat_hist"])[:n_volumes].sum(axis=0)
-        fleet["latency"] = {
-            "p50": hist_quantile(hist, 0.50, cfg.write_cost),
-            "p99": hist_quantile(hist, 0.99, cfg.write_cost),
-            "max": max((r["latency"]["max"] for r in vols), default=0.0),
-            "mean": sum(r["latency"]["total"] for r in vols) / max(user, 1),
-            "gc_debt": sum(r["latency"]["gc_debt"] for r in vols),
+    summary_counts["fleet_summaries"] += 1
+    summary_counts["summary_bytes"] += n_volumes * sum(st[k][:1].nbytes for k in summary_keys(cfg))
+    with span("summaries"):
+        vols = [_summary(cfg, {k: x[i] for k, x in st.items()}) for i in range(n_volumes)]
+        user = sum(r["user_writes"] for r in vols)
+        gc = sum(r["gc_writes"] for r in vols)
+        overflow = sum(r["overflow"] for r in vols)
+        fleet = {
+            "n_volumes": n_volumes,
+            "user_writes": user,
+            "gc_writes": gc,
+            "wa": (user + gc) / max(user, 1),
+            "overflow": overflow,
+            "free_exhausted": overflow,
+            "degraded": overflow > 0,
+            "per_volume_wa": [r["wa"] for r in vols],
         }
+        if cfg.timing:
+            # fleet quantiles from the merged histogram (per-volume p99s do not average)
+            hist = np.asarray(st["lat_hist"])[:n_volumes].sum(axis=0)
+            fleet["latency"] = {
+                "p50": hist_quantile(hist, 0.50, cfg.write_cost),
+                "p99": hist_quantile(hist, 0.99, cfg.write_cost),
+                "max": max((r["latency"]["max"] for r in vols), default=0.0),
+                "mean": sum(r["latency"]["total"] for r in vols) / max(user, 1),
+                "gc_debt": sum(r["latency"]["gc_debt"] for r in vols),
+            }
     return {"volumes": vols, "fleet": fleet}
 
 

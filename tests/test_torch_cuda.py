@@ -925,6 +925,41 @@ def test_hetero_replay_takes_a_stateful_group(card):
         assert out[name][0]["sweep"] == out["grouped"][0]["sweep"]
 
 
+def test_fleet_spans_hold_host_work_only_on_the_card(card):
+    """A small sweep profiled on the card: the port's spans (``repro_torch.``
+    ranges) are host rows only, never device rows (a range that enclosed
+    device work would be one too), and on the profiler's one clock the
+    traces' gathers and the LBA check end before the first host-to-device
+    copy (the trace's upload among them) starts, and the summaries start
+    after the last device-to-host copy (the state's read-back) ends."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import fleetshard
+    from repro_torch.core.tracegen import tiled_fleet
+    args = dict(schemes=["sepbit"], selectors=["greedy"], gp_thresholds=[0.1, 0.2])
+    traces = tiled_fleet("mixed", 2, 4, 512, 3 * 512, jitter=0.25, seed=61)
+    cfg = TorchSimConfig(n_lbas=512, segment_size=16)
+    fleetshard.simulate_fleet_sweep(traces, cfg, device=card, **args)    # loads the kernel
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fleetshard.simulate_fleet_sweep(traces, cfg, device=card, **args)
+        torch.cuda.synchronize()
+    spans, device = {}, []
+    for e in prof.events():
+        row = (e.name, e.time_range.start, e.time_range.end)
+        if e.device_type.name == "CUDA":
+            device.append(row)
+        elif e.name.startswith("repro_torch."):
+            spans.setdefault(e.name.removeprefix("repro_torch.fleet."), []).append(row[1:])
+    assert not [name for name, _, _ in device if name.startswith("repro_torch.")]
+    assert set(spans) == {"gather", "check_lbas", "summaries", "sweep_summary"}
+    uploads = [s for name, s, _ in device if name.startswith("Memcpy HtoD")]
+    readbacks = [e for name, _, e in device if name.startswith("Memcpy DtoH")]
+    assert uploads and readbacks
+    assert max(e for k in ("gather", "check_lbas") for _, e in spans[k]) <= min(uploads)
+    assert min(s for s, _ in spans["summaries"]) >= max(readbacks)
+
+
 # -- the legacy GC engine (the step engine on the card) --------------------------
 
 def test_legacy_fleet_on_the_card_matches_cpu_and_tick(card):
