@@ -25,11 +25,17 @@ over one fleet:
    the replay kernel dispatches per warp and the step engine per volume, so
    grouping prunes nothing here: it runs one replay per group.
 
+A group's rows and a chunk's are selected with no host pass over the
+traces: a slice, a view of the caller's rows, where the rows are one
+ascending run (every scheme group of `policy_grid`'s cell-major layout,
+every chunk); else one copy of the group, whose chunks are then slices of
+it (`torchsim.trace_counts` counts the bytes copied).
+
 The host's phases run inside `torchsim.span` ranges, which enclose no
-device work: ``gather`` (a group's rows, then a chunk's, each a copy of its
-traces), ``regroup`` (the groups' states concatenated and put back in input
-order) and ``sweep_summary``; `torchsim` adds ``check_lbas``,
-``next_writes`` and ``summaries``.
+device work: ``gather`` (a group's rows, then a chunk's), ``regroup`` (the
+groups' states concatenated and put back in input order) and
+``sweep_summary``; `torchsim` adds ``check_lbas``, ``next_writes`` and
+``summaries``.
 
 ``engine`` is `torchsim.run_fleet`'s: ``"replay"`` (the replay kernel on the
 card, one launch per group and device chunk whatever its schemes) or
@@ -197,10 +203,24 @@ def _devices(devices, device, shard: bool) -> list[torch.device]:
     return devices if shard else devices[:1]
 
 
+def _rows(padded: np.ndarray, idx: np.ndarray) -> tuple:
+    """Rows ``idx`` of ``padded`` and the index that took them: a view and a
+    slice where ``idx`` is one ascending run of consecutive rows, else a
+    copy, whose bytes `torchsim.trace_counts` counts, and ``idx``."""
+    if len(idx) and (np.diff(idx) == 1).all():
+        rows = slice(int(idx[0]), int(idx[-1]) + 1)
+        return padded[rows], rows
+    out = padded[idx]
+    torchsim.trace_counts["trace_copy_bytes"] += out.nbytes
+    return out, idx
+
+
 def _chunk(padded: np.ndarray, pol: dict, idx: np.ndarray) -> tuple[np.ndarray, dict]:
-    """Rows ``idx`` of a padded fleet (contiguous) and of its policy arrays."""
+    """Rows ``idx`` of a padded fleet and of its policy arrays: views where
+    ``idx`` is a contiguous range, as `np.array_split`'s chunks are."""
     with torchsim.span("gather"):
-        return np.ascontiguousarray(padded[idx]), {k: v[idx] for k, v in pol.items()}
+        traces, rows = _rows(padded, idx)
+        return traces, {k: v[rows] for k, v in pol.items()}
 
 
 def _replay_fleet(padded: np.ndarray, policy: FleetPolicy, cfg_h: TorchSimConfig,
@@ -218,7 +238,7 @@ def _replay_fleet(padded: np.ndarray, policy: FleetPolicy, cfg_h: TorchSimConfig
     return {k: np.concatenate([s[k] for s in states]) for k in states[0]}
 
 
-def _policy_rows(policy: FleetPolicy, idx: np.ndarray) -> FleetPolicy:
+def _policy_rows(policy: FleetPolicy, idx) -> FleetPolicy:
     return FleetPolicy(scheme_id=policy.scheme_id[idx],
                        selector_id=policy.selector_id[idx],
                        gp_threshold=policy.gp_threshold[idx],
@@ -227,9 +247,11 @@ def _policy_rows(policy: FleetPolicy, idx: np.ndarray) -> FleetPolicy:
 
 
 def _group(padded: np.ndarray, policy: FleetPolicy, idx: np.ndarray) -> tuple:
-    """Rows ``idx`` of a padded fleet and of its policy."""
+    """Rows ``idx`` of a padded fleet and of its policy: views where ``idx``
+    is a contiguous range, else one copy."""
     with torchsim.span("gather"):
-        return padded[idx], _policy_rows(policy, idx)
+        traces, rows = _rows(padded, idx)
+        return traces, _policy_rows(policy, rows)
 
 
 def simulate_fleet_hetero(traces, cfg: TorchSimConfig, policy: FleetPolicy, *,

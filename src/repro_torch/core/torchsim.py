@@ -47,9 +47,11 @@ none. `ReplayStats` counts steps, iterations and host syncs.
 
 The host's phases around a replay each run inside a `span`, a profiler
 range named ``repro_torch.fleet.<phase>`` that encloses no device work: the
-LBA check (``check_lbas``), fk's stream (``next_writes``) and the summaries
-(``summaries``); `summarize_fleet` counts its calls and the bytes of state
-its summaries read (`summary_counts`).
+host's wait for the LBA check's verdict (``check_lbas``; the check itself
+runs where the trace lies, `_check_lbas`), fk's stream (``next_writes``) and
+the summaries (``summaries``); `summarize_fleet` counts its calls and the
+bytes of state its summaries read (`summary_counts`), and `trace_counts`
+the trace rows the fleet API copied on the host.
 
 That is the step engine (``engine="step"``). By default (``engine="replay"``)
 `run` and `run_fleet` hand a state on the card to the replay kernel
@@ -99,6 +101,10 @@ ENGINES = ("replay", "step")
 # counts through `kernels.ops` (`host_counts`), zeroed by its
 # `reset_launch_counts`
 summary_counts = {"summary_bytes": 0, "fleet_summaries": 0}
+# process-wide count of the bytes of trace rows the fleet API copied on the
+# host (`fleetshard`'s row selections, `run_fleet`'s contiguous copy): 0
+# where every selection was a view. Read and zeroed through `kernels.ops`
+trace_counts = {"trace_copy_bytes": 0}
 
 
 def span(phase: str):
@@ -117,8 +123,9 @@ class ReplayStats:
     (the step engine: one per tick iteration and one per step that finds no
     volume over its threshold; the replay kernel: one read of its counts
     after the launch). The checks before a replay (scheme ids, pad steps,
-    LBA range) are not counted; the host's LBA check is timed by the
-    ``repro_torch.fleet.check_lbas`` span instead (`span`)."""
+    LBA range) are not counted; the ``repro_torch.fleet.check_lbas`` span
+    times the LBA check on the host (`run`) or the host's wait for its
+    verdict (`run_fleet`) instead (`span`)."""
 
     steps: int = 0
     gc_ticks: int = 0
@@ -726,6 +733,28 @@ def broadcast_policies(cfg: TorchSimConfig, n_volumes: int) -> dict:
     return {k: np.full(n_volumes, v) for k, v in default_policy(cfg).items()}
 
 
+def _check_lbas(cfg: TorchSimConfig, trace: torch.Tensor) -> None:
+    """Raise unless every LBA of the (V, T) ``trace`` tensor lies below
+    ``cfg.n_lbas``, checked where the trace lies: one reduction (no (V, T)
+    temporary) and its one-element verdict copied to the host without a
+    wait, both enqueued before the ``check_lbas`` span, which holds only the
+    host's wait for that verdict."""
+    if not trace.numel():
+        return
+    # a NumPy view of the verdict's host buffer, read once the copy is done
+    over = (trace.amax() >= cfg.n_lbas).to("cpu", non_blocking=True).numpy()
+    ready = None
+    if trace.is_cuda:
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(trace.device))
+    with span("check_lbas"):
+        if ready is not None:
+            ready.synchronize()
+        refused = bool(over)
+    if refused:
+        raise ValueError(f"trace LBAs must lie in [0, {cfg.n_lbas})")
+
+
 def run_fleet(cfg: TorchSimConfig, traces, policies: dict | None = None, device="cuda",
               state: dict | None = None, stats: ReplayStats | None = None,
               engine: str = "replay", nxts=None) -> dict:
@@ -736,14 +765,18 @@ def run_fleet(cfg: TorchSimConfig, traces, policies: dict | None = None, device=
     ``"replay"`` (the replay kernel) or ``"step"`` (the step engine, victims
     from `segment_select_batch`). ``nxts``: fk's (V, T) next-write indices
     (None: made from the traces, as ``jaxsim.fleet_annotations`` makes
-    them)."""
+    them). The trace is uploaded as it is (on the CPU the tensor shares the
+    caller's array, which no engine writes) and its LBAs are checked there
+    (`_check_lbas`) before any state is made."""
     _check_engine(engine)
     dev = resolve_device(device)
     padded = coerce_fleet(traces)
     V = padded.shape[0]
-    with span("check_lbas"):
-        if (padded >= cfg.n_lbas).any():
-            raise ValueError(f"trace LBAs must lie in [0, {cfg.n_lbas})")
+    if not padded.flags.c_contiguous:
+        trace_counts["trace_copy_bytes"] += padded.nbytes
+        padded = np.ascontiguousarray(padded)
+    trace = torch.from_numpy(padded).to(dev)
+    _check_lbas(cfg, trace)
     if state is None:
         state = init_state(cfg, broadcast_policies(cfg, V) if policies is None else policies,
                            dev)
@@ -752,8 +785,7 @@ def run_fleet(cfg: TorchSimConfig, traces, policies: dict | None = None, device=
     st = own_state(state)
     if st["t"].shape != (V,):
         raise ValueError(f"state holds {st['t'].shape[0]} volumes, traces {V}")
-    return _replay(cfg, st, torch.from_numpy(np.ascontiguousarray(padded)).to(dev), stats,
-                   engine, _select_victims_fleet, nxts)
+    return _replay(cfg, st, trace, stats, engine, _select_victims_fleet, nxts)
 
 
 def hist_quantile(hist, q: float, write_cost: float = 1.0) -> float:

@@ -1,7 +1,7 @@
 """The kernel wrappers in one place, and the port's one registry of counts:
 each count is a module-level dict at its site (a kernel's ``launches``,
-`convert.readback`, `core.torchsim.summary_counts`), read here and zeroed by
-`reset_launch_counts`."""
+`convert.readback`, `core.torchsim.summary_counts` and ``trace_counts``),
+read here and zeroed by `reset_launch_counts`."""
 
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ __all__ = ["classify", "flash_decode", "host_counts", "launch_counts", "point_co
 
 _COUNTERS = (_segsel.launches, _classify.launches, _zipfprob.launches, _decode_attn.launches,
              _replay.launches)
-_HOST = (_convert.readback, _torchsim.summary_counts)
+_HOST = (_convert.readback, _torchsim.summary_counts, _torchsim.trace_counts)
 
 
 def launch_counts() -> dict:
@@ -44,8 +44,10 @@ def point_counts() -> dict:
 def host_counts() -> dict:
     """The host's counts since the last reset: ``state_readback_bytes``, the
     bytes of state `convert.state_to_numpy` handed to the host;
-    ``fleet_summaries``, the calls of `torchsim.summarize_fleet`; and
-    ``summary_bytes``, the bytes of state its per-volume summaries read."""
+    ``fleet_summaries``, the calls of `torchsim.summarize_fleet`;
+    ``summary_bytes``, the bytes of state its per-volume summaries read; and
+    ``trace_copy_bytes``, the bytes of trace rows the fleet API copied on
+    the host (0 where its row selections were views)."""
     return {k: n for counts in _HOST for k, n in counts.items()}
 
 

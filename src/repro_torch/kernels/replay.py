@@ -196,8 +196,10 @@ def check_inputs(cfg: TorchSimConfig, st: dict, trace, nxt=None) -> Instance:
             and bool((st["p_gcsched"] != GCSCHED_IDS["greedy"]).any())):
         raise ValueError("gc_batch_segments > 1 and fifo_occupancy run under the greedy GC "
                          "schedule only")
-    if trace.numel() and bool(((trace < -1) | (trace >= cfg.n_lbas)).any()):
-        raise ValueError(f"trace LBAs must lie in [0, {cfg.n_lbas}) or be -1 (a pad step)")
+    if trace.numel():   # one reduction, no (V, T) temporary
+        lo, hi = torch.aminmax(trace)
+        if bool((lo < -1) | (hi >= cfg.n_lbas)):
+            raise ValueError(f"trace LBAs must lie in [0, {cfg.n_lbas}) or be -1 (a pad step)")
     ids = torch.unique(st["p_scheme"]).tolist()
     check_ids(ids)
     fk = FK in ids

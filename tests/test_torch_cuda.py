@@ -929,9 +929,11 @@ def test_fleet_spans_hold_host_work_only_on_the_card(card):
     """A small sweep profiled on the card: the port's spans (``repro_torch.``
     ranges) are host rows only, never device rows (a range that enclosed
     device work would be one too), and on the profiler's one clock the
-    traces' gathers and the LBA check end before the first host-to-device
-    copy (the trace's upload among them) starts, and the summaries start
-    after the last device-to-host copy (the state's read-back) ends."""
+    traces' gathers end before the first host-to-device copy (the trace's
+    upload) starts, the LBA check (the host's wait for the card's verdict on
+    the uploaded trace) starts after every upload begun before it has ended,
+    and the summaries start after the last device-to-host copy (the state's
+    read-back) ends."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import fleetshard
@@ -953,11 +955,32 @@ def test_fleet_spans_hold_host_work_only_on_the_card(card):
             spans.setdefault(e.name.removeprefix("repro_torch.fleet."), []).append(row[1:])
     assert not [name for name, _, _ in device if name.startswith("repro_torch.")]
     assert set(spans) == {"gather", "check_lbas", "summaries", "sweep_summary"}
-    uploads = [s for name, s, _ in device if name.startswith("Memcpy HtoD")]
+    uploads = sorted((s, e) for name, s, e in device if name.startswith("Memcpy HtoD"))
     readbacks = [e for name, _, e in device if name.startswith("Memcpy DtoH")]
     assert uploads and readbacks
-    assert max(e for k in ("gather", "check_lbas") for _, e in spans[k]) <= min(uploads)
+    assert max(e for _, e in spans["gather"]) <= uploads[0][0]
+    for start, _ in spans["check_lbas"]:
+        assert all(e <= start for s, e in uploads if s <= start)
     assert min(s for s, _ in spans["summaries"]) >= max(readbacks)
+
+
+@pytest.mark.parametrize("entry", ["run_fleet", "run_fleet_step", "simulate_fleet_sweep"])
+def test_an_lba_of_n_lbas_is_refused_on_the_card(card, entry):
+    """The LBA check runs on the uploaded trace: an LBA of ``n_lbas`` is
+    refused with the CPU's ValueError and message, before any launch."""
+    from repro_torch.core import fleetshard
+    traces = torchsim.pad_fleet(make_fleet("mixed", 4, 64, 2 * 64, jitter=0.25, seed=63))
+    traces[-1, -1] = 64
+    cfg = TorchSimConfig(n_lbas=64, segment_size=8)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match=r"^trace LBAs must lie in \[0, 64\)$"):
+        if entry == "simulate_fleet_sweep":
+            fleetshard.simulate_fleet_sweep(traces, cfg, schemes=["sepbit"], selectors=["greedy"],
+                                            gp_thresholds=[0.1, 0.2], device=card)
+        else:
+            torchsim.run_fleet(cfg, traces, device=card,
+                               engine="step" if entry == "run_fleet_step" else "replay")
+    assert not any(ops.launch_counts().values())
 
 
 # -- the legacy GC engine (the step engine on the card) --------------------------

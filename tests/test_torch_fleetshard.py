@@ -3,7 +3,10 @@ against the JAX package's on the CPU: the policy encoders and configs equal,
 grouped and ungrouped hetero replays and sweeps bit-equal to JAX on every
 state key (``lat_*`` and ``sch_*`` included, stateful schemes on the step
 engine), the split across two devices equal to one, and the committed
-latency bench (``BENCH_gc_latency.json``) reproduced cell for cell."""
+latency bench (``BENCH_gc_latency.json``) reproduced cell for cell; the
+traces' rows handed to each replay as views of the caller's fleet where they
+are contiguous, and the LBA check made on the uploaded trace before any
+state."""
 
 import dataclasses
 import json
@@ -11,13 +14,16 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import fleetshard as jfs
 from repro.core.jaxsim import JaxSimConfig
 from repro.core.tracegen import make_fleet, tiled_fleet
 from repro_torch import convert
 from repro_torch.core import fleetshard as tfs
-from repro_torch.core.config import TorchSimConfig
+from repro_torch.core import torchsim
+from repro_torch.core.config import TorchSimConfig, init_state
+from repro_torch.kernels import ops
 
 ROOT = Path(__file__).resolve().parents[1]
 N, SEG = 128, 8
@@ -192,3 +198,106 @@ def test_latency_bench_reproduced():
         [3.559956, 2.831606, 2.84493, 2.102887]
     assert by[("rate_limited", "nosep")]["p99"] == pytest.approx(4.757, abs=1e-3)
     assert by[("idle_window", "fk")]["p99"] == 1.0
+
+
+# -- trace preparation: row views and the LBA check ---------------------------
+
+def _grid(schemes):
+    return lambda: tfs.policy_grid(schemes, ["greedy"], [0.1, 0.2], volumes_per_cell=2)[0]
+
+
+def _interleaved():
+    return tfs.encode_policies(4, schemes=["sepbit", "nosep", "sepbit", "nosep"],
+                               gp_thresholds=[0.1, 0.1, 0.2, 0.2])
+
+
+# (policy, devices, rows copied on the host: 0 for views, else the whole fleet once)
+LAYOUTS = {
+    "one_scheme_sweep": (_grid(["sepbit"]), ["cpu"], False),
+    "cell_major_schemes": (_grid(["sepbit", "nosep", "dac"]), ["cpu"], False),
+    "two_way_split": (_grid(["sepbit"]), ["cpu", "cpu"], False),
+    "interleaved": (_interleaved, ["cpu"], True),
+    "interleaved_two_way_split": (_interleaved, ["cpu", "cpu"], True),
+}
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_group_and_chunk_rows_are_views_of_the_callers_fleet(monkeypatch, layout):
+    """Every trace matrix `run_fleet` gets shares memory with the caller's
+    fleet where the rows of its group and chunk are contiguous (the cell-major
+    grid, `np.array_split`'s chunks), and the host copies nothing; rows
+    interleaved across groups are copied once, the chunks of such a group
+    being slices of its copy; either way the result equals the ungrouped
+    replay's."""
+    make_policy, devices, copies = LAYOUTS[layout]
+    policy = make_policy()
+    fleet = torchsim.pad_fleet(make_fleet("mixed", policy.n_volumes, 32, 64, jitter=0.25,
+                                          seed=45))
+    cfg = TorchSimConfig(n_lbas=32, segment_size=4)
+    seen, run_fleet = [], torchsim.run_fleet
+
+    def recording(cfg, traces, *a, **kw):
+        seen.append((np.shares_memory(traces, fleet), traces.flags.c_contiguous))
+        return run_fleet(cfg, traces, *a, **kw)
+    monkeypatch.setattr(torchsim, "run_fleet", recording)
+    ops.reset_launch_counts()
+    res, st = tfs.simulate_fleet_hetero(fleet, cfg, policy, devices=devices, engine="step",
+                                        return_state=True)
+    copied = ops.host_counts()["trace_copy_bytes"]
+    assert len(seen) == len(tfs.scheme_groups(policy)) * len(devices)
+    assert seen == [(not copies, True)] * len(seen)
+    assert copied == (fleet.size * 4 if copies else 0)
+    monkeypatch.setattr(torchsim, "run_fleet", run_fleet)
+    want, want_st = tfs.simulate_fleet_hetero(fleet, cfg, policy, devices=devices, group=False,
+                                              engine="step", return_state=True)
+    assert res["volumes"] == want["volumes"]
+    _assert_states_equal(st, want_st)
+
+
+def _check_fleet():
+    """Four volumes with pad steps under sepbit, fk (its next-write stream
+    made from the trace) and sfs (its refresh steps read from it)."""
+    traces = torchsim.pad_fleet(make_fleet("mixed", 4, 32, 64, jitter=0.3, seed=46))
+    policy = tfs.encode_policies(4, schemes=["sepbit", "fk", "sfs", "sepbit"])
+    cfg = tfs.hetero_config(TorchSimConfig(n_lbas=32, segment_size=4, sfs_resample=16), policy)
+    return cfg, traces, policy.as_state_arrays()
+
+
+@pytest.mark.parametrize("engine", ["replay", "step"])
+@pytest.mark.parametrize("start", ["policies", "state"])
+def test_run_fleet_refuses_an_lba_of_n_lbas_before_any_state(monkeypatch, engine, start):
+    """An LBA of ``n_lbas`` in the last step of the last volume: the same
+    ValueError and message on either engine, raised before a state is made
+    or copied, a passed state left as it was."""
+    cfg, traces, pol = _check_fleet()
+    traces[-1, -1] = cfg.n_lbas
+    state = init_state(cfg, pol, "cpu")
+    before = {k: v.clone() for k, v in state.items()}
+    made = []
+    for name in ("init_state", "own_state"):
+        monkeypatch.setattr(torchsim, name, lambda *a, _n=name, **kw: made.append(_n))
+    kw = {"policies": pol} if start == "policies" else {"state": state}
+    with pytest.raises(ValueError, match=r"^trace LBAs must lie in \[0, 32\)$"):
+        torchsim.run_fleet(cfg, traces, device="cpu", engine=engine, **kw)
+    assert made == []
+    assert all(torch.equal(state[k], before[k]) for k in before)
+
+
+def test_a_cpu_replay_reads_the_callers_trace_and_leaves_it_as_it_was(monkeypatch):
+    """On the CPU the replay's trace tensor is the caller's array itself (no
+    host copy), and after the step engine has replayed it (fk's stream and
+    sfs's refresh steps made from it) the array is bit-equal to a copy taken
+    before."""
+    cfg, traces, pol = _check_fleet()
+    kept = traces.copy()
+    shared, replay = [], torchsim._replay
+
+    def recording(cfg, st, trace, *a, **kw):
+        shared.append(np.shares_memory(trace.numpy(), traces))
+        return replay(cfg, st, trace, *a, **kw)
+    monkeypatch.setattr(torchsim, "_replay", recording)
+    ops.reset_launch_counts()
+    st = torchsim.run_fleet(cfg, traces, pol, device="cpu")
+    assert shared == [True] and ops.host_counts()["trace_copy_bytes"] == 0
+    assert int(st["reclaimed"].sum()) > 0
+    np.testing.assert_array_equal(traces, kept)

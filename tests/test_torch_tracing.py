@@ -6,8 +6,8 @@ traced through ``portbench.run.run_cell``: the five metrics that read the
 spans and counters are reported, the spans on the cell's path are host rows
 of the trace with no ``aten::`` row inside any of them (on the CPU every
 torch op is such a row, so a span that held one would hold device work on
-the card), and the counters equal the final states' bytes and 84 B a
-volume. A grouped sweep with fk opens every span the port has; the readers
+the card), the counters equal the final states' bytes and 84 B a volume,
+and no trace row is copied on the host. A grouped sweep with fk opens every span the port has; the readers
 give None on a trace or a port without them."""
 
 import sys
@@ -117,6 +117,13 @@ def test_state_readback_bytes_are_the_final_states_bytes(traced, name):
     assert counts["state_readback_bytes"] == sum(sum(s.values()) for s in states)
     assert run["res"]["metrics"]["readback_mb"]["value"] == (
         counts["state_readback_bytes"] / counts["fleet_summaries"] / 1e6)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_the_cells_copy_no_trace_rows_on_the_host(traced, name):
+    """One scheme group on one device, or a fleet matrix as it is: every
+    row selection is a view, and no trace row is copied on the host."""
+    assert traced[name]["counts"]["trace_copy_bytes"] == 0
 
 
 @pytest.mark.parametrize("name", CELLS)
